@@ -1,0 +1,30 @@
+"""PackMamba in PyTorch for one NVIDIA H100 (Hopper, sm_90a).
+
+The port of the JAX package ``repro`` — which stays the reference — module
+by module under the same names. The serving path (packed prefill into
+decode slots, then greedy decode) is ported; its one TPU kernel, the
+``conv1d_pack`` forward, is a CUDA C++ kernel in ``csrc/``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``resolve_device``); on the CPU every kernel wrapper takes its plain
+PyTorch version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` means the card. Raises when the card is asked for and there
+    is none: the port never moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

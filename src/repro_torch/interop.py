@@ -1,0 +1,35 @@
+"""Weights from the JAX package: its parameter tree → the port's state dict.
+
+The JAX tree (as numpy arrays, or anything ``np.asarray`` takes) is
+``{"embed", "units": {"0_mamba": {leaf: (n_layers, …)}}, "final_norm",
+"head"}``: ``jax.vmap`` over the layer init gives every block leaf a
+leading layer axis. The port keeps one ``ParameterDict`` per layer, so
+that axis is split into ``layers.<i>.<leaf>``. Leaf layouts are unchanged:
+both packages store dense weights (din, dout) and apply them as ``x @ W``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+
+def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    """Returns a state dict for ``LM(cfg, device).load_state_dict``."""
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    units = tree["units"]["0_mamba"]
+    out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
+           "head": t(tree["head"])}
+    for k, v in units.items():
+        v = np.asarray(v)
+        if v.shape[0] != cfg.n_layers:
+            raise ValueError(f"units leaf {k!r} has {v.shape[0]} layers, "
+                             f"config {cfg.name} has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{k}"] = t(v[i])
+    return out

@@ -1,0 +1,1 @@
+"""Hopper kernels of the port, their plain versions and the oracles."""

@@ -1,0 +1,178 @@
+"""The Mamba-1 language model (port of ``repro.models.lm`` for family
+``mamba``): embedding → ``n_layers`` Mamba blocks → RMSNorm → head.
+
+``LM`` is an ``nn.Module`` that holds its parameters under the JAX
+package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
+``head``); ``interop.params_from_jax`` maps a JAX tree onto them. The
+parameters do not track gradients: this slice serves.
+
+Caches and harvested states keep the JAX package's stacked layout with the
+layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
+"ssm": (n_layers, slots, di, N)}`` and a packed prefill's states carry
+``(n_layers, B, S, …)``. ``decode_step`` and ``scatter_into_cache`` update
+the cache in place (JAX's versions return a new one), so the engine holds
+one cache's worth of device memory.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks as B
+from repro_torch.models.blocks import Ctx
+
+
+class LM(nn.Module):
+    """Built on ``device`` (default ``cuda``; raises when there is no card).
+    The parameters are allocated, not initialised: call ``init(generator)``
+    or ``load_state_dict(interop.params_from_jax(...))``."""
+
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        if cfg.family != "mamba":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the port serves Mamba-1 only")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        pdt = getattr(torch, cfg.param_dtype)
+
+        def param(shape):
+            return nn.Parameter(torch.empty(shape, dtype=pdt,
+                                            device=self.device),
+                                requires_grad=False)
+
+        shapes = B.mamba_param_shapes(cfg)
+        self.embed = param((cfg.vocab, cfg.d_model))
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({k: param(s) for k, s in shapes.items()})
+            for _ in range(cfg.n_layers))
+        self.final_norm = param((cfg.d_model,))
+        self.head = param((cfg.d_model, cfg.vocab))
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LM":
+        """Random weights from the JAX package's distributions. The
+        generator must live on the model's device."""
+        cfg, dev = self.cfg, self.device
+        self.embed.copy_(B._randn(generator, self.embed.shape, dev) * 0.02)
+        for layer in self.layers:
+            for k, v in B.init_mamba(cfg, generator, dev).items():
+                layer[k].copy_(v)
+        self.final_norm.fill_(1.0)
+        self.head.copy_(B._randn(generator, self.head.shape, dev)
+                        * cfg.d_model ** -0.5)
+        return self
+
+    # ------------------------------------------------------------- embedding
+    def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                   else v, device=self.device)
+                for k, v in batch.items()}
+
+    def _embed(self, tokens) -> torch.Tensor:
+        return self.embed[tokens.long()].to(getattr(torch, self.cfg.dtype))
+
+    def _ctx(self, batch) -> Ctx:
+        return Ctx(positions=batch.get("positions"),
+                   segment_ids=batch.get("segment_ids"))
+
+    def _logits(self, x) -> torch.Tensor:
+        return (x @ self.head.to(x.dtype)).float()
+
+    # ----------------------------------------------------------- forward
+    def _stack(self, x, ctx) -> torch.Tensor:
+        for p in self.layers:
+            x = B.apply_mamba(p, x, ctx, self.cfg)
+        return B._norm(self.final_norm, x, self.cfg.norm_eps)
+
+    def forward(self, batch) -> torch.Tensor:
+        """Full logits (B, L, V) f32 — small models and tests only."""
+        batch = self._batch(batch)
+        x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
+        return self._logits(x)
+
+    def _collect(self, x, ctx, ends=None):
+        convs, ssms = [], []
+        for p in self.layers:
+            x, st = B.apply_mamba(p, x, ctx, self.cfg, collect=True,
+                                  collect_ends=ends)
+            convs.append(st["conv"])
+            ssms.append(st["ssm"])
+        x = B._norm(self.final_norm, x, self.cfg.norm_eps)
+        return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+
+    def prefill(self, batch):
+        """Serving prefill of left-aligned prompts, one per row
+        (segment_ids mark validity): one forward that also hands off every
+        layer's decode cache. Returns (last_logits (B, V), cache,
+        cache_len (B,))."""
+        batch = self._batch(batch)
+        lens = (batch["segment_ids"] > 0).sum(-1).to(torch.int32)
+        x, cache = self._collect(self._embed(batch["tokens"]),
+                                 self._ctx(batch))
+        xlast = x[torch.arange(x.shape[0], device=x.device),
+                  (lens.long() - 1).clamp(min=0)]
+        return self._logits(xlast), cache, lens
+
+    def prefill_packed(self, batch, ends):
+        """Packed multi-prompt prefill: ONE forward over packed rows that
+        hands off a decode state for every segment. ``ends`` (B, S) is each
+        segment's last-token index in its row (−1 = absent).
+
+        Returns (logits (B, S, V) at segment ends, zeros where absent;
+        states {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
+        di, N)}; seg_lens (B, S) int32, 0 where absent)."""
+        batch = self._batch(batch)
+        ends = torch.as_tensor(ends, device=self.device)
+        ctx = self._ctx(batch)
+        x, states = self._collect(self._embed(batch["tokens"]), ctx, ends)
+        L = x.shape[1]
+        xe = x[torch.arange(x.shape[0], device=x.device)[:, None],
+               ends.long().clamp(0, L - 1)]
+        logits = torch.where((ends >= 0)[..., None], self._logits(xe), 0.0)
+        return logits, states, B._ends_lens(ctx, ends)
+
+    def scatter_into_cache(self, cache, states, src, dst):
+        """Land harvested per-segment states in decode slots, in place.
+
+        states: from ``prefill_packed``; src (M,) flat indices into the B·S
+        segment axis; dst (M,) target slots. Entries with dst outside
+        [0, n_slots) are dropped (n_slots is the engine's sentinel).
+        Returns the cache."""
+        src = torch.as_tensor(src, device=self.device).long()
+        dst = torch.as_tensor(dst, device=self.device).long()
+        n_slots = cache["ssm"].shape[1]
+        keep = (dst >= 0) & (dst < n_slots)
+        src, dst = src[keep], dst[keep]
+        for k, c in cache.items():
+            s = states[k]
+            flat = s.reshape((s.shape[0], -1) + tuple(s.shape[3:]))
+            c[:, dst] = flat[:, src].to(c.dtype)
+        return cache
+
+    # ----------------------------------------------------------- decode
+    def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        one = B.init_mamba_cache(self.cfg, batch_size,
+                                 getattr(torch, self.cfg.dtype), self.device)
+        return {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
+                for k, v in one.items()}
+
+    def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None):
+        """tokens_t (B, 1); reset (B,) bool or None. Advances every layer's
+        cache in place; returns (logits (B, V) f32, cache)."""
+        tokens_t = torch.as_tensor(tokens_t, device=self.device)
+        x = self._embed(tokens_t)
+        ctx = Ctx(reset_t=reset)
+        for i, p in enumerate(self.layers):
+            x, st = B.step_mamba(p, x, {"conv": cache["conv"][i],
+                                        "ssm": cache["ssm"][i]}, ctx, self.cfg)
+            cache["conv"][i].copy_(st["conv"])
+            cache["ssm"][i].copy_(st["ssm"])
+        x = B._norm(self.final_norm, x, self.cfg.norm_eps)
+        return self._logits(x[:, 0]), cache
