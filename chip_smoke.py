@@ -3,41 +3,65 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-1. device  — the card's name; ``nvidia-smi``'s name and power limit on a
-             line of their own. No CUDA device: exit 1, no result.
-2. build   — every CUDA source in ``src/repro_torch/csrc`` with ``nvcc``
-             (one process per source, started together).
-3. kernels — each kernel against its plain PyTorch version at the main
-             path's shapes, and timed beside the plain version, the
-             library yardstick and the least time the card could take.
-4. parity  — mamba-1.4b at full width in f32 (TF32 off for matmuls and
-             convolutions): ``prefill_packed`` end logits and states of 4
-             prompts against per-prompt ``prefill``.
-5. engine  — the main path: the continuous-batching engine serving
-             mamba-1.4b at full width in bf16 (48 layers, random weights
-             from seed 0), 12 greedy requests × 16 new tokens. Every
-             kernel launch counter is set to 0 just before and read just
-             after; each kernel of the path must have launched.
+1. device   — the card's name; ``nvidia-smi``'s name and power limit on a
+              line of their own. No CUDA device: exit 1, no result.
+2. build    — every CUDA source in ``src/repro_torch/csrc`` with ``nvcc``
+              (one process per source, started together).
+3. kernels  — each kernel against its plain PyTorch version at the main
+              paths' shapes, in bf16 and f32, timed beside the plain
+              version, the library yardstick (where one PyTorch call
+              computes the same function) and the least time the card could
+              take: #1 conv1d_pack forward (serving), #2 its dx backward,
+              #4 / #6 the blocked selective scan forward / backward
+              (training). The backward kernels run twice and must agree
+              bitwise.
+4. parity   — serving: ``prefill_packed`` end logits and states of 4
+              prompts against per-prompt ``prefill`` (f32, full width).
+5. engine   — the serving main path: the continuous-batching engine on
+              mamba-1.4b (48 layers, bf16, seed 0), 12 greedy requests ×
+              16 new tokens; every launch counter set to 0 just before and
+              read just after (only the conv forward may run).
+6. train_parity — mamba-1.4b at full width, 2 layers, f32 with TF32 off:
+              the loss and every parameter's gradient through the kernels
+              against autograd through the plain ``core/`` conv and scan.
+7. train    — the training main path: mamba-1.4b at full width and depth,
+              bf16 compute, f32 params, random weights from seed 0,
+              ``Trainer`` + ``PackingLoader`` (pack, 2 × 4096, paper
+              lengths from seed 0): 1 warm-up step, then 4 timed steps with
+              every launch counter set to 0 just before and read just after
+              (exact counts per step asserted); one more pack step under
+              ``torch.profiler`` (device time by kernel, the device's busy
+              share); then 2 steps in ``pad`` mode for the paper's
+              comparison.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
-SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096)]   # (rows, L, di)
-MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket
+SFU_PER_SM_CLOCK = 16            # exp2 results per clock per SM (sm_90)
+SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096), (2, 4096, 4096)]
+MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
+TRAIN_SHAPE = (2, 4096, 4096)    # (rows, L, d_inner): mamba-1.4b training
+RAGGED_SHAPE = (2, 997, 4096)    # an L that is no multiple of any tile
 PARITY_TOL = 1e-3                # max |Δ| / max(1, max |ref|), 48 f32 layers
+TRAIN_PARITY_TOL = 1e-3          # max |Δ| / max |ref| per gradient leaf
+BWD_TOL = 1e-3                   # max |Δ| / max(1, max |ref|) per output
+TIMED_STEPS = 4
 
 
 def emit(phase, **kw):
@@ -88,24 +112,31 @@ def graph_ms(fn, iters=50, reps=5):
     return start.elapsed_time(end) / (reps * iters)
 
 
-def conv_inputs(shape, dtype, seed):
-    """x_in as the strided half of an in_proj output; row 0 packs prompts
-    with resets, row 1 is a carried row of a split pack (positions > 0 at
-    its start)."""
+def packed_positions(B, L, seed):
+    """Row 0 packs prompts of 3..L/4 tokens back to back (resets fall
+    inside tiles and chunks); row 1 is a carried row of a split pack
+    (positions > 0 at its start). Every other row packs like row 0."""
     import numpy as np
-    import torch
     from repro_torch.core import packing
-    B, L, D = shape
     rng = np.random.default_rng(seed)
-    lens = rng.integers(3, L // 4, size=16)
+    lens = rng.integers(3, L // 4, size=64)
     lens = lens[:int(np.searchsorted(np.cumsum(lens), L, side="right"))]
     pb = packing.pack([rng.integers(1, 9, size=int(n)) for n in lens], L,
                       policy="sequential", num_rows=B)
     sp = packing.pack_with_split(
         [rng.integers(1, 9, size=n) for n in (L + L // 3, L)], L)
-    pos = pb.positions.copy()
+    pos = np.tile(pb.positions[:1], (B, 1))
     pos[1] = sp.positions[1]
     assert sp.carry_mask[1] and pos[1, 0] > 0
+    return pos
+
+
+def conv_inputs(shape, dtype, seed):
+    """x_in as the strided half of an in_proj output; positions from
+    ``packed_positions``."""
+    import torch
+    B, L, D = shape
+    pos = packed_positions(B, L, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     xz = torch.randn((B, L, 2 * D), generator=g, device="cuda").to(dtype)
     x_in = xz.chunk(2, dim=-1)[0]
@@ -114,18 +145,29 @@ def conv_inputs(shape, dtype, seed):
     return x_in, w, b, torch.as_tensor(pos, device="cuda")
 
 
-def conv_bound_ms(x, w, positions):
-    B, L, D = x.shape
-    es = x.element_size()
-    nbytes = 2 * B * L * D * es + positions.numel() * 4 + (w.numel() + D) * es
-    flops = 2 * w.shape[0] * B * L * D
+def bound_ms(nbytes, flops):
+    """The least time for the work: bytes over the memory rate or f32
+    operations over the f32 rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
 
-def phase_kernels():
+def conv_bound_ms(x, w, positions):
+    B, L, D = x.shape
+    es = x.element_size()
+    return bound_ms(2 * B * L * D * es + positions.numel() * 4
+                    + (w.numel() + D) * es, 2 * w.shape[0] * B * L * D)
+
+
+def timing_iters(shape):
+    """Graph-captured calls per replay: fewer at training size, where each
+    call's outputs are hundreds of MB of the graph's private pool."""
+    return 50 if shape[1] <= 256 else 10
+
+
+def phase_conv_fwd():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
@@ -155,16 +197,461 @@ def phase_kernels():
             bound, by = conv_bound_ms(x, w, pos)
             kern = lambda: kconv.conv1d_pack(x, w, b, pos)
             plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
+            it = timing_iters(shape)
             rows.append({
+                "kernel": "conv1d_pack_fwd",
                 "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                 "max_abs_err": err.max().item(), "tolerance": tol,
-                "kernel_ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-                "library_ms": graph_ms(lib), "bound_ms": bound,
-                "bound_by": by, "kernel_eager_ms": eager_ms(kern),
+                "kernel_ms": graph_ms(kern, it), "plain_ms":
+                graph_ms(plain, it), "library_ms": graph_ms(lib, it),
+                "bound_ms": bound, "bound_by": by,
+                "kernel_eager_ms": eager_ms(kern),
                 "plain_eager_ms": eager_ms(plain),
                 "library_eager_ms": eager_ms(lib)})
             emit("kernels", **rows[-1])
+            del x, y, want, err, xc
     return rows, worst
+
+
+def phase_conv_dx():
+    """Kernel #2 at the training shape and at a ragged L, against
+    ``conv1d_pack_bwd_dx_plain``; twice, bitwise equal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d_pack as kconv
+    rows, worst = [], 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (TRAIN_SHAPE, RAGGED_SHAPE):
+            B, L, D = shape
+            pos = torch.as_tensor(packed_positions(B, L, L), device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(L + 1)
+            dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            w = torch.randn((4, D), generator=g, device="cuda").mul(
+                0.5).to(dtype)
+            dx = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+            again = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+            torch.cuda.synchronize()
+            want = kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
+            err = (dx - want).abs()
+            tol = "1e-5 · (1 + |ref|) (f32 on both sides, taps reordered)"
+            if not bool((err <= 1e-5 * (1 + want.abs())).all()):
+                raise AssertionError(f"conv1d_pack dx kernel disagrees with "
+                                     f"its plain version at {shape} {dtype}: "
+                                     f"max err {err.max().item()}")
+            if not torch.equal(dx, again):
+                raise AssertionError("conv1d_pack dx kernel is not bitwise "
+                                     "repeatable")
+            worst = max(worst, err.max().item())
+            # library yardstick: cuDNN depthwise correlation with the flipped
+            # weights, right-padded, on a reset-free input
+            dyc = dy.transpose(1, 2).contiguous()
+            wf = w.flip(0).t().contiguous()[:, None, :]
+            lib = lambda: F.conv1d(dyc, wf, padding=3, groups=D)
+            es = dy.element_size()
+            bound, by = bound_ms(B * L * D * (es + 4) + B * L * 4
+                                 + 4 * D * es, 2 * 4 * B * L * D)
+            kern = lambda: kconv.conv1d_pack_bwd_dx(dy, w, pos)
+            plain = lambda: kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
+            rows.append({
+                "kernel": "conv1d_pack_bwd_dx", "shape": list(shape),
+                "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err.max().item(), "tolerance": tol,
+                "bitwise_repeat": True,
+                "kernel_ms": graph_ms(kern, 10, 3),
+                "plain_ms": graph_ms(plain, 10, 3),
+                "library_ms": graph_ms(lib, 10, 3), "bound_ms": bound,
+                "bound_by": by, "kernel_eager_ms": eager_ms(kern, 20, 3),
+                "plain_eager_ms": eager_ms(plain, 5, 1),
+                "library_eager_ms": eager_ms(lib, 20, 3)})
+            emit("kernels", **rows[-1])
+            del dy, dx, again, want, err, dyc
+    return rows, worst
+
+
+def exp_floor_ms(n_exp, sfu_rate):
+    """What ``n_exp`` exponentials cost at the special-function unit's
+    rate alone."""
+    return n_exp / sfu_rate * 1e3
+
+
+def scan_inputs(shape, dtype, seed):
+    """u, Δ, dy (B, L, D) in ``dtype``; B and C as strided views of one
+    (B, L, dt_rank + 2N) projection, as the model hands them over; A from
+    the model's init (-(1..N)); D = 1; positions from
+    ``packed_positions``."""
+    import torch
+    B, L, D = shape
+    N, dtr = 16, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    delta = torch.rand(shape, generator=g, device="cuda").mul(0.1).add(
+        1e-3).to(dtype)
+    dbl = torch.randn((B, L, dtr + 2 * N), generator=g,
+                      device="cuda").to(dtype)
+    _, Bm, Cm = dbl.split([dtr, N, N], dim=-1)
+    At = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda")[
+        :, None].repeat(1, D)
+    Dp = torch.ones(D, device="cuda")
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pos = torch.as_tensor(packed_positions(B, L, seed), device="cuda")
+    return u, delta, At, Bm, Cm, Dp, pos, dy
+
+
+def once_ms(fn):
+    """One call between CUDA events (host overhead included): for the
+    plain scans, whose Python step loops are too long to graph-capture."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_scan(sfu_rate):
+    """Kernels #4 and #6 at the training shape and at a ragged L, against
+    their plain versions; the backward twice, bitwise equal."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ksc
+    chunk = ops.SCAN_CHUNK
+    rows, worst = [], {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (TRAIN_SHAPE, RAGGED_SHAPE):
+            B, L, D = shape
+            N, es = 16, torch.tensor([], dtype=dtype).element_size()
+            args = scan_inputs(shape, dtype, seed=L)
+            u, delta, At, Bm, Cm, Dp, pos, dy = args
+            fwd = lambda: ksc.selective_scan_fwd(*args[:7], chunk)
+            y, ck = fwd()
+            torch.cuda.synchronize()
+            (wy, wck), plain_fwd_ms = once_ms(
+                lambda: ksc.selective_scan_fwd_plain(*args[:7], chunk))
+            y32, wy32 = y.float(), wy.float()
+            err_y = (y32 - wy32).abs()
+            scale = wy32.abs().max().item()
+            if dtype == torch.float32:
+                ok = bool((err_y <= 1e-4 * (1 + wy32.abs())).all())
+                tol = "y 1e-4 · (1 + |ref|); ckpts 1e-4 · (1 + |ref|)"
+            else:       # each side rounds its f32 result to bf16 once
+                ok = bool((err_y <= 2.0 ** -7 * wy32.abs()
+                           + 1e-4 * scale).all())
+                tol = ("y 2^-7 · |ref| + 1e-4 · max|ref| (two bf16 "
+                       "roundings); ckpts 1e-4 · (1 + |ref|)")
+            err_ck = (ck - wck).abs()
+            ok = ok and bool((err_ck <= 1e-4 * (1 + wck.abs())).all())
+            if not ok:
+                raise AssertionError(
+                    f"selective_scan forward kernel disagrees with its plain "
+                    f"version at {shape} {dtype}: y {err_y.max().item()}, "
+                    f"ckpts {err_ck.max().item()}")
+            e_fwd = max(err_y.max().item(), err_ck.max().item())
+            worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"],
+                                              e_fwd)
+            del wy, wck, y32, wy32, err_y, err_ck
+            nC, nblk = ck.shape[1], -(-D // ksc.BLOCK_D)
+            io = 2 * B * L * N * es + B * L * 4 + N * D * 4 + D * 4
+            bnd_f, by_f = bound_ms(3 * B * L * D * es + io
+                                   + B * nC * N * D * 4, 6 * B * L * D * N)
+            rows.append({
+                "kernel": "selective_scan_fwd", "shape": list(shape),
+                "dtype": str(dtype).split(".")[-1], "chunk": chunk,
+                "max_abs_err": e_fwd, "tolerance": tol,
+                "kernel_ms": graph_ms(fwd, 10, 3),
+                "kernel_eager_ms": eager_ms(fwd, 10, 2),
+                "plain_ms": plain_fwd_ms, "library_ms": None,
+                "bound_ms": bnd_f, "bound_by": by_f,
+                "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate)})
+            emit("kernels", **rows[-1])
+            bwd = lambda: ksc.selective_scan_bwd(*args[:7], ck, dy, chunk)
+            outs, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            want, plain_bwd_ms = once_ms(
+                lambda: ksc.selective_scan_bwd_plain(*args[:7], ck, dy,
+                                                     chunk))
+            errs = {}
+            for name, got, ref, rep in zip(
+                    ("du", "ddelta", "dB", "dC", "dA", "dD"), outs, want,
+                    again):
+                e = (got - ref).abs().max().item()
+                errs[name] = e
+                if e > BWD_TOL * max(1.0, ref.abs().max().item()):
+                    raise AssertionError(
+                        f"selective_scan backward kernel disagrees with its "
+                        f"plain version at {shape} {dtype}: {name} max err "
+                        f"{e}")
+                if not torch.equal(got, rep):
+                    raise AssertionError(f"selective_scan backward {name} "
+                                         f"is not bitwise repeatable")
+            worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"],
+                                              max(errs.values()))
+            del outs, again, want
+            bnd_b, by_b = bound_ms(
+                3 * B * L * D * es + io + B * nC * N * D * 4
+                + 2 * B * L * D * 4 + 2 * B * nblk * L * N * 4
+                + B * N * D * 4 + B * D * 4, 17 * B * L * D * N)
+            rows.append({
+                "kernel": "selective_scan_bwd", "shape": list(shape),
+                "dtype": str(dtype).split(".")[-1], "chunk": chunk,
+                "max_abs_err": max(errs.values()), "errors": errs,
+                "tolerance": f"{BWD_TOL} · max(1, max|ref|) per output",
+                "bitwise_repeat": True,
+                "kernel_ms": graph_ms(bwd, 10, 3),
+                "kernel_eager_ms": eager_ms(bwd, 10, 2),
+                "plain_ms": plain_bwd_ms, "library_ms": None,
+                "bound_ms": bnd_b, "bound_by": by_b,
+                "exp_floor_ms": exp_floor_ms(2 * B * L * D * N, sfu_rate)})
+            emit("kernels", **rows[-1])
+            del args, u, delta, Bm, Cm, dy, y, ck
+            torch.cuda.empty_cache()
+    return rows, worst
+
+
+LAUNCH_COUNTERS = (("conv1d_pack_fwd", "conv1d_pack", "LAUNCHES"),
+                   ("conv1d_pack_bwd_dx", "conv1d_pack", "LAUNCHES_DX"),
+                   ("selective_scan_fwd", "selective_scan", "LAUNCHES_FWD"),
+                   ("selective_scan_bwd", "selective_scan", "LAUNCHES_BWD"))
+
+
+def _counter_modules():
+    from repro_torch.kernels import conv1d_pack, selective_scan
+    return {"conv1d_pack": conv1d_pack, "selective_scan": selective_scan}
+
+
+def read_launches():
+    mods = _counter_modules()
+    return {name: getattr(mods[m], attr)
+            for name, m, attr in LAUNCH_COUNTERS}
+
+
+def zero_launches():
+    mods = _counter_modules()
+    for _, m, attr in LAUNCH_COUNTERS:
+        setattr(mods[m], attr, 0)
+
+
+@contextlib.contextmanager
+def plain_path():
+    """The model's blocks call the plain ``core/`` conv and scan (plain
+    PyTorch, differentiated by autograd) instead of the kernel wrappers:
+    the reference of the training parity phase."""
+    from repro_torch.core import conv as core_conv
+    from repro_torch.core import ssm as core_ssm
+    from repro_torch.models import blocks
+    saved = blocks.kops
+    blocks.kops = types.SimpleNamespace(
+        conv1d_pack=core_conv.conv1d_pack,
+        selective_scan=lambda u, dt, A, B, C, D, positions: (
+            core_ssm.selective_scan(u, dt, A, B, C, D, positions=positions,
+                                    method="blocked", chunk=64)))
+    try:
+        yield
+    finally:
+        blocks.kops = saved
+
+
+def train_loader(cfg, mode, seq_len=4096, rows=2, seed=0):
+    from repro_torch.data.dataset import (PAPER_LEN_MAX, CorpusConfig,
+                                          SyntheticCorpus)
+    from repro_torch.data.packing_loader import LoaderConfig, PackingLoader
+    corpus = SyntheticCorpus(CorpusConfig(
+        vocab=cfg.vocab, seed=seed, len_max=min(PAPER_LEN_MAX, seq_len)))
+    return PackingLoader(corpus, LoaderConfig(rows=rows, seq_len=seq_len,
+                                              mode=mode))
+
+
+def phase_train_parity(layers=2, seq_len=2048):
+    """Full-width mamba-1.4b, ``layers`` deep, f32 (TF32 off): loss and
+    every gradient through the kernels against the plain path."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import LM
+    cfg = dataclasses.replace(get_config("mamba-1.4b"), n_layers=layers,
+                              dtype="float32")
+    model = LM(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(1))
+    batch = train_loader(cfg, "pack", seq_len).batch(0)
+    params = dict(model.named_parameters())
+
+    def loss_and_grads():
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), dict(zip(params, grads))
+
+    before = read_launches()
+    k_loss, k_grads = loss_and_grads()
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in read_launches().items()}
+    if not all(ran.values()):
+        raise AssertionError(f"the kernel path skipped a kernel: {ran}")
+    with plain_path():
+        p_loss, p_grads = loss_and_grads()
+    if read_launches() != {k: before[k] + ran[k] for k in ran}:
+        raise AssertionError("the plain path launched a kernel")
+    loss_err = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
+    worst, worst_leaf = 0.0, None
+    for k, ref in p_grads.items():
+        scale = ref.abs().max().item()
+        e = (k_grads[k] - ref).abs().max().item() / max(scale, 1e-30)
+        if e > worst:
+            worst, worst_leaf = e, k
+    del model, params, k_grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if loss_err > 1e-5 or worst > TRAIN_PARITY_TOL:
+        raise AssertionError(f"kernel-path training differs from the plain "
+                             f"path: loss {loss_err}, gradient {worst} at "
+                             f"{worst_leaf}")
+    return {"arch": cfg.name, "layers": layers, "rows": 2,
+            "seq_len": seq_len, "dtype": "float32", "tf32": "off",
+            "loss_kernel": k_loss.item(), "loss_plain": p_loss.item(),
+            "loss_rel_err": loss_err, "loss_tolerance": 1e-5,
+            "grad_max_rel_err": worst, "grad_worst_leaf": worst_leaf,
+            "grad_tolerance": f"{TRAIN_PARITY_TOL} · max|ref| per leaf",
+            "launches_kernel_path": ran}
+
+
+KERNEL_GROUPS = (("scan_bwd_kernel", "scan bwd #6"),
+                 ("scan_fwd_kernel", "scan fwd #4"),
+                 ("conv1d_pack_bwd_dx", "conv dx #2"),
+                 ("conv1d_pack_fwd", "conv fwd #1"),
+                 ("gemm", "matmul"), ("nvjet", "matmul"),
+                 ("xmma", "matmul"), ("cutlass", "matmul"),
+                 ("reduce", "reductions"), ("index", "index/gather"),
+                 ("scatter", "index/gather"), ("gather", "index/gather"),
+                 ("elementwise", "elementwise"), ("vectorized", "elementwise"),
+                 ("copy", "copies"))
+
+
+def kernel_group(name):
+    low = name.lower()
+    return next((g for key, g in KERNEL_GROUPS if key in low), "other")
+
+
+def profile_step(step_fn, state, batch):
+    """One train step under ``torch.profiler``: device time by kernel group
+    and by kernel (the trace's CUDA events), and the device's busy share —
+    the union of kernel intervals over the step's host-clock wall time,
+    which the profiler's own host overhead lengthens."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return state, {"measured": False,
+                       "why": "the trace holds no device events"}
+    by_name, by_group = {}, {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        n, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (n + us, c + 1)
+        g = kernel_group(e.name)
+        by_group[g] = by_group.get(g, 0.0) + us / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return state, {
+        "measured": True, "wall_ms": wall_ms,
+        "kernel_ms_sum": sum(v[0] for v in by_name.values()) / 1e3,
+        "busy_ms": busy / 1e3, "busy_share_of_wall": busy / 1e3 / wall_ms,
+        "busy_share_of_kernel_window": busy / max(window, 1e-9),
+        "kernels": len(kernels),
+        "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
+
+
+def phase_train(steps=TIMED_STEPS):
+    """The training main path at mamba-1.4b's full width and depth."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba-1.4b")
+    model = LM(cfg)
+    opt = AdamW(cosine_schedule(3e-4, warmup=1, total=steps + 3))
+    trainer = Trainer(model, opt, train_loader(cfg, "pack"),
+                      TrainerConfig(steps=1))
+    state, warm = trainer.train(
+        torch.Generator(device="cuda").manual_seed(0), verbose=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    trainer.cfg.steps = 1 + steps
+    t0 = time.perf_counter()
+    state, hist = trainer.train(state=state, start_step=1, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.n_layers
+    want = {"conv1d_pack_fwd": 2 * L * steps,        # forward + recompute
+            "conv1d_pack_bwd_dx": L * steps,
+            "selective_scan_fwd": 2 * L * steps,
+            "selective_scan_bwd": L * steps}
+    if launches != want:
+        raise AssertionError(f"training launched {launches}, remat='unit' "
+                             f"over {L} layers × {steps} steps implies "
+                             f"{want}")
+    losses = [warm[0]["loss"]] + [h["loss"] for h in hist]
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    step_ms = sum(h["step_ms"] for h in hist)
+    real = sum(h["real_tokens"] for h in hist)
+    buf = sum(h["buffer_tokens"] for h in hist)
+    state, profiled = profile_step(trainer.step_fn, state,
+                                   trainer.loader.batch(1 + steps))
+    # the paper's comparison (a smoke reading): one sequence per row
+    pad = Trainer(model, opt, train_loader(cfg, "pad"),
+                  TrainerConfig(steps=2))
+    state, phist = pad.train(state=state, verbose=False)
+    pad_ms = sum(h["step_ms"] for h in phist)
+    out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "remat": cfg.remat, "rows": 2, "seq_len": 4096, "mode": "pack",
+           "warmup_steps": 1, "timed_steps": steps, "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "ms_per_step": step_ms / steps,
+           "step_ms": [h["step_ms"] for h in hist],
+           "data_ms_per_step": sum(h["data_ms"] for h in hist) / steps,
+           "real_tok_per_s": real / step_ms * 1e3,
+           "buffer_tok_per_s": buf / step_ms * 1e3,
+           "real_fraction": real / buf, "timed_wall_s": wall,
+           "max_memory_allocated_gib": peak, "launches": launches,
+           "launches_per_step": {k: v // steps for k, v in
+                                 launches.items()},
+           "pad_losses": [h["loss"] for h in phist],
+           "pad_ms_per_step": pad_ms / len(phist),
+           "pad_real_tok_per_s": sum(h["real_tokens"] for h in phist)
+           / pad_ms * 1e3,
+           "pad_real_fraction": sum(h["real_tokens"] for h in phist)
+           / sum(h["buffer_tokens"] for h in phist),
+           "profile": profiled}
+    del state, trainer, pad, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def phase_parity(model_bf16, cfg):
@@ -210,7 +697,6 @@ def phase_parity(model_bf16, cfg):
 def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0):
     import numpy as np
     import torch
-    from repro_torch.kernels import conv1d_pack as kconv
     from repro_torch.launch.serve import ServeEngine
     finite = []
     prefill_packed, decode_step = model.prefill_packed, model.decode_step
@@ -243,12 +729,15 @@ def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     finite.clear()
-    kconv.LAUNCHES = 0
+    zero_launches()
     t0 = time.perf_counter()
     outs = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kconv.LAUNCHES
+    counts = read_launches()
+    launches = counts.pop("conv1d_pack_fwd")
+    if any(counts.values()):
+        raise AssertionError(f"serving launched training kernels: {counts}")
     st = engine.stats
     assert all(engine.status[r] == "done" for r in outs), engine.status
     assert [len(outs[r]) for r in sorted(outs)] == [new_tokens] * n_requests
@@ -298,8 +787,19 @@ def main():
     emit("build", seconds=time.perf_counter() - t,
          per_source=_build.build_seconds, libraries=sorted(libs))
 
-    rows, worst = phase_kernels()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    sfu_rate = sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6      # exp / s
+    emit("sfu", sms=sms, max_sm_clock_mhz=clock_mhz, exp_per_s=sfu_rate)
 
+    conv_rows, conv_worst = phase_conv_fwd()
+    dx_rows, dx_worst = phase_conv_dx()
+    scan_rows, scan_worst = phase_scan(sfu_rate)
+
+    # serving first, from the same state as before training existed
     cfg = get_config("mamba-1.4b")
     model = LM(cfg)
     model.init(torch.Generator(device=model.device).manual_seed(0))
@@ -310,22 +810,60 @@ def main():
     eng = phase_engine(model, cfg)
     emit("engine", arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
          d_model=cfg.d_model, **eng)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    main_row = next(r for r in rows if r["shape"] == list(MAIN_SHAPE)
+    tp = phase_train_parity()
+    emit("train_parity", **tp)
+    tr = phase_train()
+    prof = tr.pop("profile")
+    emit("train", **tr)
+    emit("train_profile", **prof)
+
+    def main_row(rows, shape):
+        return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
-    print(json.dumps({"kernels": [{
-        "name": "conv1d_pack_fwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/conv1d_pack.cu",
-        "replaces": "src/repro/kernels/conv1d_pack.py:36",
-        "launches": eng["conv1d_pack_launches"],
-        "launches_per_prefill": cfg.n_layers,
-        "max_abs_err": worst,
-        "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "at": {"shape": main_row["shape"], "dtype": main_row["dtype"]}}]}),
-        flush=True)
+
+    def entry(name, src, replaces, row, launches, worst, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": worst, "ms": row["kernel_ms"],
+                "kernel_ms": row["kernel_ms"],
+                "kernel_eager_ms": row["kernel_eager_ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "at": {"shape": row["shape"], "dtype": row["dtype"]},
+                **extra}
+
+    launches = tr["launches"]
+    fwd_row = main_row([r for r in scan_rows
+                        if r["kernel"] == "selective_scan_fwd"], TRAIN_SHAPE)
+    bwd_row = main_row([r for r in scan_rows
+                        if r["kernel"] == "selective_scan_bwd"], TRAIN_SHAPE)
+    print(json.dumps({"kernels": [
+        entry("conv1d_pack_fwd", "conv1d_pack.cu",
+              "src/repro/kernels/conv1d_pack.py:36",
+              main_row(conv_rows, MAIN_SHAPE), eng["conv1d_pack_launches"],
+              conv_worst, launches_per_prefill=cfg.n_layers,
+              launches_train=launches["conv1d_pack_fwd"],
+              train_ms=main_row(conv_rows, TRAIN_SHAPE)["kernel_ms"]),
+        entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
+              "src/repro/kernels/conv1d_pack.py:83",
+              main_row(dx_rows, TRAIN_SHAPE),
+              launches["conv1d_pack_bwd_dx"], dx_worst),
+        entry("selective_scan_fwd", "selective_scan.cu",
+              "src/repro/kernels/selective_scan.py:153", fwd_row,
+              launches["selective_scan_fwd"],
+              scan_worst["selective_scan_fwd"],
+              exp_floor_ms=fwd_row["exp_floor_ms"]),
+        entry("selective_scan_bwd", "selective_scan.cu",
+              "src/repro/kernels/selective_scan.py:525", bwd_row,
+              launches["selective_scan_bwd"],
+              scan_worst["selective_scan_bwd"],
+              exp_floor_ms=bwd_row["exp_floor_ms"])]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

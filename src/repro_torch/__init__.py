@@ -1,9 +1,11 @@
 """PackMamba in PyTorch for one NVIDIA H100 (Hopper, sm_90a).
 
 The port of the JAX package ``repro`` — which stays the reference — module
-by module under the same names. The serving path (packed prefill into
-decode slots, then greedy decode) is ported; its one TPU kernel, the
-``conv1d_pack`` forward, is a CUDA C++ kernel in ``csrc/``.
+by module under the same names. Ported: the serving path (packed prefill
+into decode slots, then greedy decode) and the packed training step
+(loader → ``LM.loss`` → backward → AdamW). Their TPU kernels are CUDA C++
+kernels in ``csrc/``: the ``conv1d_pack`` forward and dx backward, and the
+blocked selective scan forward and backward.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``resolve_device``); on the CPU every kernel wrapper takes its plain

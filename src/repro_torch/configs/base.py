@@ -1,8 +1,10 @@
 """ArchConfig for the port: the Mamba-1 fields of ``repro.configs.base``.
 
 A copy, not an import: the port runs where JAX is not installed. Only what
-the serving slice reads is kept. There is no ``use_pallas``: the device of
-the tensor picks the kernel (CUDA) or its plain version (CPU).
+the serving and training slices read is kept. There is no ``use_pallas``
+or ``pallas_schedule``: the device of the tensor picks the kernel (CUDA) or
+its plain version (CPU), and the scan kernels are the ``blocked``
+schedule's.
 """
 from __future__ import annotations
 
@@ -28,10 +30,12 @@ class ArchConfig:
     # execution
     dtype: str = "bfloat16"           # activation/compute dtype
     param_dtype: str = "float32"
-    scan_chunk: int = 256             # chunk length of the blocked scan
+    scan_chunk: int = 256             # chunk length of the plain blocked
+    #                                   scan (serving's state handoff)
     scan_impl: str = "blocked"        # blocked | sequential
     scan_intra: Optional[str] = None  # blocked in-chunk evaluator: None =
     #                                   "assoc" | "matmul"
+    remat: str = "unit"               # none | unit (checkpoint each layer)
 
     @property
     def dtr(self) -> int:

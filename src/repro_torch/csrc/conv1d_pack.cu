@@ -28,6 +28,19 @@
 // with pos > 0 and the position test alone would read before the row.
 // x is read through its batch and row strides, so the x half of the
 // in_proj output (a strided view) is taken without a copy.
+//
+// conv1d_pack dx backward: replaces `_bwd_dx_kernel` of the same file
+// (entry `conv1d_pack_bwd_dx_pallas`):
+//
+//   dx[b,t,d] = sum_{k=0..W-1} w[W-1-k,d] * dy[b,t+k,d] * [t+k < L and pos[b,t+k] >= k]
+//
+// accumulated in f32 in k order and written as f32 (dy has x's dtype).
+// Bound by bytes as the forward is. The TPU kernel's reverse halo (the next
+// chunk's first W-1 rows, zeroed at the last chunk) is not needed: a thread
+// reads dy[t+k] directly and stops at the buffer's end by `t+k < L` itself,
+// not through the position mask, so a row whose last segment runs off the
+// buffer (a carried row of a split pack) is right. Grid: one block row per
+// (b, t) and channels across block x, so no thread divides a 64-bit index.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -107,7 +120,78 @@ int launch(const void* x, int64_t x_bstride, int64_t x_lstride,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int W>
+__global__ void conv1d_pack_bwd_dx_kernel(
+    const T* __restrict__ dy, const T* __restrict__ w,
+    const int32_t* __restrict__ pos, int64_t pos_bstride,
+    float* __restrict__ dx, int L, int D) {
+  const int d = blockIdx.y * blockDim.x + threadIdx.x;
+  if (d >= D) return;
+  const int bt = blockIdx.x;            // row-major (b, t)
+  const int b = bt / L, t = bt - b * L;
+  const int32_t* pr = pos + b * pos_bstride;
+  const T* dyr = dy + (int64_t)b * L * D + d;
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int tk = t + k;
+    if (tk < L && pr[tk] >= k)
+      acc = acc + to_f32(w[(W - 1 - k) * D + d])
+                  * to_f32(dyr[(int64_t)tk * D]);
+  }
+  dx[(int64_t)bt * D + d] = acc;
+}
+
+template <typename T>
+int launch_bwd_dx(const void* dy, const void* w, const void* pos,
+                  int64_t pos_bstride, void* dx, int B, int L, int D, int W,
+                  void* stream) {
+  if ((int64_t)B * L * D == 0) return 0;
+  if ((int64_t)B * L > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const dim3 grid((unsigned)(B * L), (unsigned)((D + threads - 1) / threads));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const T* dyp = (const T*)dy;
+  const T* wp = (const T*)w;
+  const int32_t* pp = (const int32_t*)pos;
+  float* dxp = (float*)dx;
+  switch (W) {
+    case 1: conv1d_pack_bwd_dx_kernel<T, 1><<<grid, threads, 0, s>>>(
+        dyp, wp, pp, pos_bstride, dxp, L, D);
+      break;
+    case 2: conv1d_pack_bwd_dx_kernel<T, 2><<<grid, threads, 0, s>>>(
+        dyp, wp, pp, pos_bstride, dxp, L, D);
+      break;
+    case 3: conv1d_pack_bwd_dx_kernel<T, 3><<<grid, threads, 0, s>>>(
+        dyp, wp, pp, pos_bstride, dxp, L, D);
+      break;
+    case 4: conv1d_pack_bwd_dx_kernel<T, 4><<<grid, threads, 0, s>>>(
+        dyp, wp, pp, pos_bstride, dxp, L, D);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// dx entries: dy (B, L, D) contiguous in x's dtype, w (W, D) contiguous,
+// pos (B, L) with unit row stride, dx (B, L, D) contiguous f32.
+extern "C" int conv1d_pack_bwd_dx_f32(
+    const void* dy, const void* w, const void* pos, int64_t pos_bstride,
+    void* dx, int B, int L, int D, int W, void* stream) {
+  return launch_bwd_dx<float>(dy, w, pos, pos_bstride, dx, B, L, D, W,
+                              stream);
+}
+
+extern "C" int conv1d_pack_bwd_dx_bf16(
+    const void* dy, const void* w, const void* pos, int64_t pos_bstride,
+    void* dx, int B, int L, int D, int W, void* stream) {
+  return launch_bwd_dx<__nv_bfloat16>(dy, w, pos, pos_bstride, dx, B, L, D,
+                                      W, stream);
+}
 
 // Plain C entries, one per dtype, bound with ctypes. Strides are in
 // elements; w is (W, D) and bias (D,) contiguous; y is (B, L, D)

@@ -1,0 +1,76 @@
+"""Background-prefetching wrapper for step-keyed loaders (port of
+``repro.data.prefetch`` without its telemetry hook).
+
+Host-side packing costs real milliseconds per step; ``PrefetchLoader``
+overlaps it with the device step by computing the next ``depth`` batches
+on a worker thread while the current one trains.
+
+Determinism: the wrapped loader's ``batch(step)`` must be a pure function
+of ``step`` (``PackingLoader``'s is). The wrapper only memoizes those calls,
+so ``batch(step)`` is bit-identical to the synchronous loader's.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict
+
+
+class PrefetchLoader:
+    """Wrap any loader with ``batch(step)``.
+    ``hits``/``misses`` count batches served from the buffer / computed on
+    the caller's thread; ``wait_ms`` is the time ``batch()`` blocked."""
+
+    def __init__(self, loader: Any, depth: int = 2):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self.loader = loader
+        self.depth = depth
+        self.hits = 0
+        self.misses = 0
+        self.wait_ms = 0.0
+        self._lock = threading.Lock()
+        self._futures: Dict[int, Future] = {}
+        # one worker: the wrapped loader is not assumed thread-safe
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="prefetch")
+
+    def _schedule(self, step: int) -> None:
+        with self._lock:
+            if step not in self._futures:
+                self._futures[step] = self._pool.submit(
+                    self.loader.batch, step)
+
+    def batch(self, step: int):
+        with self._lock:
+            fut = self._futures.pop(step, None)
+        for k in range(step + 1, step + 1 + self.depth):
+            self._schedule(k)
+        t0 = time.perf_counter()
+        if fut is not None:
+            self.hits += 1
+            out = fut.result()
+        else:
+            self.misses += 1
+            out = self.loader.batch(step)
+        self.wait_ms += (time.perf_counter() - t0) * 1e3
+        # a forward-moving loop never asks for these again
+        with self._lock:
+            for k in [k for k in self._futures if k <= step]:
+                self._futures.pop(k)
+        return out
+
+    def __getattr__(self, name):
+        # passthrough (cfg, corpus, ...) for drop-in use
+        return getattr(self.loader, name)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

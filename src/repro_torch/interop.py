@@ -1,4 +1,6 @@
-"""Weights from the JAX package: its parameter tree → the port's state dict.
+"""Between the JAX package's parameter tree and the port's named tensors:
+``params_from_jax`` (JAX tree → state dict) and ``to_jax_tree`` (named
+tensors: parameters, gradients, optimizer moments → the JAX tree layout).
 
 The JAX tree (as numpy arrays, or anything ``np.asarray`` takes) is
 ``{"embed", "units": {"0_mamba": {leaf: (n_layers, …)}}, "final_norm",
@@ -33,3 +35,20 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
         for i in range(cfg.n_layers):
             out[f"layers.{i}.{k}"] = t(v[i])
     return out
+
+
+def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
+    """The inverse map: ``{"embed", "units": {"0_mamba": {leaf: (n_layers,
+    …)}}, "final_norm", "head"}`` of f32 numpy arrays, the layer axis
+    stacked back. Takes any dict keyed like ``LM.named_parameters()``
+    (e.g. the gradients of a train step)."""
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    leaves = sorted({k.split(".", 2)[2] for k in named
+                     if k.startswith("layers.")})
+    units = {leaf: np.stack([a(named[f"layers.{i}.{leaf}"])
+                             for i in range(cfg.n_layers)])
+             for leaf in leaves}
+    return {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
+            "head": a(named["head"]), "units": {"0_mamba": units}}

@@ -1,17 +1,27 @@
-"""conv1d_pack forward: the CUDA kernel (``csrc/conv1d_pack.cu``), its plain
-PyTorch version, and the wrapper that picks one by the tensor's device.
+"""conv1d_pack forward and dx backward: the CUDA kernels
+(``csrc/conv1d_pack.cu``), their plain PyTorch versions, and the wrappers
+that pick one by the tensor's device.
 
-Replaces the Pallas TPU kernel ``_fwd_kernel`` / ``conv1d_pack_fwd_pallas``
-of ``repro.kernels.conv1d_pack``:
+Replaces the Pallas TPU kernels of ``repro.kernels.conv1d_pack``:
+
+* ``_fwd_kernel`` / ``conv1d_pack_fwd_pallas``:
 
     y[b,t,d] = bias[d] + Σ_k w[W-1-k,d]·x[b,t-k,d]·[k==0 or (t-k ≥ 0 and pos[b,t] ≥ k)]
 
-accumulated in f32 (bias first, taps in k order) and cast to x's dtype.
+  accumulated in f32 (bias first, taps in k order), cast to x's dtype;
+* ``_bwd_dx_kernel`` / ``conv1d_pack_bwd_dx_pallas``:
 
-* A CPU tensor takes ``conv1d_pack_plain``.
+    dx[b,t,d] = Σ_k w[W-1-k,d]·dy[b,t+k,d]·[t+k < L and pos[b,t+k] ≥ k]
+
+  accumulated in f32 in k order, returned as f32.
+
+dweight and dbias are plain reductions (``conv1d_pack_bwd_params``), as
+the JAX package leaves them to XLA.
+
+* A CPU tensor takes the plain version.
 * A CUDA tensor launches the kernel or raises; there is no fallback.
-* ``LAUNCHES`` counts kernel launches (and nothing else), so a run can show
-  that its main path went through the kernel.
+* ``LAUNCHES`` (forward) and ``LAUNCHES_DX`` count kernel launches and
+  nothing else, so a run can show that its main path went through them.
 """
 from __future__ import annotations
 
@@ -21,10 +31,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0
+LAUNCHES = 0                      # forward kernel launches
+LAUNCHES_DX = 0                   # dx kernel launches
 MAX_WIDTH = 4                     # the kernel instantiates W = 1..4
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_entries = {}                     # dtype → bound C entry, filled at first use
+_entries = {}                     # (kind, dtype) → C entry, bound at first use
 
 
 def conv1d_pack_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -47,41 +58,91 @@ def conv1d_pack_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def _entry(dtype):
-    """The C entry for ``dtype``, with its ctypes signature declared."""
-    fn = _entries.get(dtype)
+def conv1d_pack_bwd_dx_plain(dy: torch.Tensor, weight: torch.Tensor,
+                             positions: torch.Tensor) -> torch.Tensor:
+    """The dx kernel's arithmetic in PyTorch: f32, taps in k order, the
+    buffer's end masked by t+k < L on its own."""
+    L = dy.shape[1]
+    W = weight.shape[0]
+    dy32, w32 = dy.float(), weight.float()
+    acc = torch.zeros_like(dy32)
+    for k in range(W):
+        seg = torch.zeros_like(dy32)
+        seg[:, :max(L - k, 0)] = dy32[:, k:]
+        ok = torch.zeros_like(positions, dtype=torch.bool)
+        ok[:, :max(L - k, 0)] = positions[:, k:] >= k
+        acc = acc + w32[W - 1 - k] * torch.where(ok[..., None], seg, 0.0)
+    return acc
+
+
+def conv1d_pack_bwd_params(x: torch.Tensor, dy: torch.Tensor,
+                           positions: torch.Tensor, width: int):
+    """dweight (W, D) and dbias (D,) in f32: the forward's taps reduced over
+    (b, t) by plain PyTorch sums (no matmul, no atomics), as
+    ``_conv_bwd_rule`` leaves them to XLA."""
+    L = x.shape[1]
+    x32, dy32 = x.float(), dy.float()
+    dws = []
+    for k in range(width):                  # weight row W-1-k ↔ back-off k
+        shifted = torch.zeros_like(x32)
+        shifted[:, k:] = x32[:, :max(L - k, 0)]
+        masked = torch.where((positions >= k)[..., None], shifted, 0.0)
+        dws.append((dy32 * masked).sum((0, 1)))
+    return torch.stack(dws[::-1]), dy32.sum((0, 1))
+
+
+def _entry(kind, dtype):
+    """The C entry ``conv1d_pack_<kind>_<dtype>``, its ctypes signature
+    declared."""
+    fn = _entries.get((kind, dtype))
     if fn is None:
         fn = getattr(_build.load("conv1d_pack"),
-                     f"conv1d_pack_fwd_{_DTYPES[dtype]}")
+                     f"conv1d_pack_{kind}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = [vp, i64, i64, vp, vp, vp, i64, vp, i32, i32, i32, i32,
-                       vp]
+        fn.argtypes = ([vp, i64, i64, vp, vp, vp, i64, vp, i32, i32, i32,
+                        i32, vp] if kind == "fwd" else
+                       [vp, vp, vp, i64, vp, i32, i32, i32, i32, vp])
         fn.restype = i32
-        _entries[dtype] = fn
+        _entries[(kind, dtype)] = fn
     return fn
 
 
 def _check(x, weight, bias, positions):
+    """Shapes, dtypes and devices both kernels take (bias None: dx)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, L, D), got shape {tuple(x.shape)}")
     B, L, D = x.shape
     if x.dtype not in _DTYPES:
         raise TypeError(f"x dtype {x.dtype} not supported (f32 or bf16)")
-    if weight.dtype != x.dtype or bias.dtype != x.dtype:
-        raise TypeError(f"weight {weight.dtype} and bias {bias.dtype} must "
-                        f"have x's dtype {x.dtype}")
+    if weight.dtype != x.dtype or (bias is not None and
+                                   bias.dtype != x.dtype):
+        raise TypeError(f"weight {weight.dtype} and bias "
+                        f"{None if bias is None else bias.dtype} must have "
+                        f"x's dtype {x.dtype}")
     if weight.dim() != 2 or weight.shape[1] != D or \
             not 1 <= weight.shape[0] <= MAX_WIDTH:
         raise ValueError(f"weight must be (W, {D}) with 1 <= W <= "
                          f"{MAX_WIDTH}, got {tuple(weight.shape)}")
-    if tuple(bias.shape) != (D,):
+    if bias is not None and tuple(bias.shape) != (D,):
         raise ValueError(f"bias must be ({D},), got {tuple(bias.shape)}")
     if tuple(positions.shape) != (B, L) or positions.dtype != torch.int32:
         raise ValueError(f"positions must be int32 ({B}, {L}), got "
                          f"{positions.dtype} {tuple(positions.shape)}")
-    devs = {t.device for t in (x, weight, bias, positions)}
+    devs = {t.device for t in (x, weight, bias, positions) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"conv1d_pack operands on several devices: {devs}")
+
+
+def _check_cuda(name, x, positions):
+    """What both kernels need of a tensor the wrapper will launch on."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if positions.stride(1) != 1:
+        raise ValueError(f"positions needs contiguous rows, got strides "
+                         f"{positions.stride()}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: operands are on {x.device}, the current "
+                         f"CUDA device is cuda:{torch.cuda.current_device()}")
 
 
 def conv1d_pack(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -93,24 +154,17 @@ def conv1d_pack(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _check(x, weight, bias, positions)
     if x.device.type == "cpu":
         return conv1d_pack_plain(x, weight, bias, positions)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1d_pack runs on cuda or cpu, not {x.device}")
+    _check_cuda("conv1d_pack", x, positions)
     if x.stride(2) != 1:
         raise ValueError(f"x needs contiguous channels, got strides "
                          f"{x.stride()}")
     if not (weight.is_contiguous() and bias.is_contiguous()):
         raise ValueError("weight and bias must be contiguous")
-    if positions.stride(1) != 1:
-        raise ValueError(f"positions needs contiguous rows, got strides "
-                         f"{positions.stride()}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {x.device}, the current CUDA device is "
-                         f"cuda:{torch.cuda.current_device()}")
     B, L, D = x.shape
     y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    err = _entry(x.dtype)(
+    err = _entry("fwd", x.dtype)(
         x.data_ptr(), x.stride(0), x.stride(1), weight.data_ptr(),
         bias.data_ptr(), positions.data_ptr(), positions.stride(0),
         y.data_ptr(), B, L, D, weight.shape[0],
@@ -119,3 +173,29 @@ def conv1d_pack(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise RuntimeError(f"conv1d_pack kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return y
+
+
+def conv1d_pack_bwd_dx(dy: torch.Tensor, weight: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """dy (B, L, D) f32|bf16 contiguous | weight (W, D) of dy's dtype |
+    positions (B, L) int32 → dx (B, L, D) f32."""
+    global LAUNCHES_DX
+    _check(dy, weight, None, positions)
+    if dy.device.type == "cpu":
+        return conv1d_pack_bwd_dx_plain(dy, weight, positions)
+    _check_cuda("conv1d_pack_bwd_dx", dy, positions)
+    if not (dy.is_contiguous() and weight.is_contiguous()):
+        raise ValueError("dy and weight must be contiguous")
+    B, L, D = dy.shape
+    dx = torch.empty((B, L, D), dtype=torch.float32, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    err = _entry("bwd_dx", dy.dtype)(
+        dy.data_ptr(), weight.data_ptr(), positions.data_ptr(),
+        positions.stride(0), dx.data_ptr(), B, L, D, weight.shape[0],
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv1d_pack dx kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES_DX += 1
+    return dx

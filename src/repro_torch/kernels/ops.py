@@ -1,10 +1,18 @@
-"""Public wrappers of the kernels (port of ``repro.kernels.ops``).
+"""Public wrappers of the kernels (port of ``repro.kernels.ops``), wired for
+autograd as the JAX package wires ``custom_vjp`` (``_conv_padded``,
+``_scan_padded``).
 
 The JAX package picks a backend by name; here the device of the tensors
-picks it: a CUDA tensor goes to the hand-written kernel, a CPU tensor to
-its plain version (``kernels/conv1d_pack.py``). The selective scan has no
-kernel in this slice and runs the plain ``core/ssm.py`` schedules on either
-device; its Hopper kernels come with the training slice.
+picks it: a CUDA tensor goes to the hand-written kernels, a CPU tensor to
+their plain versions (``kernels/conv1d_pack.py``,
+``kernels/selective_scan.py``). Nothing is padded: the kernels mask a
+ragged L and D themselves.
+
+* ``conv1d_pack``: forward kernel #1; backward dx from kernel #2, dweight
+  and dbias as plain PyTorch sums.
+* ``selective_scan``: forward kernel #4 (y plus the chunk-entry states),
+  backward kernel #6; the backward's per-block dB/dC partials and per-row
+  dA/dD partials are summed here over a fixed axis in a fixed order.
 """
 from __future__ import annotations
 
@@ -12,8 +20,34 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import ssm as core_ssm
 from repro_torch.kernels import conv1d_pack as conv_k
+from repro_torch.kernels import selective_scan as scan_k
+
+SCAN_CHUNK = 64        # checkpoint interval of the scan kernels (a multiple
+#                        of scan_k.TILE_T); the TPU kernels' default is 256
+
+
+class _Conv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, positions):
+        ctx.save_for_backward(x, weight, positions)
+        return conv_k.conv1d_pack(x, weight, bias, positions)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, positions = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv_k.conv1d_pack_bwd_dx(dy, weight, positions)
+        dw, db = conv_k.conv1d_pack_bwd_params(x, dy, positions,
+                                               weight.shape[0])
+        # bias has x's dtype (the kernel wrapper checks it)
+        return dx.to(x.dtype), dw.to(x.dtype), db.to(x.dtype), None
+
+
+def _positions(positions, B, L, device):
+    if positions is None:
+        return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
+    return positions.to(torch.int32)
 
 
 def conv1d_pack(x: torch.Tensor, weight: torch.Tensor,
@@ -24,15 +58,41 @@ def conv1d_pack(x: torch.Tensor, weight: torch.Tensor,
     B, L, D = x.shape
     if bias is None:
         bias = torch.zeros(D, dtype=x.dtype, device=x.device)
-    if positions is None:
-        positions = torch.arange(L, dtype=torch.int32,
-                                 device=x.device).expand(B, L)
-    return conv_k.conv1d_pack(x, weight, bias, positions.to(torch.int32))
+    return _Conv.apply(x, weight, bias, _positions(positions, B, L, x.device))
+
+
+class _Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk):
+        At = A.float().t().contiguous()
+        Dp = D.float().contiguous()
+        y, ckpts = scan_k.selective_scan_fwd(u, delta, At, Bm, Cm, Dp,
+                                             positions, chunk)
+        ctx.save_for_backward(u, delta, At, Bm, Cm, Dp, positions, ckpts)
+        ctx.chunk = chunk
+        ctx.dtypes = (A.dtype, D.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        u, delta, At, Bm, Cm, Dp, positions, ckpts = ctx.saved_tensors
+        du, ddt, dB_p, dC_p, dA_p, dD_p = scan_k.selective_scan_bwd(
+            u, delta, At, Bm, Cm, Dp, positions, ckpts,
+            dy.to(u.dtype).contiguous(), ctx.chunk)
+        a_dt, d_dt = ctx.dtypes
+        return (du.to(u.dtype), ddt.to(delta.dtype),
+                dA_p.sum(0).t().to(a_dt), dB_p.sum(1).to(Bm.dtype),
+                dC_p.sum(1).to(Cm.dtype), dD_p.sum(0).to(d_dt), None, None)
 
 
 def selective_scan(u, delta, A, B, C, D=None, positions=None, *,
-                   method: str = "blocked", chunk: int = 256,
-                   intra: Optional[str] = None):
-    """Segmented selective scan, y only. See ``core/ssm.py``."""
-    return core_ssm.selective_scan(u, delta, A, B, C, D, positions=positions,
-                                   method=method, chunk=chunk, intra=intra)
+                   chunk: int = SCAN_CHUNK):
+    """Segmented selective scan, y only, differentiable. u, delta
+    (B, L, Dm) | A (Dm, N) | B, C (B, L, N), any batch/row strides (the
+    kernels read ``split`` views of x_proj's output as they are) |
+    D (Dm,) or None | positions (B, L) or None (= one segment per row)."""
+    Bz, L, Dm = u.shape
+    if D is None:
+        D = torch.zeros(Dm, dtype=torch.float32, device=u.device)
+    return _Scan.apply(u.contiguous(), delta.contiguous(), A, B, C, D,
+                       _positions(positions, Bz, L, u.device), chunk)

@@ -1,0 +1,279 @@
+"""Selective scan forward and backward: the CUDA kernels
+(``csrc/selective_scan.cu``), their plain PyTorch versions, and the wrappers
+that pick one by the tensor's device.
+
+Replaces the Pallas TPU kernels ``_fwd_kernel_blocked`` and
+``_bwd_kernel_blocked`` of ``repro.kernels.selective_scan`` (entries
+``selective_scan_fwd_pallas`` / ``selective_scan_bwd_pallas`` with
+``schedule="blocked"``) and keeps their contract:
+
+* forward: u, delta (B, L, D) f32|bf16; At (N, D) f32; Bm, Cm (B, L, N) of
+  u's dtype; Dp (D,) f32; positions (B, L) int32 → y (B, L, D) in u's dtype
+  and ckpts (B, ceil(L/chunk), N, D) f32, the state at each chunk's entry;
+* backward: the same inputs, ckpts and dy → du, ddelta (B, L, D) f32; dB
+  and dC partials (B, nblk, L, N) f32, one per block of ``BLOCK_D``
+  channels; dA partial (B, N, D) f32; dD partial (B, D) f32. The caller
+  sums the partials (``kernels/ops.py``) in a fixed order.
+
+Neither pads: a ragged L and D are masked inside. ``chunk`` is any length
+for the forward and a multiple of ``TILE_T`` for the backward.
+
+* A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+  or raises.
+* ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches and nothing
+  else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+BLOCK_D = 32                      # channels per block (dB/dC partials)
+TILE_T = 16                       # time tile; the backward's chunk unit
+D_STATE = 16                      # the kernels instantiate N = 16
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_entries = {}                     # (kind, dtype) → C entry, bound at first use
+
+
+def n_chunks(L: int, chunk: int) -> int:
+    return -(-L // chunk)
+
+
+# ------------------------------------------------------------------ plain
+
+def _decay(d32_t, A, pos_t):
+    """a_t (B, D, N): exp(Δ_t·A), 0 where the position resets."""
+    a = torch.exp(d32_t[..., None] * A)
+    return torch.where((pos_t == 0)[:, None, None], 0.0, a)
+
+
+def selective_scan_fwd_plain(u, delta, At, Bm, Cm, Dp, positions,
+                             chunk: int):
+    """The forward kernel's function as a per-step walk in f32: returns
+    (y in u's dtype, ckpts (B, nC, N, D) f32)."""
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    u32, d32 = u.float(), delta.float()
+    B32, C32 = Bm.float(), Cm.float()
+    A = At.float().t()                                       # (D, N)
+    h = torch.zeros((Bz, Dm, N), dtype=torch.float32, device=u.device)
+    ckpts = torch.empty((Bz, n_chunks(L, chunk), N, Dm), dtype=torch.float32,
+                        device=u.device)
+    y = torch.empty((Bz, L, Dm), dtype=torch.float32, device=u.device)
+    for t in range(L):
+        if t % chunk == 0:
+            ckpts[:, t // chunk] = h.transpose(1, 2)
+        a = _decay(d32[:, t], A, positions[:, t])
+        h = a * h + B32[:, t, None, :] * (d32[:, t] * u32[:, t])[..., None]
+        y[:, t] = (h * C32[:, t, None, :]).sum(-1) + Dp.float() * u32[:, t]
+    return y.to(u.dtype), ckpts
+
+
+def _block_sum(x, block_d):
+    """(B, D, N) → (B, ceil(D/block_d), N): channel sums per block."""
+    Bz, Dm, N = x.shape
+    pad = (-Dm) % block_d
+    if pad:
+        x = torch.cat([x, x.new_zeros((Bz, pad, N))], dim=1)
+    return x.reshape(Bz, -1, block_d, N).sum(2)
+
+
+def selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
+                             chunk: int, block_d: int = BLOCK_D):
+    """The backward kernel's function, written out (not autograd): per
+    chunk, the states recomputed from its checkpoint, then the reverse walk
+
+        g_t = C_t·dy_t + a_{t+1}·g_{t+1}      (0 carried across a reset)
+        du  = Δ·Σ_n g·B + D·dy                dΔ = Σ_n g·h_{t-1}·a·A + u·Σ_n g·B
+        dB_t = Σ_d g·Δ·u     dC_t = Σ_d h_t·dy     dA = Σ_t g·h_{t-1}·a·Δ     dD = Σ_t dy·u
+
+    Returns the kernel's outputs, dB/dC as per-``block_d`` partials."""
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    dev = u.device
+    u32, d32, dy32 = u.float(), delta.float(), dy.float()
+    B32, C32 = Bm.float(), Cm.float()
+    A = At.float().t()                                       # (D, N)
+    Dv = Dp.float()
+    nblk = -(-Dm // block_d)
+    du = torch.empty((Bz, L, Dm), dtype=torch.float32, device=dev)
+    ddt = torch.empty_like(du)
+    dB = torch.empty((Bz, nblk, L, N), dtype=torch.float32, device=dev)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros((Bz, Dm, N), dtype=torch.float32, device=dev)
+    dD = torch.zeros((Bz, Dm), dtype=torch.float32, device=dev)
+    gc = torch.zeros((Bz, Dm, N), dtype=torch.float32, device=dev)
+    for ci in reversed(range(n_chunks(L, chunk))):
+        t0, t1 = ci * chunk, min(L, (ci + 1) * chunk)
+        hs = [ckpts[:, ci].transpose(1, 2).float()]          # h_{t0-1}
+        for t in range(t0, t1):
+            a = _decay(d32[:, t], A, positions[:, t])
+            hs.append(a * hs[-1] + B32[:, t, None, :] *
+                      (d32[:, t] * u32[:, t])[..., None])
+        for t in reversed(range(t0, t1)):
+            a = _decay(d32[:, t], A, positions[:, t])
+            g = C32[:, t, None, :] * dy32[:, t, :, None] + gc
+            da = g * hs[t - t0]
+            gB = (g * B32[:, t, None, :]).sum(-1)
+            du[:, t] = d32[:, t] * gB + Dv * dy32[:, t]
+            ddt[:, t] = (da * a * A).sum(-1) + u32[:, t] * gB
+            dB[:, :, t] = _block_sum(g * (d32[:, t] * u32[:, t])[..., None],
+                                     block_d)
+            dC[:, :, t] = _block_sum(hs[t - t0 + 1] * dy32[:, t, :, None],
+                                     block_d)
+            dA += da * a * d32[:, t, :, None]
+            dD += dy32[:, t] * u32[:, t]
+            gc = a * g
+    return du, ddt, dB, dC, dA.transpose(1, 2), dD
+
+
+# ------------------------------------------------------------------ kernels
+
+def _entry(kind, dtype):
+    """The C entry ``selective_scan_<kind>_<dtype>``, its ctypes signature
+    declared."""
+    fn = _entries.get((kind, dtype))
+    if fn is None:
+        fn = getattr(_build.load("selective_scan"),
+                     f"selective_scan_{kind}_{_DTYPES[dtype]}")
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
+        fn.argtypes = head + ([vp, vp, i32, i32, i32, i32, vp]
+                              if kind == "fwd" else
+                              [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                               i32, vp])
+        fn.restype = i32
+        _entries[(kind, dtype)] = fn
+    return fn
+
+
+def _check(u, delta, At, Bm, Cm, Dp, positions, chunk):
+    if u.dim() != 3:
+        raise ValueError(f"u must be (B, L, D), got shape {tuple(u.shape)}")
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    if u.dtype not in _DTYPES:
+        raise TypeError(f"u dtype {u.dtype} not supported (f32 or bf16)")
+    if delta.dtype != u.dtype or Bm.dtype != u.dtype or Cm.dtype != u.dtype:
+        raise TypeError(f"delta {delta.dtype}, B {Bm.dtype} and C "
+                        f"{Cm.dtype} must have u's dtype {u.dtype}")
+    if At.dtype != torch.float32 or Dp.dtype != torch.float32:
+        raise TypeError(f"At {At.dtype} and Dp {Dp.dtype} must be float32")
+    if tuple(delta.shape) != (Bz, L, Dm) or tuple(At.shape) != (N, Dm) or \
+            tuple(Bm.shape) != (Bz, L, N) or tuple(Cm.shape) != (Bz, L, N) \
+            or tuple(Dp.shape) != (Dm,):
+        raise ValueError(
+            f"shapes u {tuple(u.shape)}, delta {tuple(delta.shape)}, At "
+            f"{tuple(At.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}, "
+            f"Dp {tuple(Dp.shape)} do not agree")
+    if tuple(positions.shape) != (Bz, L) or positions.dtype != torch.int32:
+        raise ValueError(f"positions must be int32 ({Bz}, {L}), got "
+                         f"{positions.dtype} {tuple(positions.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    devs = {t.device for t in (u, delta, At, Bm, Cm, Dp, positions)}
+    if len(devs) != 1:
+        raise ValueError(f"selective_scan operands on several devices: "
+                         f"{devs}")
+
+
+def _check_cuda(u, delta, At, Bm, Cm, Dp, positions):
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cuda or cpu, not "
+                         f"{u.device}")
+    if u.device.index != torch.cuda.current_device():
+        raise ValueError(f"operands are on {u.device}, the current CUDA "
+                         f"device is cuda:{torch.cuda.current_device()}")
+    if At.shape[0] != D_STATE:
+        raise ValueError(f"the kernels take d_state {D_STATE}, got "
+                         f"{At.shape[0]}")
+    if not (u.is_contiguous() and delta.is_contiguous() and
+            At.is_contiguous() and Dp.is_contiguous()):
+        raise ValueError("u, delta, At and Dp must be contiguous")
+    if Bm.stride(2) != 1 or Bm.stride() != Cm.stride():
+        raise ValueError(f"B and C need unit stride along N and equal "
+                         f"strides, got {Bm.stride()} and {Cm.stride()}")
+    if positions.stride(1) != 1:
+        raise ValueError(f"positions needs contiguous rows, got strides "
+                         f"{positions.stride()}")
+
+
+def _head(u, delta, At, Bm, Cm, Dp, positions):
+    return (u.data_ptr(), delta.data_ptr(), At.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), Bm.stride(0), Bm.stride(1), Dp.data_ptr(),
+            positions.data_ptr(), positions.stride(0))
+
+
+def selective_scan_fwd(u, delta, At, Bm, Cm, Dp, positions, chunk: int):
+    """See the module docstring. Returns (y, ckpts)."""
+    global LAUNCHES_FWD
+    _check(u, delta, At, Bm, Cm, Dp, positions, chunk)
+    if u.device.type == "cpu":
+        return selective_scan_fwd_plain(u, delta, At, Bm, Cm, Dp, positions,
+                                        chunk)
+    _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
+    Bz, L, Dm = u.shape
+    y = torch.empty_like(u)
+    ckpts = torch.empty((Bz, n_chunks(L, chunk), D_STATE, Dm),
+                        dtype=torch.float32, device=u.device)
+    if y.numel() == 0:
+        return y, ckpts
+    err = _entry("fwd", u.dtype)(
+        *_head(u, delta, At, Bm, Cm, Dp, positions), y.data_ptr(),
+        ckpts.data_ptr(), Bz, L, Dm, chunk,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective_scan forward kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES_FWD += 1
+    return y, ckpts
+
+
+def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
+                       chunk: int):
+    """See the module docstring. Returns (du, ddelta, dB_partial,
+    dC_partial, dA_partial, dD_partial)."""
+    global LAUNCHES_BWD
+    _check(u, delta, At, Bm, Cm, Dp, positions, chunk)
+    Bz, L, Dm = u.shape
+    want = (Bz, n_chunks(L, chunk), At.shape[0], Dm)
+    if tuple(ckpts.shape) != want or ckpts.dtype != torch.float32:
+        raise ValueError(f"ckpts must be float32 {want}, got {ckpts.dtype} "
+                         f"{tuple(ckpts.shape)}")
+    if tuple(dy.shape) != (Bz, L, Dm) or dy.dtype != u.dtype:
+        raise ValueError(f"dy must be {u.dtype} {(Bz, L, Dm)}, got "
+                         f"{dy.dtype} {tuple(dy.shape)}")
+    if u.device.type == "cpu":
+        return selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions,
+                                        ckpts, dy, chunk)
+    _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
+    if chunk % TILE_T:
+        raise ValueError(f"the backward kernel takes a chunk that is a "
+                         f"multiple of {TILE_T}, got {chunk}")
+    if not (ckpts.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("ckpts and dy must be contiguous")
+    f32 = dict(dtype=torch.float32, device=u.device)
+    nblk = -(-Dm // BLOCK_D)
+    du = torch.empty((Bz, L, Dm), **f32)
+    ddt = torch.empty((Bz, L, Dm), **f32)
+    dB = torch.empty((Bz, nblk, L, D_STATE), **f32)
+    dC = torch.empty((Bz, nblk, L, D_STATE), **f32)
+    dA = torch.empty((Bz, D_STATE, Dm), **f32)
+    dD = torch.empty((Bz, Dm), **f32)
+    if du.numel() == 0:
+        return du, ddt, dB, dC, dA.zero_(), dD.zero_()
+    err = _entry("bwd", u.dtype)(
+        *_head(u, delta, At, Bm, Cm, Dp, positions), ckpts.data_ptr(),
+        dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bz, L, Dm, chunk,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective_scan backward kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES_BWD += 1
+    return du, ddt, dB, dC, dA, dD

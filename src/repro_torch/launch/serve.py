@@ -278,6 +278,7 @@ class ServeEngine:
         self.stats.decode_ms += (t2 - t1) * 1e3
         return bool(self.queue or self._active_slots())
 
+    @torch.no_grad()
     def run(self) -> Dict[int, List[int]]:
         """Drive until the queue and all slots drain; returns rid → tokens."""
         t0 = time.perf_counter()

@@ -122,7 +122,9 @@ def _conv_tail_ends(x_in, ends, lens, W):
 def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
                 collect_ends=None):
     """x (B, L, d) → x + block(x) [, state]. The conv is the
-    ``conv1d_pack`` kernel on the card; the scan is ``core/ssm.py``."""
+    ``conv1d_pack`` kernel on the card; the scan is the scan kernel without
+    ``collect`` and the plain ``core/ssm.py`` with it (the kernels hand off
+    no per-segment states)."""
     di, N, dtr = cfg.d_inner, cfg.d_state, cfg.dtr
     h = _norm(p["norm"], x, cfg.norm_eps)
     xz = h @ p["in_proj"].to(h.dtype)
@@ -159,8 +161,10 @@ def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
         state = {"conv": _conv_tail(x_in, valid.sum(-1), cfg.d_conv),
                  "ssm": h_last}
         return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype), state
+    # training / plain forward: the scan kernels (differentiable), as the
+    # JAX package's backend="pallas" path
     y = kops.selective_scan(x_c, delta, A, Bm, Cm, p["D"],
-                            positions=ctx.positions, **scan_kw)
+                            positions=ctx.positions)
     return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
 
 

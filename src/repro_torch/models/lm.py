@@ -3,8 +3,14 @@
 
 ``LM`` is an ``nn.Module`` that holds its parameters under the JAX
 package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
-``head``); ``interop.params_from_jax`` maps a JAX tree onto them. The
-parameters do not track gradients: this slice serves.
+``head``); ``interop.params_from_jax`` maps a JAX tree onto them.
+
+Training: ``loss`` is the packed next-token cross-entropy; the parameters
+track gradients, ``remat="unit"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``) and the vocab logits exist one L-chunk at a
+time. Serving: ``forward``, ``prefill``, ``prefill_packed``,
+``decode_step`` and ``scatter_into_cache`` run under ``torch.no_grad()``,
+so they build no autograd graph.
 
 Caches and harvested states keep the JAX package's stacked layout with the
 layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
@@ -20,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -43,8 +50,7 @@ class LM(nn.Module):
 
         def param(shape):
             return nn.Parameter(torch.empty(shape, dtype=pdt,
-                                            device=self.device),
-                                requires_grad=False)
+                                            device=self.device))
 
         shapes = B.mamba_param_shapes(cfg)
         self.embed = param((cfg.vocab, cfg.d_model))
@@ -87,15 +93,56 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------- forward
     def _stack(self, x, ctx) -> torch.Tensor:
+        remat = self.cfg.remat == "unit" and torch.is_grad_enabled()
         for p in self.layers:
-            x = B.apply_mamba(p, x, ctx, self.cfg)
+            if remat:
+                x = checkpoint(B.apply_mamba, p, x, ctx, self.cfg,
+                               use_reentrant=False)
+            else:
+                x = B.apply_mamba(p, x, ctx, self.cfg)
         return B._norm(self.final_norm, x, self.cfg.norm_eps)
 
+    @torch.no_grad()
     def forward(self, batch) -> torch.Tensor:
         """Full logits (B, L, V) f32 — small models and tests only."""
         batch = self._batch(batch)
         x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
         return self._logits(x)
+
+    # ----------------------------------------------------------- loss
+    def _chunk_ce(self, xc, lc):
+        logits = self._logits(xc)                          # (B, C, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        return ((lse - gold) * mask).sum(), mask.sum()
+
+    def loss(self, batch, loss_chunk: int = 512):
+        """Packed next-token CE (port of the JAX ``LM.loss``): a token's
+        label is the next token of its segment (−1, masked, at a segment's
+        last token and on padding). The (B, L, V) f32 logits never exist
+        whole: each L-chunk's CE is checkpointed, so its logits are
+        recomputed in the backward. Returns (loss, {"ce", "tokens"})."""
+        batch = self._batch(batch)
+        x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
+        seg, tok = batch["segment_ids"], batch["tokens"].long()
+        nxt_same = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
+        labels = torch.where(nxt_same, tok[:, 1:], -1)
+        labels = torch.cat([labels, torch.full_like(labels[:, :1], -1)],
+                           dim=1)
+        L = x.shape[1]
+        nchunk = max(1, L // min(loss_chunk, L))
+        if L % nchunk:
+            nchunk = 1
+        C = L // nchunk
+        tot = cnt = 0.0
+        for i in range(nchunk):
+            sl = slice(i * C, (i + 1) * C)
+            t, c = checkpoint(self._chunk_ce, x[:, sl], labels[:, sl],
+                              use_reentrant=False)
+            tot, cnt = tot + t, cnt + c
+        loss = tot / cnt.clamp(min=1.0)
+        return loss, {"ce": loss.detach(), "tokens": cnt}
 
     def _collect(self, x, ctx, ends=None):
         convs, ssms = [], []
@@ -107,6 +154,7 @@ class LM(nn.Module):
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
 
+    @torch.no_grad()
     def prefill(self, batch):
         """Serving prefill of left-aligned prompts, one per row
         (segment_ids mark validity): one forward that also hands off every
@@ -120,6 +168,7 @@ class LM(nn.Module):
                   (lens.long() - 1).clamp(min=0)]
         return self._logits(xlast), cache, lens
 
+    @torch.no_grad()
     def prefill_packed(self, batch, ends):
         """Packed multi-prompt prefill: ONE forward over packed rows that
         hands off a decode state for every segment. ``ends`` (B, S) is each
@@ -138,6 +187,7 @@ class LM(nn.Module):
         logits = torch.where((ends >= 0)[..., None], self._logits(xe), 0.0)
         return logits, states, B._ends_lens(ctx, ends)
 
+    @torch.no_grad()
     def scatter_into_cache(self, cache, states, src, dst):
         """Land harvested per-segment states in decode slots, in place.
 
@@ -163,6 +213,7 @@ class LM(nn.Module):
         return {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
                 for k, v in one.items()}
 
+    @torch.no_grad()
     def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None):
         """tokens_t (B, 1); reset (B,) bool or None. Advances every layer's
         cache in place; returns (logits (B, V) f32, cache)."""

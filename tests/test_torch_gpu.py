@@ -1,0 +1,159 @@
+"""The port's CUDA kernels on the card, each against its plain version on the
+same inputs, and their gradients bitwise equal across two runs. Every test
+is ``gpu``-marked and skips on a machine without an NVIDIA card; the file
+imports no JAX, so it runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: f32 outputs 1e-4 abs + rel (the plain versions sum in another
+order; the kernels use ``__expf``); bf16 outputs (y) within 2^-7 relative
+plus 1e-2 abs (two bf16 roundings of values up to ~10); backward outputs
+are f32 whatever the input dtype, 1e-3 abs + rel (sums over L).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import packing as tpk  # noqa: E402
+from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import selective_scan as ksc  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _positions(Bz, L, seed):
+    """Row 0 packed with resets (some inside a tile); row 1 a carried row
+    of a split pack (first position > 0)."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((Bz, L), np.int32)
+    t = 0
+    while t < L:
+        n = int(min(rng.integers(3, L // 3), L - t))
+        pos[0, t:t + n] = np.arange(n)
+        t += n
+    pos[1] = tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 3, L)], L).positions[1]
+    assert pos[1, 0] > 0
+    return pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_dx_kernel_matches_plain_and_repeats(cuda, dtype):
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    L, D = 1000 - 3, 4096
+    dy = torch.as_tensor(rng.normal(size=(2, L, D))).to(cuda, tdt)
+    w = torch.as_tensor(rng.normal(size=(4, D))).to(cuda, tdt)
+    pos = torch.as_tensor(_positions(2, L, 1)).to(cuda)
+    n0 = kconv.LAUNCHES_DX
+    dx, again = (kconv.conv1d_pack_bwd_dx(dy, w, pos) for _ in range(2))
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES_DX == n0 + 2
+    torch.testing.assert_close(dx, kconv.conv1d_pack_bwd_dx_plain(dy, w, pos),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_scan_kernels_match_plain_and_repeat(cuda, dtype, chunk):
+    """Ragged L (not a tile multiple) and D (not a channel-block multiple);
+    B and C as strided views of one projection."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(2)
+    Bz, L, D, N = 2, 300, 100, 16
+    u, dy = (torch.as_tensor(rng.normal(size=(Bz, L, D))).to(cuda, tdt)
+             for _ in range(2))
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, D))).to(cuda, tdt)
+    dbl = torch.as_tensor(rng.normal(size=(Bz, L, 8 + 2 * N))).to(cuda, tdt)
+    _, Bm, Cm = dbl.split([8, N, N], dim=-1)
+    At = -torch.as_tensor(np.exp(rng.normal(size=(N, D)))).to(
+        cuda, torch.float32)
+    Dp = torch.as_tensor(rng.normal(size=(D,))).to(cuda, torch.float32)
+    pos = torch.as_tensor(_positions(Bz, L, 2)).to(cuda)
+    n0 = (ksc.LAUNCHES_FWD, ksc.LAUNCHES_BWD)
+    y, ck = ksc.selective_scan_fwd(u, dt, At, Bm, Cm, Dp, pos, chunk)
+    outs = ksc.selective_scan_bwd(u, dt, At, Bm, Cm, Dp, pos, ck, dy, chunk)
+    again = ksc.selective_scan_bwd(u, dt, At, Bm, Cm, Dp, pos, ck, dy, chunk)
+    torch.cuda.synchronize()
+    assert (ksc.LAUNCHES_FWD, ksc.LAUNCHES_BWD) == (n0[0] + 1, n0[1] + 2)
+    wy, wck = ksc.selective_scan_fwd_plain(u, dt, At, Bm, Cm, Dp, pos, chunk)
+    torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    else:
+        err = (y.float() - wy.float()).abs()
+        assert bool((err <= 2.0 ** -7 * wy.float().abs() + 1e-2).all())
+    want = ksc.selective_scan_bwd_plain(u, dt, At, Bm, Cm, Dp, pos, ck, dy,
+                                        chunk)
+    for name, g, w, r in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
+                             want, again):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("Bz,L,D", [(1, 1, 3), (1, 5, 33), (3, 17, 64)])
+def test_kernels_on_edge_shapes(cuda, Bz, L, D):
+    """One step, fewer channels than a block, an odd batch: each kernel
+    against its plain version (f32)."""
+    rng = np.random.default_rng(L)
+    N, f = 16, dict(device=cuda, dtype=torch.float32)
+    u, dy, x = (torch.as_tensor(rng.normal(size=(Bz, L, D))).to(**f)
+                for _ in range(3))
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, D))).to(**f)
+    Bm, Cm = (torch.as_tensor(rng.normal(size=(Bz, L, N))).to(**f)
+              for _ in range(2))
+    At = -torch.as_tensor(np.exp(rng.normal(size=(N, D)))).to(**f)
+    Dp = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    w = torch.as_tensor(rng.normal(size=(4, D))).to(**f)
+    pos = torch.as_tensor(np.tile(np.arange(L) % 4, (Bz, 1)).astype(
+        np.int32)).to(cuda)
+    args = (u, dt, At, Bm, Cm, Dp, pos)
+    y, ck = ksc.selective_scan_fwd(*args, 16)
+    wy, wck = ksc.selective_scan_fwd_plain(*args, 16)
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    for g, w_ in zip(ksc.selective_scan_bwd(*args, ck, dy, 16),
+                     ksc.selective_scan_bwd_plain(*args, ck, dy, 16)):
+        torch.testing.assert_close(g, w_, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(kconv.conv1d_pack_bwd_dx(dy, w, pos),
+                               kconv.conv1d_pack_bwd_dx_plain(dy, w, pos),
+                               atol=1e-5, rtol=1e-5)
+    b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    torch.testing.assert_close(kconv.conv1d_pack(x, w, b, pos),
+                               kconv.conv1d_pack_plain(x, w, b, pos),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_autograd_through_the_kernels_repeats_bitwise(cuda):
+    """The wired backward (kernels #2 and #6 plus the fixed-order sums of
+    their partials) gives bitwise-equal gradients run after run."""
+    rng = np.random.default_rng(3)
+    Bz, L, D, N = 2, 256, 256, 16
+    f = dict(device=cuda, dtype=torch.bfloat16)
+    x = torch.as_tensor(rng.normal(size=(Bz, L, D))).to(**f)
+    w = torch.as_tensor(rng.normal(size=(4, D))).to(**f)
+    dbl = torch.as_tensor(rng.normal(size=(Bz, L, 2 * N))).to(**f)
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, D))).to(**f)
+    A = -torch.as_tensor(np.exp(rng.normal(size=(D, N)))).to(
+        cuda, torch.float32)
+    pos = torch.as_tensor(_positions(Bz, L, 3)).to(cuda)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (x, w, dbl, dt, A)]
+        xl, wl, dl, tl, al = leaves
+        xc = tops.conv1d_pack(xl, wl, None, pos)
+        Bm, Cm = dl.split([N, N], dim=-1)
+        y = tops.selective_scan(xc, tl, al, Bm, Cm, None, positions=pos)
+        grads.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
