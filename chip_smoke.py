@@ -15,8 +15,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               computes the same function) and the least time the card could
               take: #1 conv1d_pack forward (serving), #2 its dx backward,
               #4 / #6 the blocked selective scan forward / backward
-              (training). The backward kernels run twice and must agree
-              bitwise.
+              (training); #7 / #8 / #9 the head-structured (Mamba-2) scan
+              forward, its dual form and their backward. The backward
+              kernels run twice and must agree bitwise.
 4. parity   — serving: ``prefill_packed`` end logits and states of 4
               prompts against per-prompt ``prefill`` (f32, full width).
 5. engine   — the serving main path: the continuous-batching engine on
@@ -26,6 +27,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 6. train_parity — mamba-1.4b at full width, 2 layers, f32 with TF32 off:
               the loss and every parameter's gradient through the kernels
               against autograd through the plain ``core/`` conv and scan.
+6b. train_parity_mamba2 — the same for mamba2-370m (2 layers), once with
+              the heads scan's ``blocked_heads`` schedule (#7 then #9) and
+              once with ``blocked_heads_dual`` (#8 then #9).
 7. train    — the training main path: mamba-1.4b at full width and depth,
               bf16 compute, f32 params, random weights from seed 0,
               ``Trainer`` + ``PackingLoader`` (pack, 2 × 4096, paper
@@ -35,11 +39,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``torch.profiler`` (device time by kernel, the device's busy
               share); then 2 steps in ``pad`` mode for the paper's
               comparison.
+8. Mamba-2 — serving parity and the engine on mamba2-370m (48 layers,
+              bf16), then its training main path: 48 layers, 8 × 4096
+              packed (``train_mamba2``), launch counts asserted exactly,
+              one profiled step, 2 ``pad`` steps.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -58,6 +67,9 @@ SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096), (2, 4096, 4096)]
 MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
 TRAIN_SHAPE = (2, 4096, 4096)    # (rows, L, d_inner): mamba-1.4b training
 RAGGED_SHAPE = (2, 997, 4096)    # an L that is no multiple of any tile
+HEADS_SHAPE = (8, 4096, 32, 64)  # (rows, L, H, P): mamba2-370m training
+HEADS_RAGGED = (8, 997, 32, 64)
+HEADS_N = 64                     # mamba2-370m's d_state
 PARITY_TOL = 1e-3                # max |Δ| / max(1, max |ref|), 48 f32 layers
 TRAIN_PARITY_TOL = 1e-3          # max |Δ| / max |ref| per gradient leaf
 BWD_TOL = 1e-3                   # max |Δ| / max(1, max |ref|) per output
@@ -410,15 +422,181 @@ def phase_scan(sfu_rate):
     return rows, worst
 
 
+def heads_inputs(shape, dtype, seed):
+    """u, dy (B, L, H, P) and Δ (B, L, H) in ``dtype`` (Δ in the range the
+    init's softplus gives); B and C as strided views of one (B, L, 2N)
+    projection, as bc_proj hands them over; A = -U[1, 16] per head, as the
+    init draws it; D = 1; positions from ``packed_positions``."""
+    import torch
+    B, L, H, P = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    delta = torch.rand((B, L, H), generator=g, device="cuda").mul(0.1).add(
+        1e-3).to(dtype)
+    bc = torch.randn((B, L, 2 * HEADS_N), generator=g, device="cuda").to(
+        dtype)
+    Bm, Cm = bc.chunk(2, dim=-1)
+    A = -(torch.rand(H, generator=g, device="cuda") * 15.0 + 1.0)
+    Dp = torch.ones(H, device="cuda")
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pos = torch.as_tensor(packed_positions(B, L, seed), device="cuda")
+    return u, delta, A, Bm, Cm, Dp, pos, dy
+
+
+def heads_bounds(shape, es, n_chunk):
+    """Least times of the heads scan's forward (#7 and #8 share it: the
+    per-step form's work) and backward: bytes of each input read once and
+    each output written once (the TPU kernels' outputs: per-head dB/dC
+    partials), and f32 operations per state and step — forward 5 (decay,
+    input, add; y's product and sum), backward 14 (the states recomputed
+    once, then g, its carry, and the five products summed for du, dΔ, dB,
+    dC, dA)."""
+    B, L, H, P = shape
+    N = HEADS_N
+    states = B * L * H * P * N
+    io = 2 * B * L * N * es + B * L * 4 + 2 * H * 4 + B * L * H * es
+    ck = B * H * n_chunk * P * N * 4
+    fwd = bound_ms(2 * B * L * H * P * es + io + ck,
+                   5 * states + 3 * B * L * H * P)
+    bwd = bound_ms(2 * B * L * H * P * es + io + ck + B * L * H * P * 4
+                   + B * L * H * 4 + 2 * B * H * L * N * 4 + 2 * B * H * 4,
+                   14 * states + 5 * B * L * H * P)
+    return fwd, bwd
+
+
+def phase_heads():
+    """Kernels #7, #8 and #9 at mamba2-370m's training shape and at a
+    ragged L, in bf16 and f32, against their plain versions; #9 twice,
+    bitwise equal."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan_heads as kh
+    rows = []
+    worst = {"selective_scan_heads_fwd": 0.0,
+             "selective_scan_heads_fwd_dual": 0.0,
+             "selective_scan_heads_bwd": 0.0}
+    forms = (("selective_scan_heads_fwd", "blocked_heads",
+              kh.selective_scan_heads_fwd_plain),
+             ("selective_scan_heads_fwd_dual", "blocked_heads_dual",
+              kh.selective_scan_heads_fwd_dual_plain))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in (HEADS_SHAPE, HEADS_RAGGED):
+            B, L, H, P = shape
+            es = torch.tensor([], dtype=dtype).element_size()
+            *fa, dy = heads_inputs(shape, dtype, seed=L + 1)
+            T = min(ops.HEADS_CHUNK, L)
+            (bnd_f, by_f), (bnd_b, by_b) = heads_bounds(shape, es, -(-L // T))
+            dtn = str(dtype).split(".")[-1]
+            for name, sched, plain in forms:
+                fwd = functools.partial(kh.selective_scan_heads_fwd, *fa, T,
+                                        sched)
+                y, ck = fwd()
+                torch.cuda.synchronize()
+                (wy, wck), plain_ms = once_ms(lambda: plain(*fa, T))
+                y32, wy32 = y.float(), wy.float()
+                err_y = (y32 - wy32).abs()
+                if dtype == torch.float32:
+                    ok = bool((err_y <= 1e-4 * (1 + wy32.abs())).all())
+                    tol = "y 1e-4 · (1 + |ref|); ckpts 1e-4 · (1 + |ref|)"
+                else:       # each side rounds its f32 result to bf16 once
+                    ok = bool((err_y <= 2.0 ** -7 * wy32.abs()
+                               + 1e-4 * wy32.abs().max()).all())
+                    tol = ("y 2^-7 · |ref| + 1e-4 · max|ref| (two bf16 "
+                           "roundings); ckpts 1e-4 · (1 + |ref|)")
+                err_ck = (ck - wck).abs()
+                ok = ok and bool((err_ck <= 1e-4 * (1 + wck.abs())).all())
+                e = max(err_y.max().item(), err_ck.max().item())
+                if not ok:
+                    raise AssertionError(
+                        f"{name} kernel disagrees with its plain version at "
+                        f"{shape} {dtype}: y {err_y.max().item()}, ckpts "
+                        f"{err_ck.max().item()}")
+                worst[name] = max(worst[name], e)
+                del wy, wck, y32, wy32, err_y, err_ck
+                rows.append({
+                    "kernel": name, "shape": list(shape), "dtype": dtn,
+                    "chunk": T, "max_abs_err": e, "tolerance": tol,
+                    "kernel_ms": graph_ms(fwd, 10, 3),
+                    "kernel_eager_ms": eager_ms(fwd, 10, 2),
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bnd_f, "bound_by": by_f})
+                emit("kernels", **rows[-1])
+                if sched == "blocked_heads":
+                    ck_main = ck
+                del y, ck
+            bwd = functools.partial(kh.selective_scan_heads_bwd, *fa,
+                                    ck_main, dy, T)
+            outs, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            want, plain_ms = once_ms(
+                lambda: kh.selective_scan_heads_bwd_plain(*fa, ck_main, dy, T))
+            errs = {}
+            for name, got, ref, rep in zip(
+                    ("du", "ddelta", "dB", "dC", "dA", "dD"), outs, want,
+                    again):
+                e = (got - ref).abs().max().item()
+                errs[name] = e
+                if e > BWD_TOL * max(1.0, ref.abs().max().item()):
+                    raise AssertionError(
+                        f"selective_scan_heads backward kernel disagrees "
+                        f"with its plain version at {shape} {dtype}: {name} "
+                        f"max err {e}")
+                if not torch.equal(got, rep):
+                    raise AssertionError(f"selective_scan_heads backward "
+                                         f"{name} is not bitwise repeatable")
+            worst["selective_scan_heads_bwd"] = max(
+                worst["selective_scan_heads_bwd"], max(errs.values()))
+            partial_bytes = sum(t.numel() * 4 for t in outs[1:])
+            del outs, again, want
+            torch.cuda.empty_cache()
+            rows.append({
+                "kernel": "selective_scan_heads_bwd", "shape": list(shape),
+                "dtype": dtn, "chunk": T, "max_abs_err": max(errs.values()),
+                "errors": errs,
+                "tolerance": f"{BWD_TOL} · max(1, max|ref|) per output",
+                "bitwise_repeat": True, "partials_bytes": partial_bytes,
+                "kernel_ms": graph_ms(bwd, 4, 3),
+                "kernel_eager_ms": eager_ms(bwd, 4, 2),
+                "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bnd_b, "bound_by": by_b})
+            emit("kernels", **rows[-1])
+            del fa, dy, ck_main, bwd
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows, worst
+
+
 LAUNCH_COUNTERS = (("conv1d_pack_fwd", "conv1d_pack", "LAUNCHES"),
                    ("conv1d_pack_bwd_dx", "conv1d_pack", "LAUNCHES_DX"),
                    ("selective_scan_fwd", "selective_scan", "LAUNCHES_FWD"),
-                   ("selective_scan_bwd", "selective_scan", "LAUNCHES_BWD"))
+                   ("selective_scan_bwd", "selective_scan", "LAUNCHES_BWD"),
+                   ("selective_scan_heads_fwd", "selective_scan_heads",
+                    "LAUNCHES_FWD"),
+                   ("selective_scan_heads_fwd_dual", "selective_scan_heads",
+                    "LAUNCHES_DUAL"),
+                   ("selective_scan_heads_bwd", "selective_scan_heads",
+                    "LAUNCHES_BWD"))
+# the kernels of each layer kind's training path: conv forward, conv dx,
+# scan forward, scan backward
+PATH_KERNELS = {"mamba": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
+                          "selective_scan_fwd", "selective_scan_bwd"),
+                "mamba2": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
+                           "selective_scan_heads_fwd",
+                           "selective_scan_heads_bwd")}
+
+
+def path_kernels(cfg, schedule=None):
+    ks = list(PATH_KERNELS[cfg.unit[0]])
+    if schedule == "blocked_heads_dual":
+        ks[2] = "selective_scan_heads_fwd_dual"
+    return ks
 
 
 def _counter_modules():
-    from repro_torch.kernels import conv1d_pack, selective_scan
-    return {"conv1d_pack": conv1d_pack, "selective_scan": selective_scan}
+    from repro_torch.kernels import (conv1d_pack, selective_scan,
+                                     selective_scan_heads)
+    return {"conv1d_pack": conv1d_pack, "selective_scan": selective_scan,
+            "selective_scan_heads": selective_scan_heads}
 
 
 def read_launches():
@@ -435,9 +613,9 @@ def zero_launches():
 
 @contextlib.contextmanager
 def plain_path():
-    """The model's blocks call the plain ``core/`` conv and scan (plain
+    """The model's blocks call the plain ``core/`` conv and scans (plain
     PyTorch, differentiated by autograd) instead of the kernel wrappers:
-    the reference of the training parity phase."""
+    the reference of the training parity phases."""
     from repro_torch.core import conv as core_conv
     from repro_torch.core import ssm as core_ssm
     from repro_torch.models import blocks
@@ -446,7 +624,32 @@ def plain_path():
         conv1d_pack=core_conv.conv1d_pack,
         selective_scan=lambda u, dt, A, B, C, D, positions: (
             core_ssm.selective_scan(u, dt, A, B, C, D, positions=positions,
-                                    method="blocked", chunk=64)))
+                                    method="blocked", chunk=64)),
+        selective_scan_heads=lambda u, dt, A, B, C, D, positions: (
+            core_ssm.selective_scan_heads(u, dt, A, B, C, D,
+                                          positions=positions,
+                                          method="blocked", chunk=64)))
+    try:
+        yield
+    finally:
+        blocks.kops = saved
+
+
+@contextlib.contextmanager
+def heads_schedule(schedule):
+    """The model's Mamba-2 blocks run the heads scan with ``schedule``
+    (``None`` or ``blocked_heads``: the default #7; ``blocked_heads_dual``:
+    #8), as the JAX package's ``schedule=`` argument reaches it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    if schedule in (None, "blocked_heads"):
+        yield
+        return
+    saved = blocks.kops
+    blocks.kops = types.SimpleNamespace(
+        conv1d_pack=ops.conv1d_pack, selective_scan=ops.selective_scan,
+        selective_scan_heads=functools.partial(ops.selective_scan_heads,
+                                               schedule=schedule))
     try:
         yield
     finally:
@@ -463,13 +666,16 @@ def train_loader(cfg, mode, seq_len=4096, rows=2, seed=0):
                                               mode=mode))
 
 
-def phase_train_parity(layers=2, seq_len=2048):
-    """Full-width mamba-1.4b, ``layers`` deep, f32 (TF32 off): loss and
-    every gradient through the kernels against the plain path."""
+def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
+                       seq_len=2048):
+    """Full-width ``arch``, ``layers`` deep, f32 (TF32 off): loss and every
+    gradient through the kernels (the heads scan with ``schedule``)
+    against the plain path. Counters set to 0 before each path: the
+    kernel path must launch exactly its kernels, the plain path none."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.lm import LM
-    cfg = dataclasses.replace(get_config("mamba-1.4b"), n_layers=layers,
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               dtype="float32")
     model = LM(cfg)
     model.init(torch.Generator(device="cuda").manual_seed(1))
@@ -481,15 +687,20 @@ def phase_train_parity(layers=2, seq_len=2048):
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
-    before = read_launches()
-    k_loss, k_grads = loss_and_grads()
+    zero_launches()
+    with heads_schedule(schedule):
+        k_loss, k_grads = loss_and_grads()
     torch.cuda.synchronize()
-    ran = {k: v - before[k] for k, v in read_launches().items()}
-    if not all(ran.values()):
-        raise AssertionError(f"the kernel path skipped a kernel: {ran}")
+    ran = read_launches()
+    expected = path_kernels(cfg, schedule)
+    if any(ran[k] == 0 for k in expected) or \
+            any(v for k, v in ran.items() if k not in expected):
+        raise AssertionError(f"the kernel path ran {ran}, expected exactly "
+                             f"{expected}")
+    zero_launches()
     with plain_path():
         p_loss, p_grads = loss_and_grads()
-    if read_launches() != {k: before[k] + ran[k] for k in ran}:
+    if any(read_launches().values()):
         raise AssertionError("the plain path launched a kernel")
     loss_err = abs(k_loss.item() - p_loss.item()) / abs(p_loss.item())
     worst, worst_leaf = 0.0, None
@@ -505,7 +716,8 @@ def phase_train_parity(layers=2, seq_len=2048):
         raise AssertionError(f"kernel-path training differs from the plain "
                              f"path: loss {loss_err}, gradient {worst} at "
                              f"{worst_leaf}")
-    return {"arch": cfg.name, "layers": layers, "rows": 2,
+    return {"arch": cfg.name, "schedule": schedule, "layers": layers,
+            "rows": 2,
             "seq_len": seq_len, "dtype": "float32", "tf32": "off",
             "loss_kernel": k_loss.item(), "loss_plain": p_loss.item(),
             "loss_rel_err": loss_err, "loss_tolerance": 1e-5,
@@ -514,7 +726,10 @@ def phase_train_parity(layers=2, seq_len=2048):
             "launches_kernel_path": ran}
 
 
-KERNEL_GROUPS = (("scan_bwd_kernel", "scan bwd #6"),
+KERNEL_GROUPS = (("heads_bwd_kernel", "heads scan bwd #9"),
+                 ("heads_fwd_kernel", "heads scan fwd #7"),
+                 ("heads_dual_kernel", "heads scan fwd dual #8"),
+                 ("scan_bwd_kernel", "scan bwd #6"),
                  ("scan_fwd_kernel", "scan fwd #4"),
                  ("conv1d_pack_bwd_dx", "conv dx #2"),
                  ("conv1d_pack_fwd", "conv fwd #1"),
@@ -579,18 +794,19 @@ def profile_step(step_fn, state, batch):
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
 
 
-def phase_train(steps=TIMED_STEPS):
-    """The training main path at mamba-1.4b's full width and depth."""
+def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS):
+    """The training main path at ``arch``'s full width and depth, ``rows``
+    × 4096 packed."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.lm import LM
     from repro_torch.optim.adamw import AdamW, cosine_schedule
     from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
-    cfg = get_config("mamba-1.4b")
+    cfg = get_config(arch)
     model = LM(cfg)
     opt = AdamW(cosine_schedule(3e-4, warmup=1, total=steps + 3))
-    trainer = Trainer(model, opt, train_loader(cfg, "pack"),
+    trainer = Trainer(model, opt, train_loader(cfg, "pack", rows=rows),
                       TrainerConfig(steps=1))
     state, warm = trainer.train(
         torch.Generator(device="cuda").manual_seed(0), verbose=False)
@@ -605,10 +821,10 @@ def phase_train(steps=TIMED_STEPS):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     L = cfg.n_layers
-    want = {"conv1d_pack_fwd": 2 * L * steps,        # forward + recompute
-            "conv1d_pack_bwd_dx": L * steps,
-            "selective_scan_fwd": 2 * L * steps,
-            "selective_scan_bwd": L * steps}
+    conv, dx, fwd, bwd = path_kernels(cfg)
+    want = {k: 0 for k in launches}
+    want.update({conv: 2 * L * steps,               # forward + recompute
+                 dx: L * steps, fwd: 2 * L * steps, bwd: L * steps})
     if launches != want:
         raise AssertionError(f"training launched {launches}, remat='unit' "
                              f"over {L} layers × {steps} steps implies "
@@ -622,13 +838,14 @@ def phase_train(steps=TIMED_STEPS):
     state, profiled = profile_step(trainer.step_fn, state,
                                    trainer.loader.batch(1 + steps))
     # the paper's comparison (a smoke reading): one sequence per row
-    pad = Trainer(model, opt, train_loader(cfg, "pad"),
+    pad = Trainer(model, opt, train_loader(cfg, "pad", rows=rows),
                   TrainerConfig(steps=2))
     state, phist = pad.train(state=state, verbose=False)
     pad_ms = sum(h["step_ms"] for h in phist)
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
-           "remat": cfg.remat, "rows": 2, "seq_len": 4096, "mode": "pack",
+           "remat": cfg.remat, "rows": rows, "seq_len": 4096,
+           "mode": "pack",
            "warmup_steps": 1, "timed_steps": steps, "losses": losses,
            "grad_norms": [h["grad_norm"] for h in hist],
            "ms_per_step": step_ms / steps,
@@ -798,6 +1015,7 @@ def main():
     conv_rows, conv_worst = phase_conv_fwd()
     dx_rows, dx_worst = phase_conv_dx()
     scan_rows, scan_worst = phase_scan(sfu_rate)
+    heads_rows, heads_worst = phase_heads()
 
     # serving first, from the same state as before training existed
     cfg = get_config("mamba-1.4b")
@@ -821,6 +1039,29 @@ def main():
     emit("train", **tr)
     emit("train_profile", **prof)
 
+    # Mamba-2: serving, training parity for both forward schedules, and
+    # the training main path
+    cfg2 = get_config("mamba2-370m")
+    model = LM(cfg2)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    parity2 = phase_parity(model, cfg2)
+    emit("parity_mamba2", arch=cfg2.name, dtype="float32", tf32="off",
+         tolerance=PARITY_TOL, max_rel_err=parity2)
+    eng2 = phase_engine(model, cfg2)
+    emit("engine_mamba2", arch=cfg2.name, dtype=cfg2.dtype,
+         layers=cfg2.n_layers, d_model=cfg2.d_model, **eng2)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp2 = {s: phase_train_parity("mamba2-370m", s)
+           for s in ("blocked_heads", "blocked_heads_dual")}
+    for v in tp2.values():
+        emit("train_parity_mamba2", **v)
+    tr2 = phase_train("mamba2-370m", rows=8)
+    prof2 = tr2.pop("profile")
+    emit("train_mamba2", **tr2)
+    emit("train_mamba2_profile", **prof2)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -838,7 +1079,12 @@ def main():
                 "at": {"shape": row["shape"], "dtype": row["dtype"]},
                 **extra}
 
-    launches = tr["launches"]
+    def heads_row(name):
+        return main_row([r for r in heads_rows if r["kernel"] == name],
+                        HEADS_SHAPE)
+
+    launches, launches2 = tr["launches"], tr2["launches"]
+    dual_path = tp2["blocked_heads_dual"]["launches_kernel_path"]
     fwd_row = main_row([r for r in scan_rows
                         if r["kernel"] == "selective_scan_fwd"], TRAIN_SHAPE)
     bwd_row = main_row([r for r in scan_rows
@@ -863,7 +1109,28 @@ def main():
               "src/repro/kernels/selective_scan.py:525", bwd_row,
               launches["selective_scan_bwd"],
               scan_worst["selective_scan_bwd"],
-              exp_floor_ms=bwd_row["exp_floor_ms"])]}), flush=True)
+              exp_floor_ms=bwd_row["exp_floor_ms"]),
+        entry("selective_scan_heads_fwd", "selective_scan_heads.cu",
+              "src/repro/kernels/selective_scan.py:212",
+              heads_row("selective_scan_heads_fwd"),
+              launches2["selective_scan_heads_fwd"],
+              heads_worst["selective_scan_heads_fwd"], path="train_mamba2"),
+        entry("selective_scan_heads_fwd_dual", "selective_scan_heads.cu",
+              "src/repro/kernels/selective_scan.py:272",
+              heads_row("selective_scan_heads_fwd_dual"),
+              dual_path["selective_scan_heads_fwd_dual"],
+              heads_worst["selective_scan_heads_fwd_dual"],
+              path="train_parity_mamba2 (schedule=blocked_heads_dual)",
+              launches_train_mamba2=launches2[
+                  "selective_scan_heads_fwd_dual"]),
+        entry("selective_scan_heads_bwd", "selective_scan_heads.cu",
+              "src/repro/kernels/selective_scan.py:634",
+              heads_row("selective_scan_heads_bwd"),
+              launches2["selective_scan_heads_bwd"],
+              heads_worst["selective_scan_heads_bwd"], path="train_mamba2",
+              partials_bytes=heads_row(
+                  "selective_scan_heads_bwd")["partials_bytes"])]}),
+          flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 tensors: parameters, gradients, optimizer moments → the JAX tree layout).
 
 The JAX tree (as numpy arrays, or anything ``np.asarray`` takes) is
-``{"embed", "units": {"0_mamba": {leaf: (n_layers, …)}}, "final_norm",
-"head"}``: ``jax.vmap`` over the layer init gives every block leaf a
+``{"embed", "units": {"0_<kind>": {leaf: (n_layers, …)}}, "final_norm",
+"head"}``, ``<kind>`` the config's layer kind (``mamba`` or ``mamba2``):
+``jax.vmap`` over the layer init gives every block leaf a
 leading layer axis. The port keeps one ``ParameterDict`` per layer, so
 that axis is split into ``layers.<i>.<leaf>``. Leaf layouts are unchanged:
 both packages store dense weights (din, dout) and apply them as ``x @ W``.
@@ -19,12 +20,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 
 
+def _unit_key(cfg: ArchConfig) -> str:
+    """The JAX tree's key of the layer stack: ``0_`` + the layer kind."""
+    return f"0_{cfg.unit[0]}"
+
+
 def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
     """Returns a state dict for ``LM(cfg, device).load_state_dict``."""
     def t(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    units = tree["units"]["0_mamba"]
+    units = tree["units"][_unit_key(cfg)]
     out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
            "head": t(tree["head"])}
     for k, v in units.items():
@@ -38,7 +44,7 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
 
 
 def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """The inverse map: ``{"embed", "units": {"0_mamba": {leaf: (n_layers,
+    """The inverse map: ``{"embed", "units": {"0_<kind>": {leaf: (n_layers,
     …)}}, "final_norm", "head"}`` of f32 numpy arrays, the layer axis
     stacked back. Takes any dict keyed like ``LM.named_parameters()``
     (e.g. the gradients of a train step)."""
@@ -51,4 +57,4 @@ def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
                              for i in range(cfg.n_layers)])
              for leaf in leaves}
     return {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
-            "head": a(named["head"]), "units": {"0_mamba": units}}
+            "head": a(named["head"]), "units": {_unit_key(cfg): units}}

@@ -1,18 +1,24 @@
 """Public wrappers of the kernels (port of ``repro.kernels.ops``), wired for
 autograd as the JAX package wires ``custom_vjp`` (``_conv_padded``,
-``_scan_padded``).
+``_scan_padded``, ``_scan_heads_padded``).
 
 The JAX package picks a backend by name; here the device of the tensors
 picks it: a CUDA tensor goes to the hand-written kernels, a CPU tensor to
 their plain versions (``kernels/conv1d_pack.py``,
-``kernels/selective_scan.py``). Nothing is padded: the kernels mask a
-ragged L and D themselves.
+``kernels/selective_scan.py``, ``kernels/selective_scan_heads.py``).
+Nothing is padded and nothing is transposed: the kernels mask a ragged L
+and D themselves and read the public layouts through their strides.
 
 * ``conv1d_pack``: forward kernel #1; backward dx from kernel #2, dweight
   and dbias as plain PyTorch sums.
-* ``selective_scan``: forward kernel #4 (y plus the chunk-entry states),
-  backward kernel #6; the backward's per-block dB/dC partials and per-row
-  dA/dD partials are summed here over a fixed axis in a fixed order.
+* ``selective_scan`` (Mamba-1): forward kernel #4 (y plus the chunk-entry
+  states), backward kernel #6; the backward's per-block dB/dC partials and
+  per-row dA/dD partials are summed here over a fixed axis in a fixed
+  order.
+* ``selective_scan_heads`` (Mamba-2): forward kernel #7
+  (``schedule="blocked_heads"``) or #8 (``"blocked_heads_dual"``),
+  backward kernel #9 for both; its per-slice partials of dΔ, dB, dC, dA
+  and dD are summed here the same way.
 """
 from __future__ import annotations
 
@@ -22,9 +28,13 @@ import torch
 
 from repro_torch.kernels import conv1d_pack as conv_k
 from repro_torch.kernels import selective_scan as scan_k
+from repro_torch.kernels import selective_scan_heads as heads_k
 
 SCAN_CHUNK = 64        # checkpoint interval of the scan kernels (a multiple
 #                        of scan_k.TILE_T); the TPU kernels' default is 256
+HEADS_CHUNK = 256      # checkpoint interval of the heads kernels: the TPU
+#                        kernels' default; a chunk's (P, N) f32 checkpoint
+#                        is as large as 128 tokens of bf16 u at P = N = 64
 
 
 class _Conv(torch.autograd.Function):
@@ -96,3 +106,50 @@ def selective_scan(u, delta, A, B, C, D=None, positions=None, *,
         D = torch.zeros(Dm, dtype=torch.float32, device=u.device)
     return _Scan.apply(u.contiguous(), delta.contiguous(), A, B, C, D,
                        _positions(positions, Bz, L, u.device), chunk)
+
+
+class _ScanHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk, schedule):
+        Ah = A.float().contiguous()
+        Dp = D.float().contiguous()
+        y, ckpts = heads_k.selective_scan_heads_fwd(
+            u, delta, Ah, Bm, Cm, Dp, positions, chunk, schedule)
+        ctx.save_for_backward(u, delta, Ah, Bm, Cm, Dp, positions, ckpts)
+        ctx.chunk = chunk
+        ctx.dtypes = (A.dtype, D.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # one backward (#9) serves both forward schedules: the checkpoint
+        # contract is the same and the adjoint does not depend on the form
+        u, delta, Ah, Bm, Cm, Dp, positions, ckpts = ctx.saved_tensors
+        du, ddt_p, dB_p, dC_p, dA_p, dD_p = heads_k.selective_scan_heads_bwd(
+            u, delta, Ah, Bm, Cm, Dp, positions, ckpts,
+            dy.to(u.dtype).contiguous(), ctx.chunk)
+        a_dt, d_dt = ctx.dtypes
+        return (du.to(u.dtype), ddt_p.sum(-1).to(delta.dtype),
+                dA_p.sum((0, 2)).to(a_dt), dB_p.sum(1).to(Bm.dtype),
+                dC_p.sum(1).to(Cm.dtype), dD_p.sum((0, 2)).to(d_dt),
+                None, None, None)
+
+
+def selective_scan_heads(u, delta, A, B, C, D=None, positions=None, *,
+                         chunk: int = HEADS_CHUNK,
+                         schedule: str = "blocked_heads"):
+    """Head-structured segmented selective scan (scalar decay per head),
+    y only, differentiable. u (B, L, H, P) | delta (B, L, H) | A (H,) |
+    B, C (B, L, N), any batch/row strides (the kernels read ``split``
+    views of bc_proj's output as they are) | D (H,) or None | positions
+    (B, L) or None (= one segment per row). ``schedule``: 'blocked_heads'
+    (kernel #7) | 'blocked_heads_dual' (kernel #8). The chunk is clipped
+    to L, as the JAX wrapper clips it."""
+    if schedule not in heads_k.SCHEDULES:
+        raise ValueError(f"unknown heads schedule {schedule!r}")
+    Bz, L, H, _ = u.shape
+    if D is None:
+        D = torch.zeros(H, dtype=torch.float32, device=u.device)
+    return _ScanHeads.apply(u.contiguous(), delta.contiguous(), A, B, C, D,
+                            _positions(positions, Bz, L, u.device),
+                            max(1, min(chunk, L)), schedule)

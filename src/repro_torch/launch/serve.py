@@ -17,6 +17,7 @@ policy, deadlines/cancel/shedding, guard rails and fault injection,
 snapshot/restore, the prefix state cache, speculative decode and telemetry.
 
   python -m repro_torch.launch.serve --arch mamba-1.4b
+  python -m repro_torch.launch.serve --arch mamba2-370m
   python -m repro_torch.launch.serve --arch mamba-110m --tiny --device cpu
 """
 from __future__ import annotations

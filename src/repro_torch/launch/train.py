@@ -1,7 +1,8 @@
 """Training launcher of the port (``repro.launch.train`` on one card):
-packed Mamba-1 training with the scan and conv kernels.
+packed Mamba-1 or Mamba-2 training with the scan and conv kernels.
 
   python -m repro_torch.launch.train --arch mamba-1.4b --rows 2 --seq-len 4096
+  python -m repro_torch.launch.train --arch mamba2-370m --rows 8 --seq-len 4096
   python -m repro_torch.launch.train --tiny --device cpu --steps 3 \\
       --rows 2 --seq-len 256
 

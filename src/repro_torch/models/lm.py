@@ -1,5 +1,6 @@
-"""The Mamba-1 language model (port of ``repro.models.lm`` for family
-``mamba``): embedding → ``n_layers`` Mamba blocks → RMSNorm → head.
+"""The Mamba language model (port of ``repro.models.lm`` for family
+``mamba``): embedding → ``n_layers`` Mamba-1 or Mamba-2 blocks (the
+config's ``unit``) → RMSNorm → head.
 
 ``LM`` is an ``nn.Module`` that holds its parameters under the JAX
 package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
@@ -14,7 +15,8 @@ so they build no autograd graph.
 
 Caches and harvested states keep the JAX package's stacked layout with the
 layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
-"ssm": (n_layers, slots, di, N)}`` and a packed prefill's states carry
+"ssm": (n_layers, slots, di, N)}`` (Mamba-1) or ``"ssm": (n_layers, slots,
+H, P, N)`` (Mamba-2), and a packed prefill's states carry
 ``(n_layers, B, S, …)``. ``decode_step`` and ``scatter_into_cache`` update
 the cache in place (JAX's versions return a new one), so the engine holds
 one cache's worth of device memory.
@@ -37,13 +39,13 @@ from repro_torch.models.blocks import Ctx
 class LM(nn.Module):
     """Built on ``device`` (default ``cuda``; raises when there is no card).
     The parameters are allocated, not initialised: call ``init(generator)``
-    or ``load_state_dict(interop.params_from_jax(...))``."""
+    or ``load_state_dict(interop.params_from_jax(...))``. Every layer is of
+    ``cfg.unit``'s kind (``mamba`` or ``mamba2``); any other raises."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        if cfg.family != "mamba":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves Mamba-1 only")
+        (self._init_block, shapes_of, self._apply_block, self._cache_block,
+         self._step_block) = B.kind_of(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         pdt = getattr(torch, cfg.param_dtype)
@@ -52,7 +54,7 @@ class LM(nn.Module):
             return nn.Parameter(torch.empty(shape, dtype=pdt,
                                             device=self.device))
 
-        shapes = B.mamba_param_shapes(cfg)
+        shapes = shapes_of(cfg)
         self.embed = param((cfg.vocab, cfg.d_model))
         self.layers = nn.ModuleList(
             nn.ParameterDict({k: param(s) for k, s in shapes.items()})
@@ -68,7 +70,7 @@ class LM(nn.Module):
         cfg, dev = self.cfg, self.device
         self.embed.copy_(B._randn(generator, self.embed.shape, dev) * 0.02)
         for layer in self.layers:
-            for k, v in B.init_mamba(cfg, generator, dev).items():
+            for k, v in self._init_block(cfg, generator, dev).items():
                 layer[k].copy_(v)
         self.final_norm.fill_(1.0)
         self.head.copy_(B._randn(generator, self.head.shape, dev)
@@ -96,10 +98,10 @@ class LM(nn.Module):
         remat = self.cfg.remat == "unit" and torch.is_grad_enabled()
         for p in self.layers:
             if remat:
-                x = checkpoint(B.apply_mamba, p, x, ctx, self.cfg,
+                x = checkpoint(self._apply_block, p, x, ctx, self.cfg,
                                use_reentrant=False)
             else:
-                x = B.apply_mamba(p, x, ctx, self.cfg)
+                x = self._apply_block(p, x, ctx, self.cfg)
         return B._norm(self.final_norm, x, self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -147,8 +149,8 @@ class LM(nn.Module):
     def _collect(self, x, ctx, ends=None):
         convs, ssms = [], []
         for p in self.layers:
-            x, st = B.apply_mamba(p, x, ctx, self.cfg, collect=True,
-                                  collect_ends=ends)
+            x, st = self._apply_block(p, x, ctx, self.cfg, collect=True,
+                                      collect_ends=ends)
             convs.append(st["conv"])
             ssms.append(st["ssm"])
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
@@ -176,7 +178,8 @@ class LM(nn.Module):
 
         Returns (logits (B, S, V) at segment ends, zeros where absent;
         states {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
-        di, N)}; seg_lens (B, S) int32, 0 where absent)."""
+        di, N) or (n_layers, B, S, H, P, N)}; seg_lens (B, S) int32, 0 where
+        absent)."""
         batch = self._batch(batch)
         ends = torch.as_tensor(ends, device=self.device)
         ctx = self._ctx(batch)
@@ -208,8 +211,8 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------- decode
     def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        one = B.init_mamba_cache(self.cfg, batch_size,
-                                 getattr(torch, self.cfg.dtype), self.device)
+        one = self._cache_block(self.cfg, batch_size,
+                                getattr(torch, self.cfg.dtype), self.device)
         return {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
                 for k, v in one.items()}
 
@@ -221,8 +224,9 @@ class LM(nn.Module):
         x = self._embed(tokens_t)
         ctx = Ctx(reset_t=reset)
         for i, p in enumerate(self.layers):
-            x, st = B.step_mamba(p, x, {"conv": cache["conv"][i],
-                                        "ssm": cache["ssm"][i]}, ctx, self.cfg)
+            x, st = self._step_block(
+                p, x, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
+                ctx, self.cfg)
             cache["conv"][i].copy_(st["conv"])
             cache["ssm"][i].copy_(st["ssm"])
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)

@@ -19,6 +19,7 @@ from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import selective_scan as ksc  # noqa: E402
+from repro_torch.kernels import selective_scan_heads as kh  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -154,6 +155,96 @@ def test_autograd_through_the_kernels_repeats_bitwise(cuda):
         xc = tops.conv1d_pack(xl, wl, None, pos)
         Bm, Cm = dl.split([N, N], dim=-1)
         y = tops.selective_scan(xc, tl, al, Bm, Cm, None, positions=pos)
+        grads.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _heads_inputs(cuda, tdt, Bz, L, H, P, seed):
+    """u, dy (B, L, H, P), Δ (B, L, H) in ``tdt``; B and C as strided
+    views of one (B, L, 8 + 2N) projection; A from the Mamba-2 init
+    (-U[1, 16]); D random; positions from ``_positions`` (row 0 packed,
+    row 1 carried)."""
+    rng = np.random.default_rng(seed)
+    N = kh.D_STATE
+    u, dy = (torch.as_tensor(rng.normal(size=(Bz, L, H, P))).to(cuda, tdt)
+             for _ in range(2))
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, H))).to(cuda, tdt)
+    bc = torch.as_tensor(rng.normal(size=(Bz, L, 8 + 2 * N))).to(cuda, tdt)
+    _, Bm, Cm = bc.split([8, N, N], dim=-1)
+    A = -torch.as_tensor(rng.uniform(1, 16, (H,))).to(cuda, torch.float32)
+    Dp = torch.as_tensor(rng.normal(size=(H,))).to(cuda, torch.float32)
+    pos = np.tile(np.arange(L) % 5, (Bz, 1)).astype(np.int32) if Bz < 2 \
+        else _positions(Bz, L, seed)
+    return (u, dt, A, Bm, Cm, Dp, torch.as_tensor(pos).to(cuda)), dy
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_heads_kernels_match_plain_and_repeat(cuda, dtype, chunk):
+    """#7, #8 and #9 against their plain versions: a ragged L (no tile or
+    chunk multiple), two slices of P; #9 twice, bitwise equal."""
+    tdt = getattr(torch, dtype)
+    args, dy = _heads_inputs(cuda, tdt, 2, 300, 3, 32, 4)
+    n0 = (kh.LAUNCHES_FWD, kh.LAUNCHES_DUAL, kh.LAUNCHES_BWD)
+    y, ck = kh.selective_scan_heads_fwd(*args, chunk)
+    yd, ckd = kh.selective_scan_heads_fwd(*args, chunk, "blocked_heads_dual")
+    outs = kh.selective_scan_heads_bwd(*args, ck, dy, chunk)
+    again = kh.selective_scan_heads_bwd(*args, ck, dy, chunk)
+    torch.cuda.synchronize()
+    assert (kh.LAUNCHES_FWD, kh.LAUNCHES_DUAL, kh.LAUNCHES_BWD) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 2)
+    wy, wck = kh.selective_scan_heads_fwd_plain(*args, chunk)
+    for got_y, got_ck in ((y, ck), (yd, ckd)):
+        torch.testing.assert_close(got_ck, wck, atol=1e-4, rtol=1e-4)
+        if dtype == "float32":
+            torch.testing.assert_close(got_y, wy, atol=1e-4, rtol=1e-4)
+        else:
+            err = (got_y.float() - wy.float()).abs()
+            assert bool((err <= 2.0 ** -7 * wy.float().abs() + 1e-2).all())
+    want = kh.selective_scan_heads_bwd_plain(*args, ck, dy, chunk)
+    for name, g, w, r in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
+                             want, again):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("Bz,L,H,P", [(1, 1, 1, 16), (1, 5, 2, 16),
+                                      (3, 17, 2, 48)])
+def test_heads_kernels_on_edge_shapes(cuda, Bz, L, H, P):
+    """One step, a chunk longer than L, an odd batch: #7, #8, #9 against
+    their plain versions (f32)."""
+    args, dy = _heads_inputs(cuda, torch.float32, Bz, L, H, P, L)
+    for sched in kh.SCHEDULES:
+        y, ck = kh.selective_scan_heads_fwd(*args, 256, sched)
+        wy, wck = kh.selective_scan_heads_fwd_plain(*args, 256)
+        torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    for g, w in zip(kh.selective_scan_heads_bwd(*args, ck, dy, 256),
+                    kh.selective_scan_heads_bwd_plain(*args, ck, dy, 256)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_heads_kernels_refuse_other_widths(cuda):
+    args, _ = _heads_inputs(cuda, torch.float32, 1, 8, 1, 24, 0)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kh.selective_scan_heads_fwd(*args, 8)
+
+
+@pytest.mark.parametrize("schedule", ["blocked_heads", "blocked_heads_dual"])
+def test_autograd_through_the_heads_kernels_repeats_bitwise(cuda, schedule):
+    """The wired backward (#9 plus the fixed-order sums of its partials)
+    gives bitwise-equal gradients run after run."""
+    args, _ = _heads_inputs(cuda, torch.bfloat16, 2, 256, 4, 64, 5)
+    u, dt, A, Bm, Cm, Dp, pos = args
+    bc = torch.cat([Bm, Cm], dim=-1)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (u, dt, A, bc, Dp)]
+        lu, ldt, lA, lbc, lD = leaves
+        B2, C2 = lbc.chunk(2, dim=-1)
+        y = tops.selective_scan_heads(lu, ldt, lA, B2, C2, lD, positions=pos,
+                                      schedule=schedule)
         grads.append(torch.autograd.grad(y.float().square().sum(), leaves))
     for a, b in zip(*grads):
         assert torch.equal(a, b)

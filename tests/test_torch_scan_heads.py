@@ -1,0 +1,292 @@
+"""Port parity of the head-structured scan kernels #7 (``blocked_heads``
+forward), #8 (``blocked_heads_dual`` forward) and #9 (their backward): the
+plain versions (the CUDA kernels' functions on the CPU) against the JAX
+package's ``selective_scan_heads_fwd_pallas`` /
+``selective_scan_heads_bwd_pallas`` in interpret mode — y, the chunk-entry
+checkpoints and every backward partial — and the port's autograd wiring
+(``ops.selective_scan_heads``) against ``jax.grad`` of
+``kops.selective_scan_heads(..., backend="pallas")`` for both schedules;
+also the plain model-path reference ``core/ssm.selective_scan_heads`` and
+its decode step against ``repro.core.ssm``.
+
+Inputs from numpy with a seed: row 0 packed with resets (one inside a
+subtile), row 1 a carried row of a split pack (first position > 0), B and
+C as strided views of one projection, and a ragged L (37) beside a whole
+one. Tolerances are the reference's own (``tests/test_mamba2.py``):
+forward 1e-4, gradients 1e-4 abs / 1e-3 rel, and exactly 0 (1e-7) across
+a reset.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import selective_scan as jsk  # noqa: E402
+from repro_torch.core import packing as tpk  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import selective_scan_heads as kh  # noqa: E402
+
+FWD_TOL = dict(atol=1e-4, rtol=1e-4)
+BWD_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def _inputs(L, H, P, N, seed):
+    rng = np.random.default_rng(seed)
+    Bz = 2
+    u = rng.normal(size=(Bz, L, H, P)).astype(np.float32)
+    dt = rng.uniform(0.05, 0.5, (Bz, L, H)).astype(np.float32)
+    A = -rng.uniform(1.0, 4.0, (H,)).astype(np.float32)
+    bc = rng.normal(size=(Bz, L, 3 + 2 * N)).astype(np.float32)
+    Dk = rng.normal(size=(H,)).astype(np.float32)
+    pos = np.zeros((Bz, L), np.int32)
+    cuts = sorted({0, min(5, L), min(21, L), L})  # 5, 21: inside subtiles
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    sp = tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 2, L)], L)
+    assert sp.positions[1, 0] > 0
+    pos[1] = sp.positions[1]
+    dy = rng.normal(size=(Bz, L, H, P)).astype(np.float32)
+    return u, dt, A, bc, Dk, pos, dy
+
+
+def _split(bc, N):
+    """B and C as strided views of one projection (B, L, 3 + 2N)."""
+    return bc[..., 3:3 + N], bc[..., 3 + N:]
+
+
+def _t(*arrays):
+    return [torch.as_tensor(np.array(a)) for a in arrays]
+
+
+@pytest.fixture(autouse=True)
+def _no_launches_on_cpu():
+    def counts():
+        return (kh.LAUNCHES_FWD, kh.LAUNCHES_DUAL, kh.LAUNCHES_BWD)
+    before = counts()
+    yield
+    assert counts() == before
+
+
+# (L, H, P, N, chunk): P = 32 splits the partials into two slices; L = 37
+# is ragged (the JAX side pads it with pos = 1, Δ = 0)
+SHAPES = [(40, 2, 32, 8, 16), (37, 3, 16, 4, 8)]
+
+
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=lambda s: "x".join(map(str, s)))
+def pallas(request):
+    """Inputs and the JAX kernels' outputs: y and ckpts of both forward
+    schedules, the backward's outputs; L padded to the chunk as
+    ``kops.selective_scan_heads`` pads it."""
+    L, H, P, N, chunk = request.param
+    u, dt, A, bc, Dk, pos, dy = _inputs(L, H, P, N, L * H)
+    Bm, Cm = _split(bc, N)
+    pad = (-L) % chunk
+
+    def padL(x, axis, value=0):
+        w = [(0, 0)] * x.ndim
+        w[axis] = (0, pad)
+        return np.pad(x, w, constant_values=value)
+
+    j = [jnp.asarray(a) for a in (
+        padL(np.moveaxis(u, 2, 1), 2), padL(np.moveaxis(dt, 2, 1), 2),
+        A[:, None], padL(Bm, 1), padL(Cm, 1), Dk[:, None],
+        padL(pos, 1, value=1))]
+    fwd = {}
+    for sched in kh.SCHEDULES:
+        y, ck = jsk.selective_scan_heads_fwd_pallas(*j, chunk=chunk,
+                                                    schedule=sched)
+        fwd[sched] = (np.moveaxis(np.asarray(y), 1, 2)[:, :L],
+                      np.asarray(ck))
+    bwd = jsk.selective_scan_heads_bwd_pallas(
+        *j, ck, jnp.asarray(padL(np.moveaxis(dy, 2, 1), 2)), chunk=chunk)
+    bwd = [np.asarray(a) for a in bwd]
+    return (L, H, P, N, chunk), (u, dt, A, Bm, Cm, Dk, pos, dy), fwd, bwd
+
+
+@pytest.mark.parametrize("schedule", kh.SCHEDULES)
+def test_forward_plain_matches_pallas(pallas, schedule):
+    (L, H, P, N, chunk), (u, dt, A, Bm, Cm, Dk, pos, _), fwd, _ = pallas
+    plain = {"blocked_heads": kh.selective_scan_heads_fwd_plain,
+             "blocked_heads_dual": kh.selective_scan_heads_fwd_dual_plain}
+    y, ck = plain[schedule](*_t(u, dt, A, Bm, Cm, Dk, pos), chunk)
+    wy, wck = fwd[schedule]
+    assert tuple(ck.shape) == wck.shape == (2, H, -(-L // chunk), P, N)
+    np.testing.assert_allclose(y.numpy(), wy, **FWD_TOL)
+    np.testing.assert_allclose(ck.numpy(), wck, **FWD_TOL)
+    # the wrapper on CPU tensors takes the same plain version
+    y2, _ = kh.selective_scan_heads_fwd(*_t(u, dt, A, Bm, Cm, Dk, pos),
+                                        chunk, schedule)
+    assert torch.equal(y, y2)
+
+
+def test_backward_plain_matches_pallas(pallas):
+    """Every output of #9 partial by partial: the plain version's
+    per-slice partials summed over the slices against the TPU kernel's
+    per-head ones."""
+    (L, H, P, N, chunk), args, fwd, want = pallas
+    u, dt, A, Bm, Cm, Dk, pos, dy = args
+    nps = kh.n_slices(P)
+    ck = torch.as_tensor(np.array(fwd["blocked_heads"][1]))
+    du, ddt, dB, dC, dA, dD = kh.selective_scan_heads_bwd(
+        *_t(u, dt, A, Bm, Cm, Dk, pos), ck, torch.as_tensor(dy), chunk)
+    assert tuple(ddt.shape) == (2, L, H, nps)
+    assert tuple(dB.shape) == tuple(dC.shape) == (2, H * nps, L, N)
+    assert tuple(dA.shape) == tuple(dD.shape) == (2, H, nps)
+    jdu, jddt, jdB, jdC, jdA, jdD = want
+    got = {"du": du.numpy(), "ddelta": ddt.sum(-1).numpy(),
+           "dB": dB.reshape(2, H, nps, L, N).sum(2).numpy(),
+           "dC": dC.reshape(2, H, nps, L, N).sum(2).numpy(),
+           "dA": dA.sum(-1).numpy(), "dD": dD.sum(-1).numpy()}
+    ref = {"du": np.moveaxis(jdu, 1, 2)[:, :L],
+           "ddelta": np.moveaxis(jddt, 1, 2)[:, :L], "dB": jdB[:, :, :L],
+           "dC": jdC[:, :, :L], "dA": jdA[..., 0], "dD": jdD[..., 0]}
+    for k in got:
+        np.testing.assert_allclose(got[k], ref[k], err_msg=k, **BWD_TOL)
+
+
+@pytest.mark.parametrize("schedule", kh.SCHEDULES)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ops_gradients_match_jax(shape, schedule):
+    """``ops.selective_scan_heads`` (the autograd Function over the plain
+    #7/#8 and #9 with the partials summed in a fixed order) against
+    ``jax.grad`` of the JAX wrapper with backend="pallas"."""
+    L, H, P, N, chunk = shape
+    u, dt, A, bc, Dk, pos, dy = _inputs(L, H, P, N, 11 * L)
+
+    def jloss(u, dt, A, bc, Dk):
+        Bm, Cm = _split(bc, N)
+        y = jops.selective_scan_heads(u, dt, A, Bm, Cm, Dk,
+                                      positions=jnp.asarray(pos),
+                                      backend="pallas", chunk=chunk,
+                                      schedule=schedule)
+        return (y * dy).sum(), y
+
+    (jl, jy), jg = jax.value_and_grad(jloss, argnums=tuple(range(5)),
+                                      has_aux=True)(
+        *[jnp.asarray(a) for a in (u, dt, A, bc, Dk)])
+    leaves = [t.requires_grad_() for t in _t(u, dt, A, bc, Dk)]
+    tu, tdt, tA, tbc, tD = leaves
+    Bm, Cm = _split(tbc, N)
+    ty = tops.selective_scan_heads(tu, tdt, tA, Bm, Cm, tD,
+                                   positions=torch.as_tensor(pos),
+                                   chunk=chunk, schedule=schedule)
+    tg = torch.autograd.grad((ty * torch.as_tensor(dy)).sum(), leaves)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               **FWD_TOL)
+    for name, g, w in zip(("u", "delta", "A", "B|C", "D"), tg, jg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **BWD_TOL)
+
+
+@pytest.mark.parametrize("schedule", kh.SCHEDULES)
+def test_gradient_does_not_cross_a_reset(schedule):
+    """Backward PUI (paper §3.4): a loss on the second segment gives the
+    first exactly zero gradient, with the reset inside a subtile."""
+    L, H, P, N = 24, 2, 16, 4
+    u, dt, A, bc, Dk, _, _ = _inputs(L, H, P, N, 5)
+    pos = np.tile(np.concatenate([np.arange(11), np.arange(13)]),
+                  (2, 1)).astype(np.int32)
+    tu = torch.as_tensor(u).requires_grad_()
+    Bm, Cm = _split(torch.as_tensor(bc), N)
+    y = tops.selective_scan_heads(tu, *_t(dt, A), Bm, Cm,
+                                  torch.as_tensor(Dk),
+                                  positions=torch.as_tensor(pos), chunk=8,
+                                  schedule=schedule)
+    (g,) = torch.autograd.grad(y[:, 11:].square().sum(), [tu])
+    np.testing.assert_allclose(g[:, :11].numpy(), 0.0, atol=1e-7)
+    assert float(g[:, 11:].abs().max()) > 0
+
+
+def test_carried_row_starts_from_the_checkpoint_not_zero():
+    """Fault watch (a): a carried row's first position is > 0, so no reset
+    fires at the buffer start; the scan of the carried half alone with
+    h0 from the first half equals the whole row's tail."""
+    L, H, P, N = 32, 2, 16, 4
+    u, dt, A, bc, Dk, _, _ = _inputs(L, H, P, N, 8)
+    Bm, Cm = _split(bc, N)
+    pos = np.tile(np.arange(7, 7 + L), (2, 1)).astype(np.int32)
+    args = _t(u, dt, A, Bm, Cm, Dk, pos)
+    y, ck = kh.selective_scan_heads_fwd(*args, 16)
+    assert float(ck[:, :, 1].abs().max()) > 0      # chunk 1 enters non-zero
+    from repro_torch.core import ssm as core_ssm
+    y_ref = core_ssm.selective_scan_heads(
+        *args[:6], positions=args[6], method="sequential")
+    np.testing.assert_allclose(y.numpy(), y_ref.numpy(), **FWD_TOL)
+
+
+HEADS_METHODS = [("sequential", None), ("blocked", "quad"),
+                 ("blocked", "dual")]
+
+
+@pytest.mark.parametrize("method,intra", HEADS_METHODS)
+@pytest.mark.parametrize("chunk", [8, 256])
+def test_core_scan_heads_matches_jax(method, intra, chunk):
+    """``core/ssm.selective_scan_heads`` (the plain model-path reference:
+    h0, return_state, collect_ends; the chunk clamped at the JAX caps)
+    against ``repro.core.ssm.selective_scan_heads``."""
+    from repro.core import ssm as jssm
+    from repro_torch.core import ssm as tssm
+    L, H, P, N = 29, 3, 4, 5
+    u, dt, A, bc, Dk, pos, _ = _inputs(L, H, P, N, chunk)
+    Bm, Cm = _split(bc, N)
+    h0 = np.random.default_rng(chunk).normal(size=(2, H, P, N)).astype(
+        np.float32)
+    ends = np.array([[4, 20, L - 1], [L - 1, -1, -1]], np.int32)
+    kw = dict(method=method, chunk=chunk, intra=intra, return_state=True)
+    jy, jh, je = jssm.selective_scan_heads(
+        u, dt, A, Bm, Cm, Dk, positions=pos, h0=h0,
+        collect_ends=jnp.asarray(ends), **kw)
+    ty, th, te = tssm.selective_scan_heads(
+        *_t(u, dt, A, Bm, Cm, Dk), positions=torch.as_tensor(pos),
+        h0=torch.as_tensor(h0), collect_ends=torch.as_tensor(ends), **kw)
+    for got, want in ((ty, jy), (th, jh), (te, je)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+def test_core_scan_heads_step_matches_jax():
+    from repro.core import ssm as jssm
+    from repro_torch.core import ssm as tssm
+    H, P, N = 3, 4, 5
+    u, dt, A, bc, Dk, _, _ = _inputs(4, H, P, N, 4)
+    Bm, Cm = _split(bc, N)
+    h = np.random.default_rng(4).normal(size=(2, H, P, N)).astype(np.float32)
+    reset = np.array([True, False])
+    jy, jh = jssm.selective_scan_heads_step(
+        h, u[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], Dk, reset_t=reset)
+    ty, th = tssm.selective_scan_heads_step(
+        *_t(h, u[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], Dk),
+        reset_t=torch.as_tensor(reset))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **FWD_TOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **FWD_TOL)
+
+
+def test_wrapper_validation():
+    u, dt, A, bc, Dk, pos, dy = _inputs(8, 2, 16, 4, 1)
+    Bm, Cm = _split(bc, 4)
+    args = _t(u, dt, A, Bm, Cm, Dk, pos)
+    with pytest.raises(ValueError, match="unknown heads schedule"):
+        tops.selective_scan_heads(*args[:6], positions=args[6],
+                                  schedule="step")
+    with pytest.raises(ValueError, match="unknown heads schedule"):
+        kh.selective_scan_heads_fwd(*args, 8, "blocked")
+    with pytest.raises(TypeError, match="u's dtype"):
+        kh.selective_scan_heads_fwd(args[0], args[1].double(), *args[2:], 8)
+    with pytest.raises(ValueError, match="do not agree"):
+        kh.selective_scan_heads_fwd(args[0], args[1], args[2][:1],
+                                    *args[3:], 8)
+    with pytest.raises(ValueError, match="ckpts"):
+        kh.selective_scan_heads_bwd(*args, torch.zeros(1),
+                                    torch.as_tensor(dy), 8)
+    from repro_torch.core import ssm as tssm
+    with pytest.raises(ValueError, match="scalar decay per head"):
+        tssm.selective_scan_heads(*args[:2], args[2][:, None], *args[3:6],
+                                  positions=args[6])
+    assert kh.n_slices(64) == 4 and kh.n_slices(16) == 1 and \
+        kh.n_slices(24) == 1
