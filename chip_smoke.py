@@ -13,11 +13,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               paths' shapes, in bf16 and f32, timed beside the plain
               version, the library yardstick (where one PyTorch call
               computes the same function) and the least time the card could
-              take: #1 conv1d_pack forward (serving), #2 its dx backward,
-              #4 / #6 the blocked selective scan forward / backward
-              (training); #7 / #8 / #9 the head-structured (Mamba-2) scan
-              forward, its dual form and their backward. The backward
-              kernels run twice and must agree bitwise.
+              take: #1 conv1d_pack forward (serving), #2 its dx backward;
+              the Mamba-1 selective scan's two schedules, #4 / #6 (blocked)
+              and #3 / #5 (step) forward / backward, at the mamba-1.4b and
+              mamba-2.8b training shapes and a ragged one, timed in the same
+              call and checked against each other (#3's checkpoints against
+              #4's, #5 against #6); #7 / #8 / #9 the head-structured
+              (Mamba-2) scan forward, its dual form and their backward. The
+              backward kernels run twice and must agree bitwise.
 4. parity   — serving: ``prefill_packed`` end logits and states of 4
               prompts against per-prompt ``prefill`` (f32, full width).
 5. engine   — the serving main path: the continuous-batching engine on
@@ -43,6 +46,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               bf16), then its training main path: 48 layers, 8 × 4096
               packed (``train_mamba2``), launch counts asserted exactly,
               one profiled step, 2 ``pad`` steps.
+9. step     — mamba-2.8b with ``pallas_schedule="step"``: full-width parity
+              (2 layers, f32, TF32 off; #1, #2, #3, #5 against autograd
+              through the plain path), then its training main path
+              (``train_step``): 64 layers, d_model 2560, 2 × 4096 packed,
+              bf16, 1 warm-up and 4 timed steps with exact launch counts per
+              step (#1 128, #2 64, #3 128, #5 64, #4 and #6 0) and one
+              profiled step; pack only.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -66,7 +76,15 @@ SFU_PER_SM_CLOCK = 16            # exp2 results per clock per SM (sm_90)
 SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096), (2, 4096, 4096)]
 MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
 TRAIN_SHAPE = (2, 4096, 4096)    # (rows, L, d_inner): mamba-1.4b training
+TRAIN_SHAPE_28 = (2, 4096, 5120)  # mamba-2.8b training
 RAGGED_SHAPE = (2, 997, 4096)    # an L that is no multiple of any tile
+SCAN_RAGGED = (2, 997, 4104)     # and a D that is no multiple of a channel
+#                                  block (16 or 32)
+SCAN_CASES = ((TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE_28, "bfloat16"),
+              (SCAN_RAGGED, "bfloat16"), (SCAN_RAGGED, "float32"),
+              (TRAIN_SHAPE, "float32"))
+SCAN_KERNELS = {"blocked": ("selective_scan_fwd", "selective_scan_bwd"),
+                "step": ("selective_scan_fwd_step", "selective_scan_bwd_step")}
 HEADS_SHAPE = (8, 4096, 32, 64)  # (rows, L, H, P): mamba2-370m training
 HEADS_RAGGED = (8, 997, 32, 64)
 HEADS_N = 64                     # mamba2-370m's d_state
@@ -323,28 +341,75 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def scan_bounds(shape, es, n_chunk):
+    """Least times of the Mamba-1 scan's forward and backward (the same
+    for both schedules): bytes of each input read once and each output
+    written once — du, dΔ (B, L, D) f32, dB and dC as the function's
+    (B, L, N) f32, dA (N, D) and dD (D,) f32; the kernels' per-block and
+    per-row partials are their own overhead and not counted — and f32
+    operations per state and step, forward 6, backward 17."""
+    B, L, D = shape
+    N = 16
+    io = 2 * B * L * N * es + B * L * 4 + N * D * 4 + D * 4
+    ck = B * n_chunk * N * D * 4
+    fwd = bound_ms(3 * B * L * D * es + io + ck, 6 * B * L * D * N)
+    bwd = bound_ms(3 * B * L * D * es + io + ck + 2 * B * L * D * 4
+                   + 2 * B * L * N * 4 + N * D * 4 + D * 4,
+                   17 * B * L * D * N)
+    return fwd, bwd
+
+
+def pair_partials(p, nblk):
+    """Per-16-channel dB/dC partials (B, n16, L, N) summed in pairs into
+    per-32-channel ones (B, nblk, L, N)."""
+    import torch
+    pad = 2 * nblk - p.shape[1]
+    if pad:
+        p = torch.cat([p, p.new_zeros((p.shape[0], pad) + p.shape[2:])], 1)
+    return p.reshape(p.shape[0], nblk, 2, *p.shape[2:]).sum(2)
+
+
 def phase_scan(sfu_rate):
-    """Kernels #4 and #6 at the training shape and at a ragged L, against
-    their plain versions; the backward twice, bitwise equal."""
+    """The Mamba-1 scan's two schedules at each shape of ``SCAN_CASES``,
+    timed in one call: #4/#6 (``blocked``) and #3/#5 (``step``), each
+    against the plain versions (one forward and one backward per case,
+    the backward fed #4's checkpoints, as every kernel backward is); the
+    backward kernels twice, bitwise equal; and the two schedules against
+    each other — #3's checkpoints against #4's, #5 against #6."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ksc
     chunk = ops.SCAN_CHUNK
-    rows, worst = [], {"selective_scan_fwd": 0.0, "selective_scan_bwd": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        for shape in (TRAIN_SHAPE, RAGGED_SHAPE):
-            B, L, D = shape
-            N, es = 16, torch.tensor([], dtype=dtype).element_size()
-            args = scan_inputs(shape, dtype, seed=L)
-            u, delta, At, Bm, Cm, Dp, pos, dy = args
-            fwd = lambda: ksc.selective_scan_fwd(*args[:7], chunk)
+    rows = []
+    worst = {k: 0.0 for pair in SCAN_KERNELS.values() for k in pair}
+    for shape, dtn in SCAN_CASES:
+        dtype = getattr(torch, dtn)
+        B, L, D = shape
+        N, es = 16, torch.tensor([], dtype=dtype).element_size()
+        args = scan_inputs(shape, dtype, seed=L)
+        dy = args[7]
+        fa = args[:7]
+        (wy, wck), plain_fwd_ms = once_ms(
+            lambda: ksc.selective_scan_fwd_plain(*fa, chunk))
+        wy32 = wy.float()
+        scale = wy32.abs().max().item()
+        ck4 = ksc.selective_scan_fwd(*fa, chunk, "blocked")[1]
+        want16, plain_bwd_ms = once_ms(
+            lambda: ksc.selective_scan_bwd_plain(*fa, ck4, dy, chunk,
+                                                 ksc.STEP_BLOCK_D))
+        nblk32 = -(-D // ksc.BLOCK_D)
+        want = {"step": want16,
+                "blocked": (*want16[:2], pair_partials(want16[2], nblk32),
+                            pair_partials(want16[3], nblk32), *want16[4:])}
+        got, ckpts, times = {}, {}, {}
+        for sched in ("blocked", "step"):
+            kf, kb = SCAN_KERNELS[sched]
+            fwd = functools.partial(ksc.selective_scan_fwd, *fa, chunk, sched)
             y, ck = fwd()
             torch.cuda.synchronize()
-            (wy, wck), plain_fwd_ms = once_ms(
-                lambda: ksc.selective_scan_fwd_plain(*args[:7], chunk))
-            y32, wy32 = y.float(), wy.float()
+            ckpts[sched] = ck
+            y32 = y.float()
             err_y = (y32 - wy32).abs()
-            scale = wy32.abs().max().item()
             if dtype == torch.float32:
                 ok = bool((err_y <= 1e-4 * (1 + wy32.abs())).all())
                 tol = "y 1e-4 · (1 + |ref|); ckpts 1e-4 · (1 + |ref|)"
@@ -357,57 +422,50 @@ def phase_scan(sfu_rate):
             ok = ok and bool((err_ck <= 1e-4 * (1 + wck.abs())).all())
             if not ok:
                 raise AssertionError(
-                    f"selective_scan forward kernel disagrees with its plain "
-                    f"version at {shape} {dtype}: y {err_y.max().item()}, "
-                    f"ckpts {err_ck.max().item()}")
+                    f"{kf} kernel disagrees with its plain version at "
+                    f"{shape} {dtype}: y {err_y.max().item()}, ckpts "
+                    f"{err_ck.max().item()}")
             e_fwd = max(err_y.max().item(), err_ck.max().item())
-            worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"],
-                                              e_fwd)
-            del wy, wck, y32, wy32, err_y, err_ck
-            nC, nblk = ck.shape[1], -(-D // ksc.BLOCK_D)
-            io = 2 * B * L * N * es + B * L * 4 + N * D * 4 + D * 4
-            bnd_f, by_f = bound_ms(3 * B * L * D * es + io
-                                   + B * nC * N * D * 4, 6 * B * L * D * N)
+            worst[kf] = max(worst[kf], e_fwd)
+            del y, y32, err_y, err_ck
+            (bnd_f, by_f), (bnd_b, by_b) = scan_bounds(shape, es,
+                                                       ck.shape[1])
+            kern_f = graph_ms(fwd, 10, 3)
             rows.append({
-                "kernel": "selective_scan_fwd", "shape": list(shape),
-                "dtype": str(dtype).split(".")[-1], "chunk": chunk,
-                "max_abs_err": e_fwd, "tolerance": tol,
-                "kernel_ms": graph_ms(fwd, 10, 3),
+                "kernel": kf, "schedule": sched, "shape": list(shape),
+                "dtype": dtn, "chunk": chunk, "max_abs_err": e_fwd,
+                "tolerance": tol, "kernel_ms": kern_f,
                 "kernel_eager_ms": eager_ms(fwd, 10, 2),
                 "plain_ms": plain_fwd_ms, "library_ms": None,
                 "bound_ms": bnd_f, "bound_by": by_f,
                 "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate)})
             emit("kernels", **rows[-1])
-            bwd = lambda: ksc.selective_scan_bwd(*args[:7], ck, dy, chunk)
+            bwd = functools.partial(ksc.selective_scan_bwd, *fa, ck4, dy,
+                                    chunk, sched)
             outs, again = bwd(), bwd()
             torch.cuda.synchronize()
-            want, plain_bwd_ms = once_ms(
-                lambda: ksc.selective_scan_bwd_plain(*args[:7], ck, dy,
-                                                     chunk))
             errs = {}
-            for name, got, ref, rep in zip(
-                    ("du", "ddelta", "dB", "dC", "dA", "dD"), outs, want,
-                    again):
-                e = (got - ref).abs().max().item()
+            for name, g, ref, rep in zip(
+                    ("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
+                    want[sched], again):
+                e = (g - ref).abs().max().item()
                 errs[name] = e
                 if e > BWD_TOL * max(1.0, ref.abs().max().item()):
                     raise AssertionError(
-                        f"selective_scan backward kernel disagrees with its "
-                        f"plain version at {shape} {dtype}: {name} max err "
-                        f"{e}")
-                if not torch.equal(got, rep):
-                    raise AssertionError(f"selective_scan backward {name} "
-                                         f"is not bitwise repeatable")
-            worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"],
-                                              max(errs.values()))
-            del outs, again, want
-            bnd_b, by_b = bound_ms(
-                3 * B * L * D * es + io + B * nC * N * D * 4
-                + 2 * B * L * D * 4 + 2 * B * nblk * L * N * 4
-                + B * N * D * 4 + B * D * 4, 17 * B * L * D * N)
+                        f"{kb} kernel disagrees with its plain version at "
+                        f"{shape} {dtype}: {name} max err {e}")
+                if not torch.equal(g, rep):
+                    raise AssertionError(f"{kb} {name} is not bitwise "
+                                         f"repeatable")
+            worst[kb] = max(worst[kb], max(errs.values()))
+            got[sched] = outs
+            del again
+            # #6 computes the decays twice (its forward pass to the tile
+            # entries, then the recompute and the adjoint), #5 once
+            n_exp = (2 if sched == "blocked" else 1) * B * L * D * N
             rows.append({
-                "kernel": "selective_scan_bwd", "shape": list(shape),
-                "dtype": str(dtype).split(".")[-1], "chunk": chunk,
+                "kernel": kb, "schedule": sched, "shape": list(shape),
+                "dtype": dtn, "chunk": chunk,
                 "max_abs_err": max(errs.values()), "errors": errs,
                 "tolerance": f"{BWD_TOL} · max(1, max|ref|) per output",
                 "bitwise_repeat": True,
@@ -415,10 +473,35 @@ def phase_scan(sfu_rate):
                 "kernel_eager_ms": eager_ms(bwd, 10, 2),
                 "plain_ms": plain_bwd_ms, "library_ms": None,
                 "bound_ms": bnd_b, "bound_by": by_b,
-                "exp_floor_ms": exp_floor_ms(2 * B * L * D * N, sfu_rate)})
+                "exp_floor_ms": exp_floor_ms(n_exp, sfu_rate)})
             emit("kernels", **rows[-1])
-            del args, u, delta, Bm, Cm, dy, y, ck
-            torch.cuda.empty_cache()
+            times[sched] = (kern_f, rows[-1]["kernel_ms"])
+        # the two schedules on one card
+        e_ck = (ckpts["step"] - ckpts["blocked"]).abs()
+        ck_ok = bool((e_ck <= 1e-4 * (1 + ckpts["blocked"].abs())).all())
+        errs = {}
+        for i, name in enumerate(("du", "ddelta", "dB", "dC", "dA", "dD")):
+            a, b = got["step"][i], got["blocked"][i]
+            if name in ("dB", "dC"):
+                a, b = a.sum(1), b.sum(1)
+            errs[name] = (a - b).abs().max().item()
+            if errs[name] > BWD_TOL * max(1.0, b.abs().max().item()):
+                raise AssertionError(f"#5 and #6 disagree at {shape} "
+                                     f"{dtype}: {name} {errs[name]}")
+        if not ck_ok:
+            raise AssertionError(f"#3's checkpoints differ from #4's at "
+                                 f"{shape} {dtype}: {e_ck.max().item()}")
+        emit("scan_schedules", shape=list(shape), dtype=dtn,
+             ckpt_step_vs_blocked=e_ck.max().item(),
+             ckpt_tolerance="1e-4 · (1 + |#4|)", bwd_step_vs_blocked=errs,
+             bwd_tolerance=f"{BWD_TOL} · max(1, max|#6|) (dB, dC summed "
+                           f"over blocks)",
+             fwd_ms={s: t[0] for s, t in times.items()},
+             bwd_ms={s: t[1] for s, t in times.items()})
+        del args, fa, dy, wy, wck, wy32, ck4, want16, want, got, ckpts
+        del outs, e_ck
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -446,8 +529,9 @@ def heads_inputs(shape, dtype, seed):
 def heads_bounds(shape, es, n_chunk):
     """Least times of the heads scan's forward (#7 and #8 share it: the
     per-step form's work) and backward: bytes of each input read once and
-    each output written once (the TPU kernels' outputs: per-head dB/dC
-    partials), and f32 operations per state and step — forward 5 (decay,
+    each output written once (dB and dC as the function's (B, L, N), dA
+    and dD (H,); the kernel's per-head partials are its own overhead and
+    not counted), and f32 operations per state and step — forward 5 (decay,
     input, add; y's product and sum), backward 14 (the states recomputed
     once, then g, its carry, and the five products summed for du, dΔ, dB,
     dC, dA)."""
@@ -459,7 +543,7 @@ def heads_bounds(shape, es, n_chunk):
     fwd = bound_ms(2 * B * L * H * P * es + io + ck,
                    5 * states + 3 * B * L * H * P)
     bwd = bound_ms(2 * B * L * H * P * es + io + ck + B * L * H * P * 4
-                   + B * L * H * 4 + 2 * B * H * L * N * 4 + 2 * B * H * 4,
+                   + B * L * H * 4 + 2 * B * L * N * 4 + 2 * H * 4,
                    14 * states + 5 * B * L * H * P)
     return fwd, bwd
 
@@ -570,6 +654,10 @@ LAUNCH_COUNTERS = (("conv1d_pack_fwd", "conv1d_pack", "LAUNCHES"),
                    ("conv1d_pack_bwd_dx", "conv1d_pack", "LAUNCHES_DX"),
                    ("selective_scan_fwd", "selective_scan", "LAUNCHES_FWD"),
                    ("selective_scan_bwd", "selective_scan", "LAUNCHES_BWD"),
+                   ("selective_scan_fwd_step", "selective_scan",
+                    "LAUNCHES_FWD_STEP"),
+                   ("selective_scan_bwd_step", "selective_scan",
+                    "LAUNCHES_BWD_STEP"),
                    ("selective_scan_heads_fwd", "selective_scan_heads",
                     "LAUNCHES_FWD"),
                    ("selective_scan_heads_fwd_dual", "selective_scan_heads",
@@ -586,7 +674,11 @@ PATH_KERNELS = {"mamba": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
 
 
 def path_kernels(cfg, schedule=None):
+    """The kernels ``cfg``'s training path runs: the Mamba-1 scan's by
+    ``cfg.pallas_schedule``, the Mamba-2 scan's forward by ``schedule``."""
     ks = list(PATH_KERNELS[cfg.unit[0]])
+    if cfg.unit[0] == "mamba":
+        ks[2:] = SCAN_KERNELS[cfg.pallas_schedule]
     if schedule == "blocked_heads_dual":
         ks[2] = "selective_scan_heads_fwd_dual"
     return ks
@@ -622,7 +714,7 @@ def plain_path():
     saved = blocks.kops
     blocks.kops = types.SimpleNamespace(
         conv1d_pack=core_conv.conv1d_pack,
-        selective_scan=lambda u, dt, A, B, C, D, positions: (
+        selective_scan=lambda u, dt, A, B, C, D, positions, schedule: (
             core_ssm.selective_scan(u, dt, A, B, C, D, positions=positions,
                                     method="blocked", chunk=64)),
         selective_scan_heads=lambda u, dt, A, B, C, D, positions: (
@@ -669,14 +761,18 @@ def train_loader(cfg, mode, seq_len=4096, rows=2, seed=0):
 def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
                        seq_len=2048):
     """Full-width ``arch``, ``layers`` deep, f32 (TF32 off): loss and every
-    gradient through the kernels (the heads scan with ``schedule``)
-    against the plain path. Counters set to 0 before each path: the
-    kernel path must launch exactly its kernels, the plain path none."""
+    gradient through the kernels (the Mamba-1 scan's ``pallas_schedule``
+    or the heads scan's schedule set to ``schedule``) against the plain
+    path. Counters set to 0 before each path: the kernel path must launch
+    exactly its kernels, the plain path none."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.lm import LM
     cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               dtype="float32")
+    if cfg.unit[0] == "mamba" and schedule is not None:
+        cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
+        schedule = None
     model = LM(cfg)
     model.init(torch.Generator(device="cuda").manual_seed(1))
     batch = train_loader(cfg, "pack", seq_len).batch(0)
@@ -716,7 +812,8 @@ def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
         raise AssertionError(f"kernel-path training differs from the plain "
                              f"path: loss {loss_err}, gradient {worst} at "
                              f"{worst_leaf}")
-    return {"arch": cfg.name, "schedule": schedule, "layers": layers,
+    return {"arch": cfg.name, "schedule": schedule,
+            "pallas_schedule": cfg.pallas_schedule, "layers": layers,
             "rows": 2,
             "seq_len": seq_len, "dtype": "float32", "tf32": "off",
             "loss_kernel": k_loss.item(), "loss_plain": p_loss.item(),
@@ -726,7 +823,9 @@ def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
             "launches_kernel_path": ran}
 
 
-KERNEL_GROUPS = (("heads_bwd_kernel", "heads scan bwd #9"),
+KERNEL_GROUPS = (("scan_step_bwd_kernel", "scan bwd step #5"),
+                 ("scan_step_fwd_kernel", "scan fwd step #3"),
+                 ("heads_bwd_kernel", "heads scan bwd #9"),
                  ("heads_fwd_kernel", "heads scan fwd #7"),
                  ("heads_dual_kernel", "heads scan fwd dual #8"),
                  ("scan_bwd_kernel", "scan bwd #6"),
@@ -794,9 +893,12 @@ def profile_step(step_fn, state, batch):
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
 
 
-def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS):
+def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
+                pad=True):
     """The training main path at ``arch``'s full width and depth, ``rows``
-    × 4096 packed."""
+    × 4096 packed, the Mamba-1 scan on ``schedule`` (the config's
+    ``pallas_schedule`` when None); with ``pad``, 2 steps in ``pad`` mode
+    after the pack steps."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.lm import LM
@@ -804,6 +906,8 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
     cfg = get_config(arch)
+    if schedule is not None:
+        cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
     model = LM(cfg)
     opt = AdamW(cosine_schedule(3e-4, warmup=1, total=steps + 3))
     trainer = Trainer(model, opt, train_loader(cfg, "pack", rows=rows),
@@ -837,15 +941,10 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS):
     buf = sum(h["buffer_tokens"] for h in hist)
     state, profiled = profile_step(trainer.step_fn, state,
                                    trainer.loader.batch(1 + steps))
-    # the paper's comparison (a smoke reading): one sequence per row
-    pad = Trainer(model, opt, train_loader(cfg, "pad", rows=rows),
-                  TrainerConfig(steps=2))
-    state, phist = pad.train(state=state, verbose=False)
-    pad_ms = sum(h["step_ms"] for h in phist)
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
-           "remat": cfg.remat, "rows": rows, "seq_len": 4096,
-           "mode": "pack",
+           "remat": cfg.remat, "pallas_schedule": cfg.pallas_schedule,
+           "rows": rows, "seq_len": 4096, "mode": "pack",
            "warmup_steps": 1, "timed_steps": steps, "losses": losses,
            "grad_norms": [h["grad_norm"] for h in hist],
            "ms_per_step": step_ms / steps,
@@ -857,14 +956,22 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS):
            "max_memory_allocated_gib": peak, "launches": launches,
            "launches_per_step": {k: v // steps for k, v in
                                  launches.items()},
-           "pad_losses": [h["loss"] for h in phist],
-           "pad_ms_per_step": pad_ms / len(phist),
-           "pad_real_tok_per_s": sum(h["real_tokens"] for h in phist)
-           / pad_ms * 1e3,
-           "pad_real_fraction": sum(h["real_tokens"] for h in phist)
-           / sum(h["buffer_tokens"] for h in phist),
            "profile": profiled}
-    del state, trainer, pad, opt, model
+    if pad:
+        # the paper's comparison (a smoke reading): one sequence per row
+        padt = Trainer(model, opt, train_loader(cfg, "pad", rows=rows),
+                       TrainerConfig(steps=2))
+        state, phist = padt.train(state=state, verbose=False)
+        pad_ms = sum(h["step_ms"] for h in phist)
+        out.update({
+            "pad_losses": [h["loss"] for h in phist],
+            "pad_ms_per_step": pad_ms / len(phist),
+            "pad_real_tok_per_s": sum(h["real_tokens"] for h in phist)
+            / pad_ms * 1e3,
+            "pad_real_fraction": sum(h["real_tokens"] for h in phist)
+            / sum(h["buffer_tokens"] for h in phist)})
+        del padt
+    del state, trainer, opt, model
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_wall_s"] = time.perf_counter() - t_phase
@@ -1062,6 +1169,15 @@ def main():
     emit("train_mamba2", **tr2)
     emit("train_mamba2_profile", **prof2)
 
+    # mamba-2.8b through the step schedule (#3 then #5): full-width parity,
+    # then the training main path at full width and depth
+    tp3 = phase_train_parity("mamba-2.8b", "step")
+    emit("train_parity_step", **tp3)
+    tr3 = phase_train("mamba-2.8b", schedule="step", pad=False)
+    prof3 = tr3.pop("profile")
+    emit("train_step", **tr3)
+    emit("train_step_profile", **prof3)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -1083,12 +1199,16 @@ def main():
         return main_row([r for r in heads_rows if r["kernel"] == name],
                         HEADS_SHAPE)
 
+    def scan_row(name, shape):
+        return main_row([r for r in scan_rows if r["kernel"] == name], shape)
+
     launches, launches2 = tr["launches"], tr2["launches"]
+    launches3 = tr3["launches"]
     dual_path = tp2["blocked_heads_dual"]["launches_kernel_path"]
-    fwd_row = main_row([r for r in scan_rows
-                        if r["kernel"] == "selective_scan_fwd"], TRAIN_SHAPE)
-    bwd_row = main_row([r for r in scan_rows
-                        if r["kernel"] == "selective_scan_bwd"], TRAIN_SHAPE)
+    fwd_row = scan_row("selective_scan_fwd", TRAIN_SHAPE)
+    bwd_row = scan_row("selective_scan_bwd", TRAIN_SHAPE)
+    step_fwd_row = scan_row("selective_scan_fwd_step", TRAIN_SHAPE_28)
+    step_bwd_row = scan_row("selective_scan_bwd_step", TRAIN_SHAPE_28)
     print(json.dumps({"kernels": [
         entry("conv1d_pack_fwd", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:36",
@@ -1100,16 +1220,34 @@ def main():
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),
               launches["conv1d_pack_bwd_dx"], dx_worst),
+        entry("selective_scan_fwd_step", "selective_scan_step.cu",
+              "src/repro/kernels/selective_scan.py:116", step_fwd_row,
+              launches3["selective_scan_fwd_step"],
+              scan_worst["selective_scan_fwd_step"], path="train_step",
+              exp_floor_ms=step_fwd_row["exp_floor_ms"],
+              blocked_same_call_ms=scan_row("selective_scan_fwd",
+                                            TRAIN_SHAPE_28)["kernel_ms"]),
         entry("selective_scan_fwd", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:153", fwd_row,
               launches["selective_scan_fwd"],
               scan_worst["selective_scan_fwd"],
-              exp_floor_ms=fwd_row["exp_floor_ms"]),
+              exp_floor_ms=fwd_row["exp_floor_ms"],
+              step_same_call_ms=scan_row("selective_scan_fwd_step",
+                                         TRAIN_SHAPE)["kernel_ms"]),
+        entry("selective_scan_bwd_step", "selective_scan_step.cu",
+              "src/repro/kernels/selective_scan.py:441", step_bwd_row,
+              launches3["selective_scan_bwd_step"],
+              scan_worst["selective_scan_bwd_step"], path="train_step",
+              exp_floor_ms=step_bwd_row["exp_floor_ms"],
+              blocked_same_call_ms=scan_row("selective_scan_bwd",
+                                            TRAIN_SHAPE_28)["kernel_ms"]),
         entry("selective_scan_bwd", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:525", bwd_row,
               launches["selective_scan_bwd"],
               scan_worst["selective_scan_bwd"],
-              exp_floor_ms=bwd_row["exp_floor_ms"]),
+              exp_floor_ms=bwd_row["exp_floor_ms"],
+              step_same_call_ms=scan_row("selective_scan_bwd_step",
+                                         TRAIN_SHAPE)["kernel_ms"]),
         entry("selective_scan_heads_fwd", "selective_scan_heads.cu",
               "src/repro/kernels/selective_scan.py:212",
               heads_row("selective_scan_heads_fwd"),

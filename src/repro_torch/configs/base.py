@@ -2,10 +2,11 @@
 ``repro.configs.base``.
 
 A copy, not an import: the port runs where JAX is not installed. Only what
-the serving and training slices read is kept. There is no ``use_pallas``
-or ``pallas_schedule``: the device of the tensor picks the kernel (CUDA) or
-its plain version (CPU); the Mamba-1 scan kernels are the ``blocked``
-schedule's, the Mamba-2 ones ``blocked_heads`` (``blocked_heads_dual``
+the serving and training slices read is kept. There is no ``use_pallas``:
+the device of the tensor picks the kernel (CUDA) or its plain version
+(CPU). ``pallas_schedule`` has the JAX field's name and default and picks
+the Mamba-1 training scan's kernels: ``"blocked"`` (#4/#6) or ``"step"``
+(#3/#5). The Mamba-2 scan runs ``blocked_heads`` (``blocked_heads_dual``
 through ``kernels.ops.selective_scan_heads(schedule=...)``).
 """
 from __future__ import annotations
@@ -39,6 +40,8 @@ class ArchConfig:
     # execution
     dtype: str = "bfloat16"           # activation/compute dtype
     param_dtype: str = "float32"
+    pallas_schedule: str = "blocked"  # step | blocked: the Mamba-1 training
+    #                                   scan's kernels (#3/#5 | #4/#6)
     scan_chunk: int = 256             # chunk length of the plain blocked
     #                                   scan (serving's state handoff)
     scan_impl: str = "blocked"        # blocked | sequential

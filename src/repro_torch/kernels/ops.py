@@ -11,10 +11,13 @@ and D themselves and read the public layouts through their strides.
 
 * ``conv1d_pack``: forward kernel #1; backward dx from kernel #2, dweight
   and dbias as plain PyTorch sums.
-* ``selective_scan`` (Mamba-1): forward kernel #4 (y plus the chunk-entry
-  states), backward kernel #6; the backward's per-block dB/dC partials and
-  per-row dA/dD partials are summed here over a fixed axis in a fixed
-  order.
+* ``selective_scan`` (Mamba-1), by ``schedule`` as the JAX wrapper takes
+  it: ``"blocked"``, forward kernel #4 (y plus the chunk-entry states) and
+  backward kernel #6; ``"step"``, forward kernel #3 and backward kernel #5.
+  The schedule is carried from forward to backward. Both backwards give
+  dB/dC partials per block of channels (32 for #6, 16 for #5) and dA/dD
+  partials per row; they are summed here over a fixed axis in a fixed
+  order, whatever the block width.
 * ``selective_scan_heads`` (Mamba-2): forward kernel #7
   (``schedule="blocked_heads"``) or #8 (``"blocked_heads_dual"``),
   backward kernel #9 for both; its per-slice partials of dΔ, dB, dC, dA
@@ -31,7 +34,8 @@ from repro_torch.kernels import selective_scan as scan_k
 from repro_torch.kernels import selective_scan_heads as heads_k
 
 SCAN_CHUNK = 64        # checkpoint interval of the scan kernels (a multiple
-#                        of scan_k.TILE_T); the TPU kernels' default is 256
+#                        of scan_k.TILE_T, and scan_k.STEP_TILE_T itself);
+#                        the TPU kernels' default is 256
 HEADS_CHUNK = 256      # checkpoint interval of the heads kernels: the TPU
 #                        kernels' default; a chunk's (P, N) f32 checkpoint
 #                        is as large as 128 tokens of bf16 u at P = N = 64
@@ -73,13 +77,13 @@ def conv1d_pack(x: torch.Tensor, weight: torch.Tensor,
 
 class _Scan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk):
+    def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk, schedule):
         At = A.float().t().contiguous()
         Dp = D.float().contiguous()
         y, ckpts = scan_k.selective_scan_fwd(u, delta, At, Bm, Cm, Dp,
-                                             positions, chunk)
+                                             positions, chunk, schedule)
         ctx.save_for_backward(u, delta, At, Bm, Cm, Dp, positions, ckpts)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.schedule = chunk, schedule
         ctx.dtypes = (A.dtype, D.dtype)
         return y
 
@@ -88,24 +92,28 @@ class _Scan(torch.autograd.Function):
         u, delta, At, Bm, Cm, Dp, positions, ckpts = ctx.saved_tensors
         du, ddt, dB_p, dC_p, dA_p, dD_p = scan_k.selective_scan_bwd(
             u, delta, At, Bm, Cm, Dp, positions, ckpts,
-            dy.to(u.dtype).contiguous(), ctx.chunk)
+            dy.to(u.dtype).contiguous(), ctx.chunk, ctx.schedule)
         a_dt, d_dt = ctx.dtypes
         return (du.to(u.dtype), ddt.to(delta.dtype),
                 dA_p.sum(0).t().to(a_dt), dB_p.sum(1).to(Bm.dtype),
-                dC_p.sum(1).to(Cm.dtype), dD_p.sum(0).to(d_dt), None, None)
+                dC_p.sum(1).to(Cm.dtype), dD_p.sum(0).to(d_dt), None, None,
+                None)
 
 
 def selective_scan(u, delta, A, B, C, D=None, positions=None, *,
-                   chunk: int = SCAN_CHUNK):
+                   chunk: int = SCAN_CHUNK, schedule: str = "blocked"):
     """Segmented selective scan, y only, differentiable. u, delta
     (B, L, Dm) | A (Dm, N) | B, C (B, L, N), any batch/row strides (the
     kernels read ``split`` views of x_proj's output as they are) |
-    D (Dm,) or None | positions (B, L) or None (= one segment per row)."""
+    D (Dm,) or None | positions (B, L) or None (= one segment per row).
+    ``schedule``: 'blocked' (kernels #4/#6) | 'step' (kernels #3/#5)."""
+    scan_k.check_schedule(schedule)
     Bz, L, Dm = u.shape
     if D is None:
         D = torch.zeros(Dm, dtype=torch.float32, device=u.device)
     return _Scan.apply(u.contiguous(), delta.contiguous(), A, B, C, D,
-                       _positions(positions, Bz, L, u.device), chunk)
+                       _positions(positions, Bz, L, u.device), chunk,
+                       schedule)
 
 
 class _ScanHeads(torch.autograd.Function):

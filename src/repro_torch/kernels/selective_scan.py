@@ -1,26 +1,40 @@
-"""Selective scan forward and backward: the CUDA kernels
-(``csrc/selective_scan.cu``), their plain PyTorch versions, and the wrappers
-that pick one by the tensor's device.
+"""Selective scan forward and backward: the CUDA kernels of both
+schedules, their plain PyTorch versions, and the wrappers that pick one by
+the tensor's device.
 
-Replaces the Pallas TPU kernels ``_fwd_kernel_blocked`` and
-``_bwd_kernel_blocked`` of ``repro.kernels.selective_scan`` (entries
-``selective_scan_fwd_pallas`` / ``selective_scan_bwd_pallas`` with
-``schedule="blocked"``) and keeps their contract:
+Replaces the four Pallas TPU kernels of ``repro.kernels.selective_scan``
+behind its entries ``selective_scan_fwd_pallas`` /
+``selective_scan_bwd_pallas``, picked as there by ``schedule``:
+
+* ``"blocked"``: ``_fwd_kernel_blocked`` (#4) and ``_bwd_kernel_blocked``
+  (#6) → ``csrc/selective_scan.cu``: a block walks a row's whole L, one
+  step at a time, for ``BLOCK_D`` channels;
+* ``"step"``: ``_fwd_kernel`` (#3) and ``_bwd_kernel`` (#5) →
+  ``csrc/selective_scan_step.cu``: a block walks the row in tiles of
+  ``STEP_TILE_T`` steps for ``STEP_BLOCK_D`` channels, each tile a
+  segmented associative scan over time (parallel inside the block).
+
+Both schedules compute one function and keep the TPU kernels' contract:
 
 * forward: u, delta (B, L, D) f32|bf16; At (N, D) f32; Bm, Cm (B, L, N) of
   u's dtype; Dp (D,) f32; positions (B, L) int32 → y (B, L, D) in u's dtype
   and ckpts (B, ceil(L/chunk), N, D) f32, the state at each chunk's entry;
 * backward: the same inputs, ckpts and dy → du, ddelta (B, L, D) f32; dB
-  and dC partials (B, nblk, L, N) f32, one per block of ``BLOCK_D``
-  channels; dA partial (B, N, D) f32; dD partial (B, D) f32. The caller
-  sums the partials (``kernels/ops.py``) in a fixed order.
+  and dC partials (B, nblk, L, N) f32, one per block of ``block_d(schedule)``
+  channels (32 for #6, 16 for #5); dA partial (B, N, D) f32; dD partial
+  (B, D) f32. The caller sums the partials (``kernels/ops.py``) in a fixed
+  order, whatever the block width.
 
-Neither pads: a ragged L and D are masked inside. ``chunk`` is any length
-for the forward and a multiple of ``TILE_T`` for the backward.
+The checkpoints are the same for both schedules, so a forward of one feeds
+the backward of the other. None pads: a ragged L and D are masked inside.
+``chunk``: #4 takes any length, #6 a multiple of ``TILE_T``, #3 and #5
+exactly ``STEP_TILE_T`` (their tile is the chunk; ``ops.SCAN_CHUNK``).
 
-* A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-  or raises.
-* ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count kernel launches and nothing
+* A CPU tensor takes the plain version (the same for both schedules, as the
+  JAX package's one XLA twin serves both); a CUDA tensor launches the
+  schedule's kernel or raises.
+* ``LAUNCHES_FWD`` / ``LAUNCHES_BWD`` count launches of #4 / #6, and
+  ``LAUNCHES_FWD_STEP`` / ``LAUNCHES_BWD_STEP`` of #3 / #5, and nothing
   else.
 """
 from __future__ import annotations
@@ -31,13 +45,30 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES_FWD = 0
-LAUNCHES_BWD = 0
-BLOCK_D = 32                      # channels per block (dB/dC partials)
-TILE_T = 16                       # time tile; the backward's chunk unit
+LAUNCHES_FWD = 0                  # #4 (blocked)
+LAUNCHES_BWD = 0                  # #6 (blocked)
+LAUNCHES_FWD_STEP = 0             # #3 (step)
+LAUNCHES_BWD_STEP = 0             # #5 (step)
+SCHEDULES = ("blocked", "step")
+BLOCK_D = 32                      # #4/#6 channels per block (dB/dC partials)
+TILE_T = 16                       # #4/#6 time tile; #6's chunk unit
+STEP_BLOCK_D = 16                 # #3/#5 channels per block (dB/dC partials)
+STEP_TILE_T = 64                  # #3/#5 time tile = their one chunk
 D_STATE = 16                      # the kernels instantiate N = 16
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_entries = {}                     # (kind, dtype) → C entry, bound at first use
+_entries = {}                     # (kind, dtype, schedule) → C entry, bound
+#                                   at first use
+
+
+def check_schedule(schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; have {SCHEDULES}")
+
+
+def block_d(schedule: str) -> int:
+    """Channels per dB/dC partial of ``schedule``'s backward kernel."""
+    check_schedule(schedule)
+    return STEP_BLOCK_D if schedule == "step" else BLOCK_D
 
 
 def n_chunks(L: int, chunk: int) -> int:
@@ -134,13 +165,15 @@ def selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
 
 # ------------------------------------------------------------------ kernels
 
-def _entry(kind, dtype):
-    """The C entry ``selective_scan_<kind>_<dtype>``, its ctypes signature
+def _entry(kind, dtype, schedule):
+    """The C entry ``selective_scan_<kind>_<dtype>`` (#4/#6) or
+    ``selective_scan_step_<kind>_<dtype>`` (#3/#5), its ctypes signature
     declared."""
-    fn = _entries.get((kind, dtype))
+    fn = _entries.get((kind, dtype, schedule))
     if fn is None:
-        fn = getattr(_build.load("selective_scan"),
-                     f"selective_scan_{kind}_{_DTYPES[dtype]}")
+        lib = "selective_scan_step" if schedule == "step" else \
+            "selective_scan"
+        fn = getattr(_build.load(lib), f"{lib}_{kind}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
         fn.argtypes = head + ([vp, vp, i32, i32, i32, i32, vp]
@@ -148,7 +181,7 @@ def _entry(kind, dtype):
                               [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                i32, vp])
         fn.restype = i32
-        _entries[(kind, dtype)] = fn
+        _entries[(kind, dtype, schedule)] = fn
     return fn
 
 
@@ -209,36 +242,50 @@ def _head(u, delta, At, Bm, Cm, Dp, positions):
             positions.data_ptr(), positions.stride(0))
 
 
-def selective_scan_fwd(u, delta, At, Bm, Cm, Dp, positions, chunk: int):
+def _check_step_chunk(schedule, chunk):
+    if schedule == "step" and chunk != STEP_TILE_T:
+        raise ValueError(f"the step kernels take chunk == {STEP_TILE_T} "
+                         f"(their time tile), got {chunk}")
+
+
+def selective_scan_fwd(u, delta, At, Bm, Cm, Dp, positions, chunk: int,
+                       schedule: str = "blocked"):
     """See the module docstring. Returns (y, ckpts)."""
-    global LAUNCHES_FWD
+    global LAUNCHES_FWD, LAUNCHES_FWD_STEP
+    check_schedule(schedule)
     _check(u, delta, At, Bm, Cm, Dp, positions, chunk)
     if u.device.type == "cpu":
         return selective_scan_fwd_plain(u, delta, At, Bm, Cm, Dp, positions,
                                         chunk)
     _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
+    _check_step_chunk(schedule, chunk)
     Bz, L, Dm = u.shape
     y = torch.empty_like(u)
     ckpts = torch.empty((Bz, n_chunks(L, chunk), D_STATE, Dm),
                         dtype=torch.float32, device=u.device)
     if y.numel() == 0:
         return y, ckpts
-    err = _entry("fwd", u.dtype)(
+    err = _entry("fwd", u.dtype, schedule)(
         *_head(u, delta, At, Bm, Cm, Dp, positions), y.data_ptr(),
         ckpts.data_ptr(), Bz, L, Dm, chunk,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"selective_scan forward kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES_FWD += 1
+        raise RuntimeError(f"selective_scan forward kernel ({schedule}) "
+                           f"launch failed: cudaError {err}")
+    if schedule == "step":
+        LAUNCHES_FWD_STEP += 1
+    else:
+        LAUNCHES_FWD += 1
     return y, ckpts
 
 
 def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
-                       chunk: int):
+                       chunk: int, schedule: str = "blocked"):
     """See the module docstring. Returns (du, ddelta, dB_partial,
-    dC_partial, dA_partial, dD_partial)."""
-    global LAUNCHES_BWD
+    dC_partial, dA_partial, dD_partial); the dB/dC partials are per
+    ``block_d(schedule)`` channels on either device."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_STEP
+    bd = block_d(schedule)
     _check(u, delta, At, Bm, Cm, Dp, positions, chunk)
     Bz, L, Dm = u.shape
     want = (Bz, n_chunks(L, chunk), At.shape[0], Dm)
@@ -250,15 +297,16 @@ def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
                          f"{dy.dtype} {tuple(dy.shape)}")
     if u.device.type == "cpu":
         return selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions,
-                                        ckpts, dy, chunk)
+                                        ckpts, dy, chunk, bd)
     _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
+    _check_step_chunk(schedule, chunk)
     if chunk % TILE_T:
         raise ValueError(f"the backward kernel takes a chunk that is a "
                          f"multiple of {TILE_T}, got {chunk}")
     if not (ckpts.is_contiguous() and dy.is_contiguous()):
         raise ValueError("ckpts and dy must be contiguous")
     f32 = dict(dtype=torch.float32, device=u.device)
-    nblk = -(-Dm // BLOCK_D)
+    nblk = -(-Dm // bd)
     du = torch.empty((Bz, L, Dm), **f32)
     ddt = torch.empty((Bz, L, Dm), **f32)
     dB = torch.empty((Bz, nblk, L, D_STATE), **f32)
@@ -267,13 +315,16 @@ def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
     dD = torch.empty((Bz, Dm), **f32)
     if du.numel() == 0:
         return du, ddt, dB, dC, dA.zero_(), dD.zero_()
-    err = _entry("bwd", u.dtype)(
+    err = _entry("bwd", u.dtype, schedule)(
         *_head(u, delta, At, Bm, Cm, Dp, positions), ckpts.data_ptr(),
         dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bz, L, Dm, chunk,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"selective_scan backward kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES_BWD += 1
+        raise RuntimeError(f"selective_scan backward kernel ({schedule}) "
+                           f"launch failed: cudaError {err}")
+    if schedule == "step":
+        LAUNCHES_BWD_STEP += 1
+    else:
+        LAUNCHES_BWD += 1
     return du, ddt, dB, dC, dA, dD

@@ -163,10 +163,11 @@ def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
         state = {"conv": _conv_tail(x_in, valid.sum(-1), cfg.d_conv),
                  "ssm": h_last}
         return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype), state
-    # training / plain forward: the scan kernels (differentiable), as the
-    # JAX package's backend="pallas" path
+    # training / plain forward: the scan kernels (differentiable) of the
+    # config's schedule, as the JAX package's backend="pallas" path
     y = kops.selective_scan(x_c, delta, A, Bm, Cm, p["D"],
-                            positions=ctx.positions)
+                            positions=ctx.positions,
+                            schedule=cfg.pallas_schedule)
     return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
 
 

@@ -8,7 +8,9 @@ imports no JAX, so it runs where only the port is installed:
 Tolerances: f32 outputs 1e-4 abs + rel (the plain versions sum in another
 order; the kernels use ``__expf``); bf16 outputs (y) within 2^-7 relative
 plus 1e-2 abs (two bf16 roundings of values up to ~10); backward outputs
-are f32 whatever the input dtype, 1e-3 abs + rel (sums over L).
+are f32 whatever the input dtype, 1e-3 abs + rel (sums over L). The two
+Mamba-1 schedules against each other: checkpoints 1e-4 · (1 + |ref|), y
+within two bf16 roundings, backward outputs 1e-3 abs + rel.
 """
 import numpy as np
 import pytest
@@ -246,5 +248,130 @@ def test_autograd_through_the_heads_kernels_repeats_bitwise(cuda, schedule):
         y = tops.selective_scan_heads(lu, ldt, lA, B2, C2, lD, positions=pos,
                                       schedule=schedule)
         grads.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------ the step schedule (#3, #5)
+
+def _scan_inputs(cuda, tdt, Bz, L, D, seed):
+    """u, dy (B, L, D) and Δ in ``tdt``; B and C as strided views of one
+    (B, L, 8 + 2N) projection; A random (N, D) f32; positions from
+    ``_positions`` (row 0 packed, row 1 carried) or, for one row, resets
+    every 7 steps."""
+    rng = np.random.default_rng(seed)
+    N = ksc.D_STATE
+    u, dy = (torch.as_tensor(rng.normal(size=(Bz, L, D))).to(cuda, tdt)
+             for _ in range(2))
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, D))).to(cuda, tdt)
+    dbl = torch.as_tensor(rng.normal(size=(Bz, L, 8 + 2 * N))).to(cuda, tdt)
+    _, Bm, Cm = dbl.split([8, N, N], dim=-1)
+    At = -torch.as_tensor(np.exp(rng.normal(size=(N, D)))).to(
+        cuda, torch.float32)
+    Dp = torch.as_tensor(rng.normal(size=(D,))).to(cuda, torch.float32)
+    pos = np.tile(np.arange(L) % 7, (Bz, 1)).astype(np.int32) if Bz < 2 \
+        else _positions(Bz, L, seed)
+    return (u, dt, At, Bm, Cm, Dp, torch.as_tensor(pos).to(cuda)), dy
+
+
+def _step_counts():
+    return (ksc.LAUNCHES_FWD, ksc.LAUNCHES_BWD, ksc.LAUNCHES_FWD_STEP,
+            ksc.LAUNCHES_BWD_STEP)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_kernels_match_plain_and_repeat(cuda, dtype):
+    """#3 and #5 against their plain versions: a ragged L (no tile multiple)
+    and D (no channel-block multiple), a carried row, B and C strided; #5
+    twice, bitwise equal; only the step counters move."""
+    tdt, chunk = getattr(torch, dtype), ksc.STEP_TILE_T
+    args, dy = _scan_inputs(cuda, tdt, 2, 300, 100, 2)
+    n0 = _step_counts()
+    y, ck = ksc.selective_scan_fwd(*args, chunk, "step")
+    outs = ksc.selective_scan_bwd(*args, ck, dy, chunk, "step")
+    again = ksc.selective_scan_bwd(*args, ck, dy, chunk, "step")
+    torch.cuda.synchronize()
+    assert _step_counts() == (n0[0], n0[1], n0[2] + 1, n0[3] + 2)
+    wy, wck = ksc.selective_scan_fwd_plain(*args, chunk)
+    torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    else:
+        err = (y.float() - wy.float()).abs()
+        assert bool((err <= 2.0 ** -7 * wy.float().abs() + 1e-2).all())
+    want = ksc.selective_scan_bwd_plain(*args, ck, dy, chunk,
+                                        ksc.STEP_BLOCK_D)
+    for name, g, w, r in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
+                             want, again):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_and_blocked_kernels_agree(cuda, dtype):
+    """The two schedules on one card: #3's checkpoints equal #4's, and #5
+    fed #4's checkpoints equals #6 (dB/dC summed over their blocks, 16 and
+    32 channels wide)."""
+    args, dy = _scan_inputs(cuda, getattr(torch, dtype), 2, 700, 200, 6)
+    y3, ck3 = ksc.selective_scan_fwd(*args, 64, "step")
+    y4, ck4 = ksc.selective_scan_fwd(*args, 64, "blocked")
+    err = (ck3 - ck4).abs()
+    assert bool((err <= 1e-4 * (1 + ck4.abs())).all()), err.max()
+    torch.testing.assert_close(y3.float(), y4.float(), atol=2e-2, rtol=1e-2)
+    g5 = list(ksc.selective_scan_bwd(*args, ck4, dy, 64, "step"))
+    g6 = list(ksc.selective_scan_bwd(*args, ck4, dy, 64, "blocked"))
+    for i in (2, 3):
+        g5[i], g6[i] = g5[i].sum(1), g6[i].sum(1)
+    for name, a, b in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), g5, g6):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("Bz,L,D", [(1, 1, 3), (1, 5, 33), (3, 17, 64),
+                                    (2, 64, 16), (1, 65, 17)])
+def test_step_kernels_on_edge_shapes(cuda, Bz, L, D):
+    """One step, fewer channels than a block, an odd batch, exactly one
+    tile, one step past a tile: #3 and #5 against their plain versions
+    (f32)."""
+    args, dy = _scan_inputs(cuda, torch.float32, Bz, L, D, L + D)
+    y, ck = ksc.selective_scan_fwd(*args, 64, "step")
+    wy, wck = ksc.selective_scan_fwd_plain(*args, 64)
+    torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    for g, w in zip(ksc.selective_scan_bwd(*args, ck, dy, 64, "step"),
+                    ksc.selective_scan_bwd_plain(*args, ck, dy, 64,
+                                                 ksc.STEP_BLOCK_D)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_step_kernels_refuse_other_chunks(cuda, chunk):
+    args, dy = _scan_inputs(cuda, torch.float32, 1, 40, 16, 0)
+    with pytest.raises(ValueError, match="chunk == 64"):
+        ksc.selective_scan_fwd(*args, chunk, "step")
+    ck = torch.zeros((1, -(-40 // chunk), 16, 16), device=cuda)
+    with pytest.raises(ValueError, match="chunk == 64"):
+        ksc.selective_scan_bwd(*args, ck, dy, chunk, "step")
+
+
+@pytest.mark.parametrize("schedule", ["blocked", "step"])
+def test_autograd_through_the_scan_kernels_repeats_and_counts(cuda,
+                                                              schedule):
+    """``ops.selective_scan(schedule=...)`` launches that schedule's two
+    kernels and no other scan kernel; its gradients repeat bitwise."""
+    args, _ = _scan_inputs(cuda, torch.bfloat16, 2, 256, 96, 9)
+    u, dt, At, Bm, Cm, Dp, pos = args
+    bc = torch.cat([Bm, Cm], dim=-1)
+    A = At.t().contiguous()
+    grads = []
+    n0 = _step_counts()
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (u, dt, A, bc, Dp)]
+        lu, ldt, lA, lbc, lD = leaves
+        B2, C2 = lbc.chunk(2, dim=-1)
+        y = tops.selective_scan(lu, ldt, lA, B2, C2, lD, positions=pos,
+                                schedule=schedule)
+        grads.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    moved = [b - a for a, b in zip(n0, _step_counts())]
+    assert moved == ([0, 0, 2, 2] if schedule == "step" else [2, 2, 0, 0])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
