@@ -72,6 +72,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 494.7e12            # H100 SXM dense TF32 on the tensor cores
 SFU_PER_SM_CLOCK = 16            # exp2 results per clock per SM (sm_90)
 SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096), (2, 4096, 4096)]
 MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
@@ -175,11 +176,12 @@ def conv_inputs(shape, dtype, seed):
     return x_in, w, b, torch.as_tensor(pos, device="cuda")
 
 
-def bound_ms(nbytes, flops):
-    """The least time for the work: bytes over the memory rate or f32
-    operations over the f32 rate, whichever is larger."""
+def bound_ms(nbytes, flops, peak=F32_FLOPS):
+    """The least time for the work: bytes over the memory rate or
+    operations over ``peak`` (the f32 rate unless given), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -526,25 +528,39 @@ def heads_inputs(shape, dtype, seed):
     return u, delta, A, Bm, Cm, Dp, pos, dy
 
 
-def heads_bounds(shape, es, n_chunk):
-    """Least times of the heads scan's forward (#7 and #8 share it: the
-    per-step form's work) and backward: bytes of each input read once and
-    each output written once (dB and dC as the function's (B, L, N), dA
-    and dD (H,); the kernel's per-head partials are its own overhead and
-    not counted), and f32 operations per state and step — forward 5 (decay,
-    input, add; y's product and sum), backward 14 (the states recomputed
-    once, then g, its carry, and the five products summed for du, dΔ, dB,
-    dC, dA)."""
+def heads_bounds(shape, es, chunk):
+    """Least times of the heads scan's forward (#7 and #8 share it) and
+    backward (#9): the larger of the bytes over the memory rate (each input
+    read once, each output written once; dB and dC as the function's
+    (B, L, N), dA and dD (H,); the kernel's per-head partials are its own
+    overhead and not counted) and the products of the chunked (SSD) form
+    over the dense TF32 peak: the form #9 runs on the tensor cores and #8
+    writes out. Per (b, head) and sub-chunk of n ≤ Q = ``BWD_SUB_T`` steps
+    inside each chunk: forward C·Bᵀ, (dec∘CBᵀ)·X, C·h_inᵀ and the exit
+    state, 2n²(N + P) + 4nPN; backward S = C·Bᵀ, R = dY·Xᵀ, dX, dC and dB
+    (two products each) and dh, 2n²(3N + 2P) + 8nPN, and the exit state of
+    every sub-chunk but a chunk's last (pass 1), 2nPN. At mamba2-370m's
+    training shape both are bound by bytes."""
+    from repro_torch.kernels import selective_scan_heads as kh
     B, L, H, P = shape
     N = HEADS_N
-    states = B * L * H * P * N
+    f_ops = b_ops = 0
+    for c0 in range(0, L, chunk):
+        t1 = min(L, c0 + chunk)
+        ns = [min(kh.BWD_SUB_T, t1 - t) for t in range(c0, t1,
+                                                        kh.BWD_SUB_T)]
+        for n in ns:
+            f_ops += 2 * n * n * (N + P) + 4 * n * P * N
+            b_ops += 2 * n * n * (3 * N + 2 * P) + 8 * n * P * N
+        b_ops += sum(2 * n * P * N for n in ns[:-1])
+    n_chunk = -(-L // chunk)
     io = 2 * B * L * N * es + B * L * 4 + 2 * H * 4 + B * L * H * es
     ck = B * H * n_chunk * P * N * 4
-    fwd = bound_ms(2 * B * L * H * P * es + io + ck,
-                   5 * states + 3 * B * L * H * P)
+    fwd = bound_ms(2 * B * L * H * P * es + io + ck, B * H * f_ops,
+                   TF32_FLOPS)
     bwd = bound_ms(2 * B * L * H * P * es + io + ck + B * L * H * P * 4
                    + B * L * H * 4 + 2 * B * L * N * 4 + 2 * H * 4,
-                   14 * states + 5 * B * L * H * P)
+                   B * H * b_ops, TF32_FLOPS)
     return fwd, bwd
 
 
@@ -569,7 +585,7 @@ def phase_heads():
             es = torch.tensor([], dtype=dtype).element_size()
             *fa, dy = heads_inputs(shape, dtype, seed=L + 1)
             T = min(ops.HEADS_CHUNK, L)
-            (bnd_f, by_f), (bnd_b, by_b) = heads_bounds(shape, es, -(-L // T))
+            (bnd_f, by_f), (bnd_b, by_b) = heads_bounds(shape, es, T)
             dtn = str(dtype).split(".")[-1]
             for name, sched, plain in forms:
                 fwd = functools.partial(kh.selective_scan_heads_fwd, *fa, T,
@@ -1261,7 +1277,7 @@ def main():
               path="train_parity_mamba2 (schedule=blocked_heads_dual)",
               launches_train_mamba2=launches2[
                   "selective_scan_heads_fwd_dual"]),
-        entry("selective_scan_heads_bwd", "selective_scan_heads.cu",
+        entry("selective_scan_heads_bwd", "selective_scan_heads_bwd.cu",
               "src/repro/kernels/selective_scan.py:634",
               heads_row("selective_scan_heads_bwd"),
               launches2["selective_scan_heads_bwd"],

@@ -1,27 +1,24 @@
 // Head-structured segmented selective scan (Mamba-2 / SSD: a scalar decay
-// per head, B and C shared by every head), forward and backward, for Hopper
-// (sm_90a).
+// per head, B and C shared by every head), forward, for Hopper (sm_90a). Its
+// backward (#9) is selective_scan_heads_bwd.cu.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/selective_scan.py:
 //   #7 `_fwd_kernel_blocked_heads`      (schedule="blocked_heads")
 //   #8 `_fwd_kernel_blocked_heads_dual` (schedule="blocked_heads_dual")
-//   #9 `_bwd_kernel_blocked_heads`      (the backward of both)
 // Same functions, same chunk-entry checkpoints:
 //
 //   a_t = exp(dt_t * A) (0 where pos_t == 0),  h_t = a_t * h_{t-1} + (dt_t * u_t) (x) B_t
 //   y_t = h_t . C_t + D * u_t            (h_t: (P, N) per (b, head))
 //
 // Layout: the JAX public one, not the TPU kernels' head-major copy.
-// u, y, dy, du (B, L, H, P); dt (B, L, H); A, Dp (H,) f32; Bm, Cm (B, L, N)
+// u, y (B, L, H, P); dt (B, L, H); A, Dp (H,) f32; Bm, Cm (B, L, N)
 // read through their batch and row strides (views of one projection);
 // pos (B, L) i32; ckpt (B, H, nC, P, N) f32, nC = ceil(L / chunk).
-// Backward partials, one per slice of PS rows of P (nps = P / PS):
-// ddt (B, L, H, nps), dB and dC (B, H*nps, L, N), dA and dD (B, H, nps).
 //
 // What bounds it on this card: operations. At the training shape (B=8,
 // L=4096, H=32, P=64, N=64) the forward moves ~0.3 GB (0.1 ms at
 // 3.35 TB/s) but updates B*L*H*P*N = 4.3e9 states, ~5 f32 operations each
-// (0.32 ms at 67 TFLOP/s); the backward ~3x that. The recurrence is
+// (0.32 ms at 67 TFLOP/s). The recurrence is
 // sequential in t, so latency is the risk, above all the device-memory
 // latency of each tile's operands. With a scalar decay the exponentials
 // (one per (b, t, head)) cost nothing.
@@ -43,17 +40,8 @@
 //   * #8 keeps the dual form per tile of 16 steps: G = dec (.) (C B^T) in
 //     shared memory, y = G (dt u) + cin (C h_in^T), h_out = dec[last] . bterm
 //     + cin[last] h_in — the shape a tensor-core kernel will take later.
-//   * #9 has no room for the TPU's (T+1, P, N) chunk trajectory: each chunk
-//     is walked forward once from its checkpoint and the state at every
-//     8-step tile entry goes to a scratch buffer (global memory, each thread
-//     its own coalesced slots); then tile by tile in reverse the 9 states
-//     are recomputed into shared memory and the adjoint
-//     g_t = C_t (x) dy_t + a_{t+1} g_{t+1} walks back over them. The state
-//     is never recovered by dividing by a (a is exactly 0 at every reset).
-//   * No float atomics: sums over n and over rows go through fixed xor
-//     shuffles and per-warp shared-memory partials summed in warp order;
-//     sums over P across blocks leave as per-slice partials that the caller
-//     sums. Results are bitwise repeatable.
+//   * No float atomics: sums over n go through fixed xor shuffles. Results
+//     are bitwise repeatable.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,9 +59,7 @@ constexpr int RG = 8;            // thread groups along rows: r = rg + RG*k
 constexpr int PPT = PS / RG;     // rows per thread
 constexpr int SPT = PPT * NPT;   // states per thread
 constexpr int THREADS = NG * RG;
-constexpr int WARPS = THREADS / 32;
 constexpr int TT = 16;           // forward tile
-constexpr int TB = 8;            // backward tile
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -101,12 +87,6 @@ __device__ __forceinline__ float row_sum2(float v0, float v1, int ng) {
   keep += __shfl_xor_sync(FULL, keep, 2);
   keep += __shfl_xor_sync(FULL, keep, 1);
   return keep;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-  return v;
 }
 
 struct Operands {
@@ -400,279 +380,6 @@ heads_dual_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
   }
 }
 
-// ----------------------------------------------------------------- backward
-
-struct BwdOut {
-  float* du; float* ddt; float* dB; float* dC; float* dA; float* dD;
-  float* hsub;
-};
-
-// Shared memory of the backward (floats):
-//   sh        (TB-1, SPT, THREADS)  the states after steps 1..TB-1 of the
-//                                   tile, each thread its own slots (the
-//                                   entry and the last state stay in
-//                                   registers)
-//   su, sdy, sdu (TB, PS);  sB, sC (TB, NP);  sdt, sa (TB)
-//   sc        (TB, WARPS)           per-warp partials of ddt_t
-//   sdB, sdC  (TB, WARPS, N)        per-warp partials of dB_t, dC_t
-//   sred      (2, WARPS)
-constexpr size_t BWD_SMEM_FLOATS =
-    (size_t)(TB - 1) * SPT * THREADS + 3 * TB * PS + 2 * TB * NP + 2 * TB
-    + TB * WARPS + 2 * TB * WARPS * N + 2 * WARPS;
-
-// #9. Per chunk (last to first) the jobs are: pass 1, tiles 0..nsub-2 —
-// walk forward from the checkpoint, saving each tile's entry state to the
-// block's scratch (hsub); pass 2, tiles nsub-1..0 — recompute the tile's
-// states from its entry, then walk the adjoint back over them. The next
-// job's operands (and its entry state) load while this job computes.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 4)
-heads_bwd_kernel(Operands op, const float* __restrict__ ckpt,
-                 const T* __restrict__ dy, BwdOut out, int chunk) {
-  extern __shared__ float smem[];
-  float* sh = smem;
-  float* su = sh + (TB - 1) * SPT * THREADS;
-  float* sdy = su + TB * PS;
-  float* sdu = sdy + TB * PS;
-  float* sB = sdu + TB * PS;
-  float* sC = sB + TB * NP;
-  float* sdt = sC + TB * NP;
-  float* sa = sdt + TB;
-  float* sc = sa + TB;
-  float* sdB = sc + TB * WARPS;
-  float* sdC = sdB + TB * WARPS * N;
-  float* sred = sdC + TB * WARPS * N;
-
-  const Where w = where_of(op);
-  const int tid = threadIdx.x, ng = tid % NG, rg = tid / NG;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int L = op.L, nC = (L + chunk - 1) / chunk;
-  const int nsub_max = (min(chunk, L) + TB - 1) / TB;
-  const float A = op.A[w.h], Dd = op.Dp[w.h];
-  float* hs = out.hsub + (int64_t)blockIdx.x * nsub_max * SPT * THREADS;
-  const int64_t row_bc = ((int64_t)w.b * op.H + w.h) * w.nps + w.s;
-  auto nsub_of = [&](int c) {
-    return (min(L, c * chunk + chunk) - c * chunk + TB - 1) / TB;
-  };
-  // job j of chunk c: pass 1 for j < nsub-1 (tile j), else pass 2 (tile
-  // 2*nsub-2-j)
-  auto tile_of = [&](int c, int j, bool* p2) {
-    const int ns = nsub_of(c);
-    *p2 = j >= ns - 1;
-    return *p2 ? 2 * ns - 2 - j : j;
-  };
-  auto load_state = [&](const float* src, int64_t stride_q, int64_t off,
-                        float (&dst)[PPT][NPT]) {
-#pragma unroll
-    for (int k = 0; k < PPT; ++k)
-#pragma unroll
-      for (int j = 0; j < NPT; ++j)
-        dst[k][j] = src[(k * NPT + j) * stride_q + off];
-  };
-  const float* ck0 = ckpt + ((int64_t)w.b * op.H + w.h) * nC * op.P * N
-                     + (int64_t)w.p0 * N;
-  // thread (rg, ng)'s state q = k*NPT + j sits at row rg+RG*k, n = ng+NG*j
-  auto load_ckpt = [&](int c, float (&dst)[PPT][NPT]) {
-    const float* ck = ck0 + (int64_t)c * op.P * N;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k)
-#pragma unroll
-      for (int j = 0; j < NPT; ++j)
-        dst[k][j] = ck[(rg + RG * k) * N + ng + NG * j];
-  };
-
-  float gc[PPT][NPT], h[PPT][NPT], hn[PPT][NPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k)
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      gc[k][j] = 0.f;            // a_{t+1} * g_{t+1}, handed back to step t
-      hn[k][j] = 0.f;
-    }
-  float dA = 0.f, dD = 0.f;
-
-  int c = nC - 1, jb = 0;
-  bool p2;
-  Tile<T, TB> nxt;
-  {
-    const int sb = tile_of(c, 0, &p2);
-    nxt.fetch(op, w, dy, c * chunk + sb * TB, min(L, c * chunk + chunk), p2);
-  }
-  load_ckpt(c, h);
-  while (true) {
-    const int tc0 = c * chunk, tc1 = min(L, tc0 + chunk), ns = nsub_of(c);
-    const int sb = tile_of(c, jb, &p2);
-    const int t0 = tc0 + sb * TB;
-    nxt.put(A, p2, su, sdy, sB, sC, sdt, sa, nullptr);
-    __syncthreads();
-    // a pass-2 tile other than the chunk's last (that one starts from h)
-    // takes its entry state, prefetched during the previous job, before hn
-    // is reused for the next job's
-    if (p2 && sb != ns - 1) {
-#pragma unroll
-      for (int k = 0; k < PPT; ++k)
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) h[k][j] = hn[k][j];
-    }
-    // the next job: its operands, and its entry state when it is a pass-2
-    // tile other than the chunk's last
-    int nc = c, nj = jb + 1;
-    if (nj >= 2 * ns - 1) {
-      nc = c - 1;
-      nj = 0;
-    }
-    const bool more = nc >= 0;
-    if (more) {
-      bool np2;
-      const int nsb = tile_of(nc, nj, &np2);
-      nxt.fetch(op, w, dy, nc * chunk + nsb * TB,
-                min(L, nc * chunk + chunk), np2);
-      if (np2 && nsb != nsub_of(nc) - 1)
-        load_state(hs, THREADS, (int64_t)nsb * SPT * THREADS + tid, hn);
-    }
-    if (!p2) {
-      // pass 1: save the tile's entry state, walk it
-#pragma unroll
-      for (int k = 0; k < PPT; ++k)
-#pragma unroll
-        for (int j = 0; j < NPT; ++j)
-          hs[((int64_t)sb * SPT + k * NPT + j) * THREADS + tid] = h[k][j];
-#pragma unroll
-      for (int s = 0; s < TB; ++s) {
-        const float a = sa[s], dl = sdt[s];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float du = dl * su[s * PS + rg + RG * k];
-#pragma unroll
-          for (int j = 0; j < NPT; ++j)
-            h[k][j] = fmaf(du, sB[s * NP + ng + NG * j], a * h[k][j]);
-        }
-      }
-    } else {
-      // pass 2: the tile's states, from its entry
-      float he[PPT][NPT];
-#pragma unroll
-      for (int k = 0; k < PPT; ++k)
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) he[k][j] = h[k][j];
-#pragma unroll
-      for (int s = 0; s < TB; ++s) {
-        const float a = sa[s], dl = sdt[s];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float du = dl * su[s * PS + rg + RG * k];
-#pragma unroll
-          for (int j = 0; j < NPT; ++j) {
-            h[k][j] = fmaf(du, sB[s * NP + ng + NG * j], a * h[k][j]);
-            if (s + 1 < TB)
-              sh[(s * SPT + k * NPT + j) * THREADS + tid] = h[k][j];
-          }
-        }
-      }
-      // h is the state after the tile's last step; walk back
-#pragma unroll
-      for (int s = TB - 1; s >= 0; --s) {
-        const float a = sa[s], dl = sdt[s];
-        float uu[PPT], dyv[PPT], gB[PPT];
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          uu[k] = su[s * PS + rg + RG * k];
-          dyv[k] = sdy[s * PS + rg + RG * k];
-          gB[k] = 0.f;
-        }
-        float da = 0.f, dBp[NPT], dCp[NPT];
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          const float bn = sB[s * NP + ng + NG * j];
-          const float cn = sC[s * NP + ng + NG * j];
-          dBp[j] = 0.f;
-          dCp[j] = 0.f;
-#pragma unroll
-          for (int k = 0; k < PPT; ++k) {
-            // h_{t-1}: the entry for the first step, else sh[s-1]
-            const float hp = s == 0 ? he[k][j]
-                : sh[((s - 1) * SPT + k * NPT + j) * THREADS + tid];
-            const float g = fmaf(cn, dyv[k], gc[k][j]);     // dL/dh_t
-            da = fmaf(g, hp, da);
-            gB[k] = fmaf(g, bn, gB[k]);
-            dBp[j] = fmaf(g, dl * uu[k], dBp[j]);
-            dCp[j] = fmaf(h[k][j], dyv[k], dCp[j]);
-            gc[k][j] = a * g;
-            h[k][j] = hp;
-          }
-        }
-        // du_t per row; this thread's part of ddt_t
-        const float gBt = row_sum2(gB[0], gB[1], ng);
-        float part = a * A * da;
-        if ((ng & 7) == 0) {
-          const int r = rg + RG * (ng >> 3);
-          const float uv = su[s * PS + r], dv = sdy[s * PS + r];
-          sdu[s * PS + r] = fmaf(dl, gBt, Dd * dv);
-          part = fmaf(uv, gBt, part);
-          dD = fmaf(dv, uv, dD);
-        }
-        dA = fmaf(da * a, dl, dA);
-        part = warp_sum(part);
-        if (lane == 0) sc[s * WARPS + warp] = part;
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          dBp[j] += __shfl_xor_sync(FULL, dBp[j], 16);
-          dCp[j] += __shfl_xor_sync(FULL, dCp[j], 16);
-        }
-        if (lane < 16) {
-#pragma unroll
-          for (int j = 0; j < NPT; ++j) {
-            sdB[(s * WARPS + warp) * N + ng + NG * j] = dBp[j];
-            sdC[(s * WARPS + warp) * N + ng + NG * j] = dCp[j];
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (p2) {
-      const int steps = min(TB, tc1 - t0);
-      for (int i = tid; i < steps * PS; i += THREADS)
-        out.du[at_lhp(op, w, t0 + i / PS, i % PS)] = sdu[i];
-      if (tid < steps) {
-        float acc = 0.f;
-#pragma unroll
-        for (int v = 0; v < WARPS; ++v) acc += sc[tid * WARPS + v];
-        out.ddt[(((int64_t)w.b * L + t0 + tid) * op.H + w.h) * w.nps + w.s] =
-            acc;
-      }
-      for (int i = tid; i < 2 * steps * N; i += THREADS) {
-        const int which = i / (steps * N), q = i % (steps * N);
-        const int s = q / N, n = q % N;
-        const float* src = which == 0 ? sdB : sdC;
-        float acc = 0.f;
-#pragma unroll
-        for (int v = 0; v < WARPS; ++v) acc += src[(s * WARPS + v) * N + n];
-        float* dst = which == 0 ? out.dB : out.dC;
-        dst[(row_bc * L + t0 + s) * N + n] = acc;
-      }
-    }
-    if (!more) break;
-    if (nc != c) load_ckpt(nc, h);
-    c = nc;
-    jb = nj;
-  }
-  const float va = warp_sum(dA), vd = warp_sum(dD);
-  if (lane == 0) {
-    sred[warp] = va;
-    sred[WARPS + warp] = vd;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float a = 0.f, d = 0.f;
-    for (int v = 0; v < WARPS; ++v) {
-      a += sred[v];
-      d += sred[WARPS + v];
-    }
-    out.dA[blockIdx.x] = a;
-    out.dD[blockIdx.x] = d;
-  }
-}
-
 Operands make_operands(const void* u, const void* dt, const void* A,
                        const void* Bm, const void* Cm, int64_t bc_bstride,
                        int64_t bc_lstride, const void* Dp, const void* pos,
@@ -706,35 +413,13 @@ int launch_fwd(const Operands& op, int B, void* y, void* ckpt, int chunk,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const Operands& op, int B, const void* ckpt, const void* dy,
-               const BwdOut& out, int chunk, void* stream) {
-  if ((int64_t)B * op.L * op.H * op.P == 0) return 0;
-  int64_t blocks = 0;
-  if (chunk < 1 || n_blocks(op, B, &blocks)) return (int)cudaErrorInvalidValue;
-  const size_t bytes = BWD_SMEM_FLOATS * sizeof(float);
-  static bool raised = false;    // once, outside any graph capture
-  if (!raised) {
-    cudaError_t e = cudaFuncSetAttribute(
-        heads_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    raised = true;
-  }
-  heads_bwd_kernel<T><<<(unsigned)blocks, THREADS, bytes,
-                        (cudaStream_t)stream>>>(op, (const float*)ckpt,
-                                                (const T*)dy, out, chunk);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entries, bound with ctypes (kernels/selective_scan_heads.py, whose
-// P_SLICE, TILE_T, BWD_TILE_T and D_STATE are PS, TT, TB and N here). u, dt,
-// dy, y, du, ddt, pos rows are contiguous; Bm and Cm have unit stride along
-// N and the given batch and row strides (elements); A, Dp, ckpt, the
-// partials and hsub (blocks, ceil(min(chunk, L) / TB), PS * N) are
-// contiguous f32. Return the launch's cudaError_t (0 = launched).
+// P_SLICE, TILE_T and D_STATE are PS, TT and N here). u, dt, y, pos rows are
+// contiguous; Bm and Cm have unit stride along N and the given batch and row
+// strides (elements); A, Dp and ckpt are contiguous f32. Return the launch's
+// cudaError_t (0 = launched).
 #define HEADS_FWD_ENTRY(NAME, T)                                              \
   extern "C" int NAME(const void* u, const void* dt, const void* A,          \
                       const void* Bm, const void* Cm, int64_t bc_bstride,     \
@@ -747,25 +432,5 @@ int launch_bwd(const Operands& op, int B, const void* ckpt, const void* dy,
                          B, y, ckpt, chunk, dual, stream);                    \
   }
 
-#define HEADS_BWD_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const void* u, const void* dt, const void* A,          \
-                      const void* Bm, const void* Cm, int64_t bc_bstride,     \
-                      int64_t bc_lstride, const void* Dp, const void* pos,    \
-                      int64_t pos_bstride, const void* ckpt, const void* dy,  \
-                      void* du, void* ddt, void* dB, void* dC, void* dA,      \
-                      void* dD, void* hsub, int B, int L, int H, int P,       \
-                      int chunk, void* stream) {                              \
-    return launch_bwd<T>(make_operands(u, dt, A, Bm, Cm, bc_bstride,          \
-                                       bc_lstride, Dp, pos, pos_bstride, L,   \
-                                       H, P),                                 \
-                         B, ckpt, dy,                                         \
-                         BwdOut{(float*)du, (float*)ddt, (float*)dB,          \
-                                (float*)dC, (float*)dA, (float*)dD,           \
-                                (float*)hsub},                                \
-                         chunk, stream);                                      \
-  }
-
 HEADS_FWD_ENTRY(selective_scan_heads_fwd_f32, float)
 HEADS_FWD_ENTRY(selective_scan_heads_fwd_bf16, __nv_bfloat16)
-HEADS_BWD_ENTRY(selective_scan_heads_bwd_f32, float)
-HEADS_BWD_ENTRY(selective_scan_heads_bwd_bf16, __nv_bfloat16)

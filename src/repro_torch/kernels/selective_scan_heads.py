@@ -1,7 +1,8 @@
 """Head-structured selective scan (Mamba-2 / SSD, scalar decay per head),
-forward and backward: the CUDA kernels (``csrc/selective_scan_heads.cu``),
-their plain PyTorch versions, and the wrappers that pick one by the
-tensor's device.
+forward and backward: the CUDA kernels (forward
+``csrc/selective_scan_heads.cu``, backward
+``csrc/selective_scan_heads_bwd.cu``), their plain PyTorch versions, and
+the wrappers that pick one by the tensor's device.
 
 Replaces the Pallas TPU kernels of ``repro.kernels.selective_scan``:
 ``_fwd_kernel_blocked_heads`` (#7, ``schedule="blocked_heads"``),
@@ -15,9 +16,14 @@ the TPU kernels' head-major copy:
   f32; positions (B, L) int32 → y (B, L, H, P) in u's dtype and ckpts
   (B, H, ceil(L/chunk), P, N) f32, the state at each chunk's entry;
 * backward: the same inputs, ckpts and dy (B, L, H, P) → du (B, L, H, P)
-  f32 and partials over slices of ``P_SLICE`` rows of P (``n_slices``):
-  ddelta (B, L, H, nps), dB and dC (B, H·nps, L, N), dA and dD (B, H, nps),
-  all f32. The caller sums them (``kernels/ops.py``) in a fixed order.
+  f32 and partials over slices of ``BWD_P_SLICE`` rows of P (``n_slices``;
+  one a head at P = 64): ddelta (B, L, H, nps), dB and dC (B, H·nps, L, N),
+  dA and dD (B, H, nps), all f32. The caller sums them
+  (``kernels/ops.py``) in a fixed order. The backward kernel evaluates the
+  chunked (SSD) form on the tensor cores, per sub-chunk of ``BWD_SUB_T``
+  steps (``selective_scan_heads_bwd_chunked_plain`` is its arithmetic on
+  the CPU); the per-step walk ``selective_scan_heads_bwd_plain`` is the
+  reference both are held to.
 
     a_t = exp(Δ_t·A) (0 where pos_t == 0);  h_t = a_t·h_{t-1} + (Δ_t·u_t) ⊗ B_t
     y_t = h_t·C_t + D·u_t
@@ -43,9 +49,12 @@ from repro_torch.kernels import _build
 LAUNCHES_FWD = 0
 LAUNCHES_DUAL = 0
 LAUNCHES_BWD = 0
-P_SLICE = 16                      # rows of P per block (the partials' unit)
+P_SLICE = 16                      # rows of P per forward block; the
+#                                   kernels take P in multiples of it
+BWD_P_SLICE = 64                  # rows of P per backward block (the
+#                                   partials' unit: one slice a head at 64)
 TILE_T = 16                       # forward time tile (the dual form's Tt)
-BWD_TILE_T = 8                    # backward time tile (recompute unit)
+BWD_SUB_T = 64                    # backward sub-chunk (the SSD form's Q)
 D_STATE = 64                      # the kernels instantiate N = 64
 SCHEDULES = ("blocked_heads", "blocked_heads_dual")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -57,9 +66,20 @@ def n_chunks(L: int, chunk: int) -> int:
 
 
 def n_slices(P: int) -> int:
-    """Slices of P the partials are split into: P / P_SLICE when P_SLICE
-    divides P (the kernels' unit), else 1."""
-    return P // P_SLICE if P % P_SLICE == 0 else 1
+    """Slices of P the backward's partials are split into: one per
+    ``BWD_P_SLICE`` rows, the last one short when it does not divide P."""
+    return -(-P // BWD_P_SLICE)
+
+
+def _slices(x, P: int):
+    """(B, H, P, …) → (B, H, n_slices(P), BWD_P_SLICE, …), the rows past P
+    zero."""
+    nps = n_slices(P)
+    pad = nps * BWD_P_SLICE - P
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:2] + (pad,) + x.shape[3:])],
+                      dim=2)
+    return x.reshape(x.shape[:2] + (nps, BWD_P_SLICE) + x.shape[3:])
 
 
 # ------------------------------------------------------------------ plain
@@ -136,9 +156,9 @@ def selective_scan_heads_fwd_dual_plain(u, delta, A, Bm, Cm, Dp, positions,
 
 
 def selective_scan_heads_bwd_plain(u, delta, A, Bm, Cm, Dp, positions, ckpts,
-                                   dy, chunk: int, tile: int = BWD_TILE_T):
-    """Kernel #9's function, written out (not autograd) as the kernel walks
-    it: per chunk, in reverse, the states at each tile entry from the
+                                   dy, chunk: int, tile: int = 8):
+    """Kernel #9's function, written out (not autograd) as a per-step walk:
+    per chunk, in reverse, the states at each ``tile``-step entry from the
     chunk's checkpoint; per tile, in reverse, its states recomputed, then
     the reverse walk
 
@@ -147,12 +167,12 @@ def selective_scan_heads_bwd_plain(u, delta, A, Bm, Cm, Dp, positions, ckpts,
         dB_t = Σ_p g·Δ·u   dC_t = Σ_p h_t·dy   dA = Σ_t a·Δ·Σ_{p,n} g·h_{t-1}   dD = Σ dy·u
 
     with the sums over p split into ``n_slices(P)`` partials. Never holds
-    more than one tile's states and a chunk's tile entries."""
+    more than one tile's states and a chunk's tile entries. The reference
+    of the kernel's chunked form (``selective_scan_heads_bwd_chunked_plain``)."""
     Bz, L, H, P = u.shape
     N = Bm.shape[-1]
     dev = u.device
     nps = n_slices(P)
-    ps = P // nps
     u32, d32, dy32 = u.float(), delta.float(), dy.float()
     B32, C32 = Bm.float(), Cm.float()
     A32, Dv = A.float(), Dp.float()
@@ -166,7 +186,7 @@ def selective_scan_heads_bwd_plain(u, delta, A, Bm, Cm, Dp, positions, ckpts,
     gc = torch.zeros((Bz, H, P, N), **f32)
 
     def slices(x):                       # (B, H, P, …) → (B, H, nps, ps, …)
-        return x.reshape((Bz, H, nps, ps) + tuple(x.shape[3:]))
+        return _slices(x, P)
 
     for ci in reversed(range(n_chunks(L, chunk))):
         tc0, tc1 = ci * chunk, min(L, (ci + 1) * chunk)
@@ -203,6 +223,121 @@ def selective_scan_heads_bwd_plain(u, delta, A, Bm, Cm, Dp, positions, ckpts,
             dC.reshape(Bz, H * nps, L, N), dA, dD)
 
 
+def selective_scan_heads_bwd_chunked_plain(u, delta, A, Bm, Cm, Dp,
+                                           positions, ckpts, dy, chunk: int,
+                                           q: int = BWD_SUB_T):
+    """Kernel #9's arithmetic, the chunked (SSD) form the CUDA kernel
+    evaluates, written out: per slice of ``BWD_P_SLICE`` rows of P (rows
+    past P zero) and per sub-chunk of ``q`` steps inside each checkpoint
+    chunk (steps past the chunk or L are identity steps: Δ, u, dy, B, C
+    0, no reset), with s = cumsum Δ·A, dec, cin as ``_heads_decay`` has
+    them, d_j = dec[q-1, j], X = Δ·u, h_in the sub-chunk's entry state
+    and dh the gradient of its exit state:
+
+        h_out = (d∘X)ᵀB + cin_{q-1}·h_in          (pass 1, forward)
+        S = CBᵀ,  R = dY Xᵀ,  M = (dec∘S)∘R
+        dX = (dec∘S)ᵀdY + diag(d)·B dhᵀ
+        dC = (dec∘R)B + diag(cin)·dY h_in
+        dB = (dec∘R)ᵀC + diag(d)·X dh
+        dh ← dYᵀdiag(cin)C + cin_{q-1}·dh         (pass 2, in reverse)
+        ds_i = Σ_j M_ij − Σ_k M_ki + cin_i⟨C_i, (dY h_in)_i⟩
+               − d_i⟨B_i, (X dh)_i⟩  (+ Σ_j d_j⟨B_j, (X dh)_j⟩
+               + cin_{q-1}⟨h_in, dh⟩ at i = q-1)
+        dla = reverse cumsum of ds;  du = Δ·dX + D·dy
+        dΔ = Σ_p u·dX + A·dla·[no reset],  dA = Σ Δ·dla·[no reset]
+
+    Returns what ``selective_scan_heads_bwd_plain`` returns, the same
+    partials."""
+    Bz, L, H, P = u.shape
+    N = Bm.shape[-1]
+    dev = u.device
+    nps, R = n_slices(P), BWD_P_SLICE
+    f32 = dict(dtype=torch.float32, device=dev)
+    A32, Dv = A.float(), Dp.float()
+    du = torch.empty((Bz, H, nps, L, R), **f32)
+    ddt = torch.empty((Bz, H, nps, L), **f32)
+    dB = torch.empty((Bz, H, nps, L, N), **f32)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros((Bz, H, nps), **f32)
+    dD = torch.zeros((Bz, H, nps), **f32)
+    dh = torch.zeros((Bz, H, nps, R, N), **f32)
+    tril = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+
+    def rows(x, t0, t1):        # (B, L, H, P) → (B, H, nps, q, R), padded
+        x = _slices(x[:, t0:t1].float().permute(0, 2, 3, 1), P)
+        return torch.nn.functional.pad(x, (0, q - (t1 - t0))).transpose(-1,
+                                                                         -2)
+
+    def sub(t0, t1):
+        """The sub-chunk [t0, t1) padded to q identity steps."""
+        n = t1 - t0
+        pad = (0, q - n)
+        d = torch.nn.functional.pad(delta[:, t0:t1].float().transpose(1, 2),
+                                    pad)                         # (B, H, q)
+        rc = torch.nn.functional.pad(positions[:, t0:t1] == 0, pad)
+        Bs, Cs = (torch.nn.functional.pad(m[:, t0:t1].float(),
+                                          (0, 0, 0, q - n))
+                  for m in (Bm, Cm))                             # (B, q, N)
+        dec, cin = _heads_decay(d.transpose(1, 2), A32, rc, tril)
+        dec = dec.permute(0, 3, 1, 2)                            # (B,H,q,q)
+        cin = cin.transpose(1, 2)                                # (B, H, q)
+        U = rows(u, t0, t1)
+        X = d[:, :, None, :, None] * U
+        return n, d, rc, Bs, Cs, dec, cin, dec[..., -1, :], U, X
+
+    for ci in reversed(range(n_chunks(L, chunk))):
+        tc0, tc1 = ci * chunk, min(L, (ci + 1) * chunk)
+        starts = list(range(tc0, tc1, q))
+        entry = [_slices(ckpts[:, :, ci].float(), P)]            # pass 1
+        for t0 in starts[:-1]:
+            _, _, _, Bs, _, _, cin, d, _, X = sub(t0, t0 + q)
+            entry.append(torch.einsum("bhsjr,bjn->bhsrn",
+                                      d[:, :, None, :, None] * X, Bs) +
+                         cin[..., -1, None, None, None] * entry[-1])
+        for k in reversed(range(len(starts))):                   # pass 2
+            t0 = starts[k]
+            t1 = min(t0 + q, tc1)
+            n, dl, rc, Bs, Cs, dec, cin, d, U, X = sub(t0, t1)
+            hin, DY = entry[k], rows(dy, t0, t1)
+            Sd = dec * torch.einsum("bin,bjn->bij", Cs, Bs)[:, None]
+            Rm = torch.einsum("bhsir,bhsjr->bhsij", DY, X)
+            Rd = dec[:, :, None] * Rm
+            M = Sd[:, :, None] * Rm
+            G1 = torch.einsum("bhsir,bhsrn->bhsin", DY, hin)
+            G2 = torch.einsum("bhsir,bhsrn->bhsin", X, dh)
+            dX = torch.einsum("bhij,bhsir->bhsjr", Sd, DY) + \
+                d[:, :, None, :, None] * torch.einsum("bjn,bhsrn->bhsjr",
+                                                      Bs, dh)
+            cin3, d3 = cin[:, :, None], d[:, :, None]
+            dCk = torch.einsum("bhsij,bjn->bhsin", Rd, Bs) + \
+                cin3[..., None] * G1
+            dBk = torch.einsum("bhsij,bin->bhsjn", Rd, Cs) + \
+                d3[..., None] * G2
+            f = (Cs[:, None, None] * G1).sum(-1)                 # (B,H,S,q)
+            e = (Bs[:, None, None] * G2).sum(-1)
+            ds = M.sum(-1) - M.sum(-2) + cin3 * f - d3 * e
+            ds[..., -1] += (d3 * e).sum(-1) + \
+                cin3[..., -1] * (hin * dh).sum((-1, -2))
+            dla = ds.flip(-1).cumsum(-1).flip(-1)
+            keep = (~rc)[:, None, None].float()                  # (B,1,1,q)
+            dl3 = dl[:, :, None]
+            dh = torch.einsum("bhsir,bhi,bin->bhsrn", DY, cin, Cs) + \
+                cin3[..., -1, None, None] * dh
+            du[:, :, :, t0:t1] = (dl3[..., None] * dX + Dv[:, None, None,
+                                                           None] * DY)[
+                :, :, :, :n]
+            ddt[:, :, :, t0:t1] = ((U * dX).sum(-1) + A32[:, None, None] *
+                                   keep * dla)[..., :n]
+            dB[:, :, :, t0:t1] = dBk[:, :, :, :n]
+            dC[:, :, :, t0:t1] = dCk[:, :, :, :n]
+            dA += (keep * dl3 * dla).sum(-1)
+            dD += (DY * U).sum((-1, -2))
+    du = du.permute(0, 3, 1, 2, 4).reshape(Bz, L, H, nps * R)[..., :P]
+    return (du.contiguous(), ddt.permute(0, 3, 1, 2).contiguous(),
+            dB.reshape(Bz, H * nps, L, N), dC.reshape(Bz, H * nps, L, N),
+            dA, dD)
+
+
 # ------------------------------------------------------------------ kernels
 
 def _entry(kind, dtype):
@@ -210,7 +345,8 @@ def _entry(kind, dtype):
     signature declared."""
     fn = _entries.get((kind, dtype))
     if fn is None:
-        fn = getattr(_build.load("selective_scan_heads"),
+        lib = "selective_scan_heads" + ("_bwd" if kind == "bwd" else "")
+        fn = getattr(_build.load(lib),
                      f"selective_scan_heads_{kind}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
@@ -341,6 +477,13 @@ def selective_scan_heads_bwd(u, delta, A, Bm, Cm, Dp, positions, ckpts, dy,
     _check_cuda(u, delta, A, Bm, Cm, Dp, positions)
     if not (ckpts.is_contiguous() and dy.is_contiguous()):
         raise ValueError("ckpts and dy must be contiguous")
+    # the kernel copies u, dy and the rows of B and C 16 bytes at a time
+    if any(t.data_ptr() % 16 for t in (u, dy)):
+        u, dy = u.clone(), dy.clone()
+    es = Bm.element_size()
+    if any(x % 16 for x in (Bm.data_ptr(), Cm.data_ptr(), Bm.stride(0) * es,
+                            Bm.stride(1) * es)):
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
     nps = n_slices(P)
     f32 = dict(dtype=torch.float32, device=u.device)
     du = torch.empty((Bz, L, H, P), **f32)
@@ -351,9 +494,9 @@ def selective_scan_heads_bwd(u, delta, A, Bm, Cm, Dp, positions, ckpts, dy,
     dD = torch.empty((Bz, H, nps), **f32)
     if du.numel() == 0:
         return du, ddt, dB, dC, dA.zero_(), dD.zero_()
-    # the states at the tile entries of the chunk each block is in
-    hsub = torch.empty((Bz * H * nps, -(-min(chunk, L) // BWD_TILE_T),
-                        P_SLICE * N), **f32)
+    # the entry states of the sub-chunks of the chunk each block is in
+    hsub = torch.empty((Bz * H * nps, -(-min(chunk, L) // BWD_SUB_T),
+                        BWD_P_SLICE * N), **f32)
     err = _entry("bwd", u.dtype)(
         *_head(u, delta, A, Bm, Cm, Dp, positions), ckpts.data_ptr(),
         dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),

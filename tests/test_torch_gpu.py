@@ -227,6 +227,79 @@ def test_heads_kernels_on_edge_shapes(cuda, Bz, L, H, P):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
 
 
+def _subchunk_positions(L, chunk, q, seed):
+    """Row 0: resets on the first and on the last step of #9's sub-chunks
+    (q steps inside each chunk), on a chunk's first step, and a few at
+    random; row 1: a carried row of a split pack (first position > 0)."""
+    rng = np.random.default_rng(seed)
+    cuts = {0, q, 2 * q - 1, chunk, chunk + q - 1, chunk + min(q, chunk) - 1}
+    cuts |= set(rng.integers(1, L, size=3).tolist())
+    cuts = sorted(c for c in cuts if c < L) + [L]
+    pos = np.zeros((2, L), np.int32)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    pos[1] = tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 2, L)], L).positions[1]
+    assert pos[1, 0] > 0
+    return pos
+
+
+# (L, H, P, chunk): ragged L; a chunk that is no multiple of the backward's
+# sub-chunk (96); a chunk shorter than it (40); a chunk longer than L; P 16,
+# 48, 80 (a short last slice of the partials) and 64 (one slice a head)
+SUBCHUNK_CASES = [(150, 2, 16, 64), (200, 2, 48, 96), (300, 1, 16, 256),
+                  (97, 2, 80, 40), (130, 1, 48, 256), (256, 3, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SUBCHUNK_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_heads_backward_on_subchunk_edges(cuda, case, dtype):
+    """#9 against its plain version where its sub-chunks meet resets, chunk
+    ends and L; its partials one per ``BWD_P_SLICE`` rows of P (per head at
+    P = 64); twice, bitwise equal."""
+    L, H, P, chunk = case
+    tdt = getattr(torch, dtype)
+    args, dy = _heads_inputs(cuda, tdt, 2, L, H, P, L)
+    pos = _subchunk_positions(L, chunk, kh.BWD_SUB_T, L)
+    args = (*args[:6], torch.as_tensor(pos).to(cuda))
+    _, ck = kh.selective_scan_heads_fwd(*args, chunk)
+    outs = kh.selective_scan_heads_bwd(*args, ck, dy, chunk)
+    again = kh.selective_scan_heads_bwd(*args, ck, dy, chunk)
+    torch.cuda.synchronize()
+    nps = -(-P // 64)
+    assert kh.n_slices(P) == nps
+    shapes = [(2, L, H, P), (2, L, H, nps), (2, H * nps, L, kh.D_STATE),
+              (2, H * nps, L, kh.D_STATE), (2, H, nps), (2, H, nps)]
+    want = kh.selective_scan_heads_bwd_plain(*args, ck, dy, chunk)
+    for name, g, w, r, shape in zip(("du", "ddelta", "dB", "dC", "dA", "dD"),
+                                    outs, want, again, shapes):
+        assert tuple(g.shape) == shape, name
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+        assert torch.equal(g, r), name
+
+
+def test_heads_backward_takes_unaligned_operands(cuda):
+    """#9 copies its operands 16 bytes at a time: B and C as views of one
+    projection at an odd offset, and u at an address that is no multiple of
+    16, still give the plain version's outputs."""
+    args, dy = _heads_inputs(cuda, torch.float32, 2, 150, 2, 16, 3)
+    u, dt, A, Bm, Cm, Dp, pos = args
+    N = kh.D_STATE
+    bc = torch.empty((2, 150, 3 + 2 * N), device=cuda)
+    bc[..., 3:3 + N], bc[..., 3 + N:] = Bm, Cm
+    B2, C2 = bc[..., 3:3 + N], bc[..., 3 + N:]
+    u2 = torch.empty(u.numel() + 1, device=cuda)[1:].view(u.shape).copy_(u)
+    assert B2.data_ptr() % 16 and u2.data_ptr() % 16
+    args = (u2, dt, A, B2, C2, Dp, pos)
+    _, ck = kh.selective_scan_heads_fwd(*args, 64)
+    for name, g, w in zip(("du", "ddelta", "dB", "dC", "dA", "dD"),
+                          kh.selective_scan_heads_bwd(*args, ck, dy, 64),
+                          kh.selective_scan_heads_bwd_plain(*args, ck, dy,
+                                                            64)):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+
+
 def test_heads_kernels_refuse_other_widths(cuda):
     args, _ = _heads_inputs(cuda, torch.float32, 1, 8, 1, 24, 0)
     with pytest.raises(ValueError, match="multiple of 16"):

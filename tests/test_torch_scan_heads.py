@@ -7,7 +7,10 @@ checkpoints and every backward partial — and the port's autograd wiring
 (``ops.selective_scan_heads``) against ``jax.grad`` of
 ``kops.selective_scan_heads(..., backend="pallas")`` for both schedules;
 also the plain model-path reference ``core/ssm.selective_scan_heads`` and
-its decode step against ``repro.core.ssm``.
+its decode step against ``repro.core.ssm``; and #9's chunked (SSD)
+arithmetic, the form its CUDA kernel evaluates
+(``selective_scan_heads_bwd_chunked_plain``), against the TPU kernel and
+the per-step plain version where sub-chunks meet resets, chunk ends and L.
 
 Inputs from numpy with a seed: row 0 packed with resets (one inside a
 subtile), row 1 a carried row of a split pack (first position > 0), B and
@@ -72,20 +75,16 @@ def _no_launches_on_cpu():
     assert counts() == before
 
 
-# (L, H, P, N, chunk): P = 32 splits the partials into two slices; L = 37
-# is ragged (the JAX side pads it with pos = 1, Δ = 0)
+# (L, H, P, N, chunk): L = 37 is ragged (the JAX side pads it with
+# pos = 1, Δ = 0)
 SHAPES = [(40, 2, 32, 8, 16), (37, 3, 16, 4, 8)]
 
 
-@pytest.fixture(scope="module", params=SHAPES,
-                ids=lambda s: "x".join(map(str, s)))
-def pallas(request):
-    """Inputs and the JAX kernels' outputs: y and ckpts of both forward
-    schedules, the backward's outputs; L padded to the chunk as
-    ``kops.selective_scan_heads`` pads it."""
-    L, H, P, N, chunk = request.param
-    u, dt, A, bc, Dk, pos, dy = _inputs(L, H, P, N, L * H)
-    Bm, Cm = _split(bc, N)
+def _pallas(u, dt, A, Bm, Cm, Dk, pos, dy, chunk):
+    """The JAX kernels' outputs on these inputs: y and ckpts of both
+    forward schedules, the backward's outputs; L padded to the chunk as
+    ``kops.selective_scan_heads`` pads it (pos = 1, Δ = 0)."""
+    L = u.shape[1]
     pad = (-L) % chunk
 
     def padL(x, axis, value=0):
@@ -105,7 +104,17 @@ def pallas(request):
                       np.asarray(ck))
     bwd = jsk.selective_scan_heads_bwd_pallas(
         *j, ck, jnp.asarray(padL(np.moveaxis(dy, 2, 1), 2)), chunk=chunk)
-    bwd = [np.asarray(a) for a in bwd]
+    return fwd, [np.asarray(a) for a in bwd]
+
+
+@pytest.fixture(scope="module", params=SHAPES,
+                ids=lambda s: "x".join(map(str, s)))
+def pallas(request):
+    """Inputs and the JAX kernels' outputs (``_pallas``)."""
+    L, H, P, N, chunk = request.param
+    u, dt, A, bc, Dk, pos, dy = _inputs(L, H, P, N, L * H)
+    Bm, Cm = _split(bc, N)
+    fwd, bwd = _pallas(u, dt, A, Bm, Cm, Dk, pos, dy, chunk)
     return (L, H, P, N, chunk), (u, dt, A, Bm, Cm, Dk, pos, dy), fwd, bwd
 
 
@@ -148,6 +157,71 @@ def test_backward_plain_matches_pallas(pallas):
            "dC": jdC[:, :, :L], "dA": jdA[..., 0], "dD": jdD[..., 0]}
     for k in got:
         np.testing.assert_allclose(got[k], ref[k], err_msg=k, **BWD_TOL)
+
+
+def _subchunk_positions(L, chunk, q, seed):
+    """Row 0: resets on the first and on the last step of sub-chunks
+    (q steps inside each chunk), on a chunk's first step, and a few at
+    random; row 1: a carried row of a split pack (first position > 0)."""
+    rng = np.random.default_rng(seed)
+    cuts = {0, q, 2 * q - 1, chunk, chunk + q - 1, chunk + min(q, chunk) - 1}
+    cuts |= set(rng.integers(1, L, size=3).tolist())
+    cuts = sorted(c for c in cuts if c < L) + [L]
+    pos = np.zeros((2, L), np.int32)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    pos[1] = tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 2, L)], L).positions[1]
+    assert pos[1, 0] > 0
+    return pos
+
+
+# (L, H, P, N, chunk, q): ragged L; a chunk that is no multiple of q (96,
+# 64); a chunk shorter than q (40, 64); a chunk longer than L; P 16, 48 and
+# 80 (a short last slice of the partials)
+CHUNKED = [(150, 2, 16, 8, 64, 16), (200, 2, 48, 8, 96, 64),
+           (300, 1, 16, 8, 256, 64), (97, 2, 80, 4, 40, 64),
+           (130, 1, 48, 8, 256, 16), (70, 1, 16, 4, 96, 16)]
+
+
+@pytest.mark.parametrize("case", CHUNKED, ids=lambda c: "x".join(map(str, c)))
+def test_chunked_backward_matches_pallas_and_per_step(case):
+    """#9's chunked (SSD) arithmetic, the form its CUDA kernel evaluates,
+    against the TPU kernel in interpret mode (partials summed over the
+    slices of P) and against the per-step plain version partial by
+    partial; the wrapper on CPU tensors takes the per-step version."""
+    L, H, P, N, chunk, q = case
+    u, dt, A, bc, Dk, _, dy = _inputs(L, H, P, N, L + q)
+    pos = _subchunk_positions(L, chunk, q, L)
+    Bm, Cm = _split(bc, N)
+    fwd, want = _pallas(u, dt, A, Bm, Cm, Dk, pos, dy, chunk)
+    args = _t(u, dt, A, Bm, Cm, Dk, pos)
+    ck = torch.as_tensor(np.array(fwd["blocked_heads"][1]))
+    dyt = torch.as_tensor(dy)
+    got = kh.selective_scan_heads_bwd_chunked_plain(*args, ck, dyt, chunk, q)
+    step = kh.selective_scan_heads_bwd_plain(*args, ck, dyt, chunk)
+    nps = kh.n_slices(P)
+    shapes = [(2, L, H, P), (2, L, H, nps), (2, H * nps, L, N),
+              (2, H * nps, L, N), (2, H, nps), (2, H, nps)]
+    names = ("du", "ddelta", "dB", "dC", "dA", "dD")
+    for name, g, w, shape in zip(names, got, step, shapes):
+        assert tuple(g.shape) == tuple(w.shape) == shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
+                                   **BWD_TOL)
+    du, ddt, dB, dC, dA, dD = got
+    jdu, jddt, jdB, jdC, jdA, jdD = want
+    summed = {"du": du.numpy(), "ddelta": ddt.sum(-1).numpy(),
+              "dB": dB.reshape(2, H, nps, L, N).sum(2).numpy(),
+              "dC": dC.reshape(2, H, nps, L, N).sum(2).numpy(),
+              "dA": dA.sum(-1).numpy(), "dD": dD.sum(-1).numpy()}
+    ref = {"du": np.moveaxis(jdu, 1, 2)[:, :L],
+           "ddelta": np.moveaxis(jddt, 1, 2)[:, :L], "dB": jdB[:, :, :L],
+           "dC": jdC[:, :, :L], "dA": jdA[..., 0], "dD": jdD[..., 0]}
+    for k in summed:
+        np.testing.assert_allclose(summed[k], ref[k], err_msg=k, **BWD_TOL)
+    wrapped = kh.selective_scan_heads_bwd(*args, ck, dyt, chunk)
+    for g, w in zip(wrapped, step):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("schedule", kh.SCHEDULES)
@@ -288,5 +362,6 @@ def test_wrapper_validation():
     with pytest.raises(ValueError, match="scalar decay per head"):
         tssm.selective_scan_heads(*args[:2], args[2][:, None], *args[3:6],
                                   positions=args[6])
-    assert kh.n_slices(64) == 4 and kh.n_slices(16) == 1 and \
-        kh.n_slices(24) == 1
+    assert kh.n_slices(64) == 1 and kh.n_slices(16) == 1 and \
+        kh.n_slices(24) == 1 and kh.n_slices(80) == 2 and \
+        kh.n_slices(128) == 2
