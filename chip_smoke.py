@@ -19,8 +19,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               mamba-2.8b training shapes and a ragged one, timed in the same
               call and checked against each other (#3's checkpoints against
               #4's, #5 against #6); #7 / #8 / #9 the head-structured
-              (Mamba-2) scan forward, its dual form and their backward. The
-              backward kernels run twice and must agree bitwise.
+              (Mamba-2) scan forward (the chunked form on the tensor
+              cores), its dual form and their backward. The backward
+              kernels and #7 run twice and must agree bitwise.
 4. parity   — serving: ``prefill_packed`` end logits and states of 4
               prompts against per-prompt ``prefill`` (f32, full width).
 5. engine   — the serving main path: the continuous-batching engine on
@@ -45,7 +46,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 8. Mamba-2 — serving parity and the engine on mamba2-370m (48 layers,
               bf16), then its training main path: 48 layers, 8 × 4096
               packed (``train_mamba2``), launch counts asserted exactly,
-              one profiled step, 2 ``pad`` steps.
+              one profiled step (which must name #7 and #9, 96 and 48
+              calls), 2 ``pad`` steps.
 9. step     — mamba-2.8b with ``pallas_schedule="step"``: full-width parity
               (2 layers, f32, TF32 off; #1, #2, #3, #5 against autograd
               through the plain path), then its training main path
@@ -566,8 +568,9 @@ def heads_bounds(shape, es, chunk):
 
 def phase_heads():
     """Kernels #7, #8 and #9 at mamba2-370m's training shape and at a
-    ragged L, in bf16 and f32, against their plain versions; #9 twice,
-    bitwise equal."""
+    ragged L, in bf16 and f32, against their plain versions; #7 and #9
+    twice, bitwise equal; #7's resources (blocks an SM, registers, spills,
+    shared bytes) per dtype."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan_heads as kh
@@ -591,6 +594,12 @@ def phase_heads():
                 fwd = functools.partial(kh.selective_scan_heads_fwd, *fa, T,
                                         sched)
                 y, ck = fwd()
+                if sched == "blocked_heads":
+                    y2, ck2 = fwd()
+                    if not (torch.equal(y, y2) and torch.equal(ck, ck2)):
+                        raise AssertionError(f"{name} is not bitwise "
+                                             f"repeatable at {shape} {dtype}")
+                    del y2, ck2
                 torch.cuda.synchronize()
                 (wy, wck), plain_ms = once_ms(lambda: plain(*fa, T))
                 y32, wy32 = y.float(), wy.float()
@@ -620,9 +629,11 @@ def phase_heads():
                     "kernel_eager_ms": eager_ms(fwd, 10, 2),
                     "plain_ms": plain_ms, "library_ms": None,
                     "bound_ms": bnd_f, "bound_by": by_f})
-                emit("kernels", **rows[-1])
                 if sched == "blocked_heads":
+                    rows[-1].update(bitwise_repeat=True,
+                                    resources=kh.fwd_resources(dtype))
                     ck_main = ck
+                emit("kernels", **rows[-1])
                 del y, ck
             bwd = functools.partial(kh.selective_scan_heads_bwd, *fa,
                                     ck_main, dy, T)
@@ -842,7 +853,7 @@ def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
 KERNEL_GROUPS = (("scan_step_bwd_kernel", "scan bwd step #5"),
                  ("scan_step_fwd_kernel", "scan fwd step #3"),
                  ("heads_bwd_kernel", "heads scan bwd #9"),
-                 ("heads_fwd_kernel", "heads scan fwd #7"),
+                 ("heads_fwd_chunked_kernel", "heads scan fwd #7"),
                  ("heads_dual_kernel", "heads scan fwd dual #8"),
                  ("scan_bwd_kernel", "scan bwd #6"),
                  ("scan_fwd_kernel", "scan fwd #4"),
@@ -881,13 +892,14 @@ def profile_step(step_fn, state, batch):
     if not kernels:
         return state, {"measured": False,
                        "why": "the trace holds no device events"}
-    by_name, by_group = {}, {}
+    by_name, by_group, calls = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         n, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (n + us, c + 1)
         g = kernel_group(e.name)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3
+        calls[g] = calls.get(g, 0) + 1
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -906,6 +918,7 @@ def profile_step(step_fn, state, batch):
         "busy_share_of_kernel_window": busy / max(window, 1e-9),
         "kernels": len(kernels),
         "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "by_group_calls": calls,
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
 
 
@@ -1182,6 +1195,13 @@ def main():
         emit("train_parity_mamba2", **v)
     tr2 = phase_train("mamba2-370m", rows=8)
     prof2 = tr2.pop("profile")
+    named = {g: prof2.get("by_group_calls", {}).get(g, 0)
+             for g in ("heads scan fwd #7", "heads scan bwd #9")}
+    if named != {"heads scan fwd #7": 2 * cfg2.n_layers,
+                 "heads scan bwd #9": cfg2.n_layers}:
+        raise AssertionError(f"the profiled mamba2-370m step names the heads "
+                             f"kernels {named} times, expected "
+                             f"{2 * cfg2.n_layers} and {cfg2.n_layers}")
     emit("train_mamba2", **tr2)
     emit("train_mamba2_profile", **prof2)
 
@@ -1264,11 +1284,12 @@ def main():
               exp_floor_ms=bwd_row["exp_floor_ms"],
               step_same_call_ms=scan_row("selective_scan_bwd_step",
                                          TRAIN_SHAPE)["kernel_ms"]),
-        entry("selective_scan_heads_fwd", "selective_scan_heads.cu",
+        entry("selective_scan_heads_fwd", "selective_scan_heads_fwd.cu",
               "src/repro/kernels/selective_scan.py:212",
               heads_row("selective_scan_heads_fwd"),
               launches2["selective_scan_heads_fwd"],
-              heads_worst["selective_scan_heads_fwd"], path="train_mamba2"),
+              heads_worst["selective_scan_heads_fwd"], path="train_mamba2",
+              resources=heads_row("selective_scan_heads_fwd")["resources"]),
         entry("selective_scan_heads_fwd_dual", "selective_scan_heads.cu",
               "src/repro/kernels/selective_scan.py:272",
               heads_row("selective_scan_heads_fwd_dual"),

@@ -4,8 +4,9 @@
 //
 // Replaces the Pallas TPU kernel #9 of src/repro/kernels/selective_scan.py,
 // `_bwd_kernel_blocked_heads` (entry `selective_scan_heads_bwd_pallas`), the
-// backward of both forward schedules (#7 and #8 in selective_scan_heads.cu).
-// Same function, same f32 chunk-entry checkpoints (ckpt) as its input:
+// backward of both forward schedules (#7 in selective_scan_heads_fwd.cu, #8
+// in selective_scan_heads.cu). Same function, same f32 chunk-entry
+// checkpoints (ckpt) as its input:
 //
 //   a_t = exp(dt_t * A) (0 where pos_t == 0),  h_t = a_t * h_{t-1} + (dt_t * u_t) (x) B_t
 //   y_t = h_t . C_t + D * u_t            (h_t: (P, N) per (b, head))
@@ -51,12 +52,13 @@
 //   * One block per (b, head, slice of 64 rows of P): one slice a head at
 //     P = 64, 256 blocks at the training shape; 256 threads (8 warps). Each
 //     warp owns a 16 x 32 tile of every 64 x 64 product.
-//   * Every product goes through `mma_tile`: mma.sync m16n8k8 TF32 with f32
-//     accumulation, each operand split hi + lo and three products (lo*hi +
-//     hi*lo + hi*hi), which keeps the products within ~1e-6 of f32 (one TF32
-//     pass would give 3-5e-4 of max|ref|). Operands are f32 tiles in shared
-//     memory, rows padded to 68 floats; either operand may be read
-//     transposed, and a scale along the contraction may be folded into A.
+//   * Every product goes through `mma_tile` (heads_mma.cuh, shared with
+//     #7): mma.sync m16n8k8 TF32 with f32 accumulation, each operand split
+//     hi + lo and three products (lo*hi + hi*lo + hi*hi), which keeps the
+//     products within ~1e-6 of f32 (one TF32 pass would give 3-5e-4 of
+//     max|ref|). Operands are f32 tiles in shared memory, rows padded to 68
+//     floats; either operand may be read transposed, and a scale along the
+//     contraction may be folded into A.
 //   * Sub-chunk operands (u, dy, B, C and the staged entry state) come in by
 //     cp.async (16 bytes a thread, zero-filled past the chunk, L or P) into a
 //     staging area while the previous sub-chunk computes; dt and pos come in
@@ -74,36 +76,20 @@
 // staging of u, dy, B, C 65,536 B and of the entry state 16,384 B; vectors
 // 4,928 B: 226,112 B, one block an SM.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <limits.h>
+
+#include "heads_mma.cuh"
 
 namespace {
 
-constexpr int N = 64;            // d_state
-constexpr int PB = 64;           // rows of P per block
-constexpr int Q = 64;            // steps per sub-chunk
-constexpr int LD = 68;           // padded row of a shared-memory tile
-constexpr int TILE = 64 * LD;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-// vectors in shared memory (floats), each Q long unless said
+// vectors in shared memory (floats), each Q long unless said, after the
+// StepVec ones
 enum Vec {
-  V_DL,        // dt
-  V_KEEP,      // 1 where pos != 0
-  V_S,         // s
-  V_RID,       // rid (as float: small integers, exact)
-  V_CIN,       // cin
-  V_D,         // d
-  V_DD,        // d * dt
-  V_ROW = 7,   // 2 x Q: row sums of M, per column half of the warps
-  V_COL = 9,   // 4 x Q: column sums of M, per row quarter
-  V_F = 13,    // 2 x Q: <C_i, (dY h_in)_i> partials
-  V_E = 15,    // 2 x Q: <B_i, (X dh)_i> partials
-  V_UDX = 17,  // 2 x Q: sum_p u dX partials
+  V_ROW = V_STEPS,  // 2 x Q: row sums of M, per column half of the warps
+  V_COL = 9,        // 4 x Q: column sums of M, per row quarter
+  V_F = 13,         // 2 x Q: <C_i, (dY h_in)_i> partials
+  V_E = 15,         // 2 x Q: <B_i, (X dh)_i> partials
+  V_UDX = 17,       // 2 x Q: sum_p u dX partials
   V_COUNT = 19
 };
 constexpr int VEC_FLOATS = V_COUNT * Q + 2 * WARPS;   // + <h_in, dh>, dD
@@ -113,171 +99,13 @@ constexpr size_t smem_bytes(size_t es) {
          + 4 * 64 * 64 * es;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// 16 bytes of staged values to f32 at dst (16-byte aligned)
-__device__ __forceinline__ void widen(float* dst, const float* src) {
-  *(float4*)dst = *(const float4*)src;
-}
-__device__ __forceinline__ void widen(float* dst, const __nv_bfloat16* src) {
-  const uint4 w = *(const uint4*)src;
-  const float2 a = __bfloat1622float2(*(const __nv_bfloat162*)&w.x);
-  const float2 b = __bfloat1622float2(*(const __nv_bfloat162*)&w.y);
-  const float2 c = __bfloat1622float2(*(const __nv_bfloat162*)&w.z);
-  const float2 d = __bfloat1622float2(*(const __nv_bfloat162*)&w.w);
-  *(float4*)dst = make_float4(a.x, a.y, b.x, b.y);
-  *(float4*)(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
   return v;
 }
 
-// ------------------------------------------------------- the tensor cores
-
-__device__ __forceinline__ uint32_t tf32_of(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32; hi*hi + hi*lo + lo*hi recovers ~f32 products
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_of(x);
-  lo = tf32_of(x - __uint_as_float(hi));
-}
-
-// not volatile: the compiler may interleave independent products
-__device__ __forceinline__ void mma8(float (&c)[4], const uint32_t (&a)[4],
-                                     uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc (rows m0..m0+15, columns n0..n0+31 of the result, in mma's
-// accumulator layout: acc[nt][q] at row m0 + g + 8*(q/2), column
-// n0 + 8*nt + 2*tq + q%2, g = lane/4, tq = lane%4) +=
-//   sum_k A(m, k) * ks[k] * B(k, n),  k < 64,
-// A(m, k) = AT ? a[k*LD + m] : a[m*LD + k],
-// B(k, n) = BT ? b[n*LD + k] : b[k*LD + n],  ks = 1 when null.
-// AX (BX): every A (B) value is exact in TF32 — a bf16 input, unscaled — so
-// its lo part is 0 and the cross product it would enter is not issued (the
-// result is the same to the bit). The cross terms go to their own
-// accumulator, added at the end, and the products are issued column tile
-// by column tile, so each warp has up to 8 independent chains in flight.
-template <bool AT, bool BT, bool AX, bool BX>
-__device__ __forceinline__ void mma_tile(float (&acc)[4][4],
-                                         const float* __restrict__ a,
-                                         const float* __restrict__ b,
-                                         const float* __restrict__ ks,
-                                         int m0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  const int r0 = m0 + g, r1 = r0 + 8;
-  float cross[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) cross[nt][q] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < 64; k0 += 8) {
-    const int ka = k0 + tq, kb = ka + 4;
-    float av[4];
-    av[0] = AT ? a[ka * LD + r0] : a[r0 * LD + ka];
-    av[1] = AT ? a[ka * LD + r1] : a[r1 * LD + ka];
-    av[2] = AT ? a[kb * LD + r0] : a[r0 * LD + kb];
-    av[3] = AT ? a[kb * LD + r1] : a[r1 * LD + kb];
-    if (ks != nullptr) {
-      const float sa = ks[ka], sb = ks[kb];
-      av[0] *= sa;
-      av[1] *= sa;
-      av[2] *= sb;
-      av[3] *= sb;
-    }
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (AX)
-        ah[q] = __float_as_uint(av[q]);
-      else
-        split(av[q], ah[q], al[q]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + 8 * nt + g;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = e ? kb : ka;
-        const float x = BT ? b[col * LD + k] : b[k * LD + col];
-        if (BX)
-          bh[nt][e] = __float_as_uint(x);
-        else
-          split(x, bh[nt][e], bl[nt][e]);
-      }
-    }
-    if (!AX) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma8(cross[nt], al, bh[nt][0], bh[nt][1]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) mma8(acc[nt], ah, bh[nt][0], bh[nt][1]);
-    if (!BX) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma8(cross[nt], ah, bl[nt][0], bl[nt][1]);
-    }
-  }
-  if (!(AX && BX)) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[nt][q] += cross[nt][q];
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-}
-
-// ------------------------------------------------------------ async copies
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = ok ? 16 : 0;                 // 0: fill 16 zero bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // ------------------------------------------------------------------ kernel
-
-struct Operands {
-  const void* u; const void* dt; const float* A; const void* Bm;
-  const void* Cm; int64_t bc_bstride, bc_lstride; const float* Dp;
-  const int32_t* pos; int64_t pos_bstride; int L, H, P;
-};
 
 struct Out {
   float* du; float* ddt; float* dB; float* dC; float* dA; float* dD;
@@ -305,8 +133,7 @@ struct Kernel {
   float A, Dd;
   float *sU, *sDY, *sB, *sC, *sS, *sR, *sH, *sG, *stH, *v;
   T *stU, *stDY, *stB, *stC;
-  T rdt[2];                   // warp 0: dt and pos of steps 2*lane, +1
-  int rpos[2];
+  Steps<T> steps;             // warp 0: dt and pos of the staged job
 
   __device__ int64_t at_lhp(int t, int p) const {
     return (((int64_t)b * op.L + t) * op.H + h) * op.P + p0 + p;
@@ -374,17 +201,7 @@ struct Kernel {
       }
     }
     cp_commit();
-    if (warp == 0) {
-      const T* dtp = (const T*)op.dt;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int t = jb.t0 + 2 * lane + e;
-        const bool ok = t < jb.t_end;
-        rdt[e] = ok ? dtp[((int64_t)b * op.L + t) * op.H + h]
-                    : from_f32<T>(0.f);
-        rpos[e] = ok ? op.pos[b * op.pos_bstride + t] : 1;
-      }
-    }
+    if (warp == 0) steps.load(op, b, h, jb.t0, jb.t_end, lane);
   }
 
   // wait for the job's copies; staging -> f32 tiles; warp 0 scans dt, pos
@@ -405,56 +222,7 @@ struct Kernel {
     if (jb.hsrc != nullptr)
       for (int i = tid * 4; i < 64 * 64; i += THREADS * 4)
         widen(sH + (i / 64) * LD + i % 64, stH + i);
-    if (warp == 0) {
-      float la[2], dl[2];
-      int rs[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        dl[e] = to_f32(rdt[e]);
-        la[e] = dl[e] * A;
-        rs[e] = rpos[e] == 0;
-      }
-      // inclusive scans over the 64 steps, two a lane, in a fixed order
-      const float s_own = la[0] + la[1];
-      const int r_own = rs[0] + rs[1];
-      float si = s_own;
-      int ri = r_own;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float sv = __shfl_up_sync(FULL, si, o);
-        const int rv = __shfl_up_sync(FULL, ri, o);
-        if (lane >= o) {
-          si += sv;
-          ri += rv;
-        }
-      }
-      float sx = __shfl_up_sync(FULL, si, 1);     // exclusive prefix
-      int rx = __shfl_up_sync(FULL, ri, 1);
-      if (lane == 0) {
-        sx = 0.f;
-        rx = 0;
-      }
-      float sv[2];
-      int rv[2];
-      sv[0] = sx + la[0];
-      sv[1] = sv[0] + la[1];
-      rv[0] = rx + rs[0];
-      rv[1] = rv[0] + rs[1];
-      const float s_last = __shfl_sync(FULL, sv[1], 31);
-      const int r_last = __shfl_sync(FULL, rv[1], 31);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 2 * lane + e;
-        const float d = rv[e] == r_last ? expf(s_last - sv[e]) : 0.f;
-        v[V_DL * Q + i] = dl[e];
-        v[V_KEEP * Q + i] = rs[e] ? 0.f : 1.f;
-        v[V_S * Q + i] = sv[e];
-        v[V_RID * Q + i] = (float)rv[e];
-        v[V_CIN * Q + i] = rv[e] == 0 ? expf(sv[e]) : 0.f;
-        v[V_D * Q + i] = d;
-        v[V_DD * Q + i] = d * dl[e];
-      }
-    }
+    if (warp == 0) steps.scan(v, A, lane);
     __syncthreads();
   }
 
@@ -776,15 +544,6 @@ heads_bwd_kernel(Operands op, const float* __restrict__ ckpt,
   k.stB = k.stDY + 64 * 64;
   k.stC = k.stB + 64 * 64;
   k.run();
-}
-
-Operands make_operands(const void* u, const void* dt, const void* A,
-                       const void* Bm, const void* Cm, int64_t bc_bstride,
-                       int64_t bc_lstride, const void* Dp, const void* pos,
-                       int64_t pos_bstride, int L, int H, int P) {
-  return Operands{u, dt, (const float*)A, Bm, Cm, bc_bstride, bc_lstride,
-                  (const float*)Dp, (const int32_t*)pos, pos_bstride, L, H,
-                  P};
 }
 
 template <typename T>

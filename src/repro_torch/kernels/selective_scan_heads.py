@@ -1,15 +1,29 @@
 """Head-structured selective scan (Mamba-2 / SSD, scalar decay per head),
-forward and backward: the CUDA kernels (forward
-``csrc/selective_scan_heads.cu``, backward
-``csrc/selective_scan_heads_bwd.cu``), their plain PyTorch versions, and
+forward and backward: the CUDA kernels, their plain PyTorch versions, and
 the wrappers that pick one by the tensor's device.
 
-Replaces the Pallas TPU kernels of ``repro.kernels.selective_scan``:
-``_fwd_kernel_blocked_heads`` (#7, ``schedule="blocked_heads"``),
-``_fwd_kernel_blocked_heads_dual`` (#8, ``"blocked_heads_dual"``) and
-``_bwd_kernel_blocked_heads`` (#9, the backward of both), and keeps their
-function and checkpoint contract. The layout is the JAX public one, not
-the TPU kernels' head-major copy:
+Replaces the Pallas TPU kernels of ``repro.kernels.selective_scan`` and
+keeps their function and checkpoint contract:
+
+* #7 ``_fwd_kernel_blocked_heads`` (``schedule="blocked_heads"``, the main
+  path): ``csrc/selective_scan_heads_fwd.cu``, the chunked (SSD) form on
+  the tensor cores, per sub-chunk of ``FWD_SUB_T`` steps
+  (``selective_scan_heads_fwd_dual_plain(..., tile=FWD_SUB_T)`` is its
+  arithmetic on the CPU);
+* #8 ``_fwd_kernel_blocked_heads_dual`` (``"blocked_heads_dual"``):
+  ``csrc/selective_scan_heads.cu``, the dual form per tile of ``TILE_T``
+  steps on the f32 pipes;
+* #9 ``_bwd_kernel_blocked_heads`` (the backward of both):
+  ``csrc/selective_scan_heads_bwd.cu``, the chunked form on the tensor
+  cores, per sub-chunk of ``BWD_SUB_T`` steps
+  (``selective_scan_heads_bwd_chunked_plain`` is its arithmetic on the
+  CPU).
+
+#7 and #9 share their tensor-core and staging helpers
+(``csrc/heads_mma.cuh``) and run one block per slice of ``BWD_P_SLICE``
+rows of P. The per-step walks ``selective_scan_heads_fwd_plain`` and
+``selective_scan_heads_bwd_plain`` are the references all are held to.
+The layout is the JAX public one, not the TPU kernels' head-major copy:
 
 * forward: u (B, L, H, P) f32|bf16; delta (B, L, H) of u's dtype; A (H,)
   f32; Bm, Cm (B, L, N) of u's dtype, any batch and row strides; Dp (H,)
@@ -19,11 +33,7 @@ the TPU kernels' head-major copy:
   f32 and partials over slices of ``BWD_P_SLICE`` rows of P (``n_slices``;
   one a head at P = 64): ddelta (B, L, H, nps), dB and dC (B, H·nps, L, N),
   dA and dD (B, H, nps), all f32. The caller sums them
-  (``kernels/ops.py``) in a fixed order. The backward kernel evaluates the
-  chunked (SSD) form on the tensor cores, per sub-chunk of ``BWD_SUB_T``
-  steps (``selective_scan_heads_bwd_chunked_plain`` is its arithmetic on
-  the CPU); the per-step walk ``selective_scan_heads_bwd_plain`` is the
-  reference both are held to.
+  (``kernels/ops.py``) in a fixed order.
 
     a_t = exp(Δ_t·A) (0 where pos_t == 0);  h_t = a_t·h_{t-1} + (Δ_t·u_t) ⊗ B_t
     y_t = h_t·C_t + D·u_t
@@ -49,12 +59,13 @@ from repro_torch.kernels import _build
 LAUNCHES_FWD = 0
 LAUNCHES_DUAL = 0
 LAUNCHES_BWD = 0
-P_SLICE = 16                      # rows of P per forward block; the
-#                                   kernels take P in multiples of it
-BWD_P_SLICE = 64                  # rows of P per backward block (the
+P_SLICE = 16                      # the kernels take P in multiples of
+#                                   it (#8's rows of P per block)
+BWD_P_SLICE = 64                  # rows of P per #7 and #9 block (#9's
 #                                   partials' unit: one slice a head at 64)
-TILE_T = 16                       # forward time tile (the dual form's Tt)
-BWD_SUB_T = 64                    # backward sub-chunk (the SSD form's Q)
+TILE_T = 16                       # #8's time tile (the dual form's Tt)
+FWD_SUB_T = 64                    # #7's sub-chunk (the SSD form's Q)
+BWD_SUB_T = 64                    # #9's sub-chunk (the SSD form's Q)
 D_STATE = 64                      # the kernels instantiate N = 64
 SCHEDULES = ("blocked_heads", "blocked_heads_dual")
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -118,8 +129,9 @@ def selective_scan_heads_fwd_plain(u, delta, A, Bm, Cm, Dp, positions,
 
 def selective_scan_heads_fwd_dual_plain(u, delta, A, Bm, Cm, Dp, positions,
                                         chunk: int, tile: int = TILE_T):
-    """Kernel #8's function, its arithmetic written out: per tile of
-    ``tile`` steps inside each chunk
+    """The chunked (dual) form of #7's and #8's function, its arithmetic
+    written out: per tile of ``tile`` steps inside each chunk (#7's kernel
+    at ``tile=FWD_SUB_T``, #8's at ``TILE_T``)
 
         G = dec ⊙ (C·Bᵀ);  y = G·(Δ·u) + cin·(C·h_in)
         h_out = Σ_j dec[last, j]·(Δ·u ⊗ B)_j + cin_last·h_in
@@ -340,23 +352,53 @@ def selective_scan_heads_bwd_chunked_plain(u, delta, A, Bm, Cm, Dp,
 
 # ------------------------------------------------------------------ kernels
 
+_LIBS = {"fwd": "selective_scan_heads_fwd", "dual": "selective_scan_heads",
+         "bwd": "selective_scan_heads_bwd"}     # kind → csrc/<name>.cu
+
+
 def _entry(kind, dtype):
-    """The C entry ``selective_scan_heads_<kind>_<dtype>``, its ctypes
-    signature declared."""
+    """The C entry ``selective_scan_heads_<kind>_<dtype>`` of
+    ``csrc/<_LIBS[kind]>.cu``, its ctypes signature declared."""
     fn = _entries.get((kind, dtype))
     if fn is None:
-        lib = "selective_scan_heads" + ("_bwd" if kind == "bwd" else "")
-        fn = getattr(_build.load(lib),
+        fn = getattr(_build.load(_LIBS[kind]),
                      f"selective_scan_heads_{kind}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
-        fn.argtypes = head + ([vp, vp, i32, i32, i32, i32, i32, i32, vp]
-                              if kind == "fwd" else
+        fn.argtypes = head + ([vp, vp, i32, i32, i32, i32, i32, vp]
+                              if kind != "bwd" else
                               [vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                i32, i32, i32, vp])
         fn.restype = i32
         _entries[(kind, dtype)] = fn
     return fn
+
+
+def fwd_resources(dtype) -> dict:
+    """Kernel #7's resources on the current CUDA device for ``dtype``
+    input: blocks an SM, registers and local (spill) bytes a thread,
+    dynamic shared bytes a block."""
+    out = (ctypes.c_int * 4)()
+    err = _build.load(_LIBS["fwd"]).selective_scan_heads_fwd_occupancy(
+        int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_heads_fwd_occupancy failed: "
+                           f"cudaError {err}")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "shared_bytes"), out))
+
+
+def _aligned(u, Bm, Cm, *more):
+    """The operands the chunked kernels copy 16 bytes at a time (u, and
+    ``more``: whole rows; B and C: rows through their strides), copied
+    where an address or a stride is no multiple of 16 bytes."""
+    if any(t.data_ptr() % 16 for t in (u, *more)):
+        u, more = u.clone(), tuple(t.clone() for t in more)
+    es = Bm.element_size()
+    if any(x % 16 for x in (Bm.data_ptr(), Cm.data_ptr(), Bm.stride(0) * es,
+                            Bm.stride(1) * es)):
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    return u, Bm, Cm, more
 
 
 def _check(u, delta, A, Bm, Cm, Dp, positions, chunk):
@@ -422,8 +464,9 @@ def _head(u, delta, A, Bm, Cm, Dp, positions):
 def selective_scan_heads_fwd(u, delta, A, Bm, Cm, Dp, positions, chunk: int,
                              schedule: str = "blocked_heads"):
     """See the module docstring. ``schedule`` picks kernel #7
-    (``blocked_heads``, a per-step walk) or #8 (``blocked_heads_dual``,
-    the dual contraction). Returns (y, ckpts)."""
+    (``blocked_heads``, the chunked form on the tensor cores) or #8
+    (``blocked_heads_dual``, the dual form per 16-step tile). Returns (y,
+    ckpts)."""
     global LAUNCHES_FWD, LAUNCHES_DUAL
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown heads schedule {schedule!r}; have "
@@ -441,9 +484,11 @@ def selective_scan_heads_fwd(u, delta, A, Bm, Cm, Dp, positions, chunk: int,
                         dtype=torch.float32, device=u.device)
     if y.numel() == 0:
         return y, ckpts
-    err = _entry("fwd", u.dtype)(
+    if not dual:
+        u, Bm, Cm, _ = _aligned(u, Bm, Cm)
+    err = _entry("dual" if dual else "fwd", u.dtype)(
         *_head(u, delta, A, Bm, Cm, Dp, positions), y.data_ptr(),
-        ckpts.data_ptr(), Bz, L, H, P, chunk, int(dual),
+        ckpts.data_ptr(), Bz, L, H, P, chunk,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_heads forward kernel launch "
@@ -477,13 +522,7 @@ def selective_scan_heads_bwd(u, delta, A, Bm, Cm, Dp, positions, ckpts, dy,
     _check_cuda(u, delta, A, Bm, Cm, Dp, positions)
     if not (ckpts.is_contiguous() and dy.is_contiguous()):
         raise ValueError("ckpts and dy must be contiguous")
-    # the kernel copies u, dy and the rows of B and C 16 bytes at a time
-    if any(t.data_ptr() % 16 for t in (u, dy)):
-        u, dy = u.clone(), dy.clone()
-    es = Bm.element_size()
-    if any(x % 16 for x in (Bm.data_ptr(), Cm.data_ptr(), Bm.stride(0) * es,
-                            Bm.stride(1) * es)):
-        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    u, Bm, Cm, (dy,) = _aligned(u, Bm, Cm, dy)
     nps = n_slices(P)
     f32 = dict(dtype=torch.float32, device=u.device)
     du = torch.empty((Bz, L, H, P), **f32)

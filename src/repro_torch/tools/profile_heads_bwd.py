@@ -2,9 +2,10 @@
 without parts of its work.
 
 ``csrc/selective_scan_heads_bwd.cu`` runs every product through one device
-function, ``mma_tile``. This script writes three variants of the source
-into ``build/repro_torch/profile_heads_bwd/`` and builds them beside the
-source as it is, all ``nvcc`` processes at once:
+function, ``mma_tile`` (``csrc/heads_mma.cuh``, which the source includes).
+This script writes three variants of the source, the header inlined, into
+``build/repro_torch/profile_heads_bwd/`` and builds them beside the source
+as it is, all ``nvcc`` processes at once:
 
 * ``no_elision``: the cross products whose lo part is exactly 0 for bf16
   operands are issued all the same (three products everywhere, as for f32);
@@ -36,6 +37,7 @@ from repro_torch.kernels import selective_scan_heads as kh
 SHAPE, CHUNK = (8, 4096, 32, 64), 256
 ROUNDS, ITERS = 3, 5
 SOURCE = "selective_scan_heads_bwd"
+HEADER = "heads_mma.cuh"
 
 
 def _once(text, old, new):
@@ -75,8 +77,9 @@ def build():
     out.mkdir(parents=True, exist_ok=True)
     libs = {"kernel": _build.build_all()[SOURCE]}
     procs = {}
-    for name, text in variants((_build.CSRC / f"{SOURCE}.cu").read_text()
-                               ).items():
+    text = _once((_build.CSRC / f"{SOURCE}.cu").read_text(),
+                 f'#include "{HEADER}"', (_build.CSRC / HEADER).read_text())
+    for name, text in variants(text).items():
         src, lib = out / f"{name}.cu", out / f"lib{name}.so"
         src.write_text(text)
         procs[name] = (lib, subprocess.Popen(

@@ -181,6 +181,16 @@ def _heads_inputs(cuda, tdt, Bz, L, H, P, seed):
     return (u, dt, A, Bm, Cm, Dp, torch.as_tensor(pos).to(cuda)), dy
 
 
+def _assert_forward_close(y, ck, wy, wck, dtype):
+    """A forward kernel's (y, ckpts) against the plain version's."""
+    torch.testing.assert_close(ck, wck, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
+    else:
+        err = (y.float() - wy.float()).abs()
+        assert bool((err <= 2.0 ** -7 * wy.float().abs() + 1e-2).all())
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunk", [64, 256])
 def test_heads_kernels_match_plain_and_repeat(cuda, dtype, chunk):
@@ -198,12 +208,7 @@ def test_heads_kernels_match_plain_and_repeat(cuda, dtype, chunk):
         (n0[0] + 1, n0[1] + 1, n0[2] + 2)
     wy, wck = kh.selective_scan_heads_fwd_plain(*args, chunk)
     for got_y, got_ck in ((y, ck), (yd, ckd)):
-        torch.testing.assert_close(got_ck, wck, atol=1e-4, rtol=1e-4)
-        if dtype == "float32":
-            torch.testing.assert_close(got_y, wy, atol=1e-4, rtol=1e-4)
-        else:
-            err = (got_y.float() - wy.float()).abs()
-            assert bool((err <= 2.0 ** -7 * wy.float().abs() + 1e-2).all())
+        _assert_forward_close(got_y, got_ck, wy, wck, dtype)
     want = kh.selective_scan_heads_bwd_plain(*args, ck, dy, chunk)
     for name, g, w, r in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
                              want, again):
@@ -228,7 +233,7 @@ def test_heads_kernels_on_edge_shapes(cuda, Bz, L, H, P):
 
 
 def _subchunk_positions(L, chunk, q, seed):
-    """Row 0: resets on the first and on the last step of #9's sub-chunks
+    """Row 0: resets on the first and on the last step of the sub-chunks
     (q steps inside each chunk), on a chunk's first step, and a few at
     random; row 1: a carried row of a split pack (first position > 0)."""
     rng = np.random.default_rng(seed)
@@ -244,11 +249,55 @@ def _subchunk_positions(L, chunk, q, seed):
     return pos
 
 
-# (L, H, P, chunk): ragged L; a chunk that is no multiple of the backward's
+# (L, H, P, chunk): ragged L; a chunk that is no multiple of #7's and #9's
 # sub-chunk (96); a chunk shorter than it (40); a chunk longer than L; P 16,
-# 48, 80 (a short last slice of the partials) and 64 (one slice a head)
+# 48, 80 (a short last slice of a block's rows) and 64 (one slice a head)
 SUBCHUNK_CASES = [(150, 2, 16, 64), (200, 2, 48, 96), (300, 1, 16, 256),
                   (97, 2, 80, 40), (130, 1, 48, 256), (256, 3, 64, 256)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SUBCHUNK_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_heads_forward_on_subchunk_edges(cuda, case, dtype):
+    """#7 against the per-step plain version where its sub-chunks meet
+    resets, chunk ends and L, its blocks' rows of P past P masked; twice,
+    bitwise equal."""
+    L, H, P, chunk = case
+    args, _ = _heads_inputs(cuda, getattr(torch, dtype), 2, L, H, P, L)
+    pos = _subchunk_positions(L, chunk, kh.FWD_SUB_T, L)
+    args = (*args[:6], torch.as_tensor(pos).to(cuda))
+    n0 = kh.LAUNCHES_FWD
+    y, ck = kh.selective_scan_heads_fwd(*args, chunk)
+    y2, ck2 = kh.selective_scan_heads_fwd(*args, chunk)
+    torch.cuda.synchronize()
+    assert kh.LAUNCHES_FWD == n0 + 2
+    _assert_forward_close(y, ck, *kh.selective_scan_heads_fwd_plain(
+        *args, chunk), dtype)
+    assert torch.equal(y, y2) and torch.equal(ck, ck2)
+
+
+def _unaligned_heads_inputs(cuda):
+    """f32 inputs whose B and C are views of one projection at an odd
+    offset, and whose u lies at an address that is no multiple of 16."""
+    args, dy = _heads_inputs(cuda, torch.float32, 2, 150, 2, 16, 3)
+    u, dt, A, Bm, Cm, Dp, pos = args
+    N = kh.D_STATE
+    bc = torch.empty((2, 150, 3 + 2 * N), device=cuda)
+    bc[..., 3:3 + N], bc[..., 3 + N:] = Bm, Cm
+    B2, C2 = bc[..., 3:3 + N], bc[..., 3 + N:]
+    u2 = torch.empty(u.numel() + 1, device=cuda)[1:].view(u.shape).copy_(u)
+    assert B2.data_ptr() % 16 and u2.data_ptr() % 16
+    return (u2, dt, A, B2, C2, Dp, pos), dy
+
+
+def test_heads_forward_takes_unaligned_operands(cuda):
+    """#7 copies its operands 16 bytes at a time: unaligned u, B and C
+    still give the plain version's outputs."""
+    args, _ = _unaligned_heads_inputs(cuda)
+    _assert_forward_close(*kh.selective_scan_heads_fwd(*args, 64),
+                          *kh.selective_scan_heads_fwd_plain(*args, 64),
+                          "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -283,15 +332,7 @@ def test_heads_backward_takes_unaligned_operands(cuda):
     """#9 copies its operands 16 bytes at a time: B and C as views of one
     projection at an odd offset, and u at an address that is no multiple of
     16, still give the plain version's outputs."""
-    args, dy = _heads_inputs(cuda, torch.float32, 2, 150, 2, 16, 3)
-    u, dt, A, Bm, Cm, Dp, pos = args
-    N = kh.D_STATE
-    bc = torch.empty((2, 150, 3 + 2 * N), device=cuda)
-    bc[..., 3:3 + N], bc[..., 3 + N:] = Bm, Cm
-    B2, C2 = bc[..., 3:3 + N], bc[..., 3 + N:]
-    u2 = torch.empty(u.numel() + 1, device=cuda)[1:].view(u.shape).copy_(u)
-    assert B2.data_ptr() % 16 and u2.data_ptr() % 16
-    args = (u2, dt, A, B2, C2, Dp, pos)
+    args, dy = _unaligned_heads_inputs(cuda)
     _, ck = kh.selective_scan_heads_fwd(*args, 64)
     for name, g, w in zip(("du", "ddelta", "dB", "dC", "dA", "dD"),
                           kh.selective_scan_heads_bwd(*args, ck, dy, 64),

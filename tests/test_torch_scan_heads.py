@@ -7,10 +7,12 @@ checkpoints and every backward partial — and the port's autograd wiring
 (``ops.selective_scan_heads``) against ``jax.grad`` of
 ``kops.selective_scan_heads(..., backend="pallas")`` for both schedules;
 also the plain model-path reference ``core/ssm.selective_scan_heads`` and
-its decode step against ``repro.core.ssm``; and #9's chunked (SSD)
-arithmetic, the form its CUDA kernel evaluates
-(``selective_scan_heads_bwd_chunked_plain``), against the TPU kernel and
-the per-step plain version where sub-chunks meet resets, chunk ends and L.
+its decode step against ``repro.core.ssm``; and the chunked (SSD)
+arithmetic that the CUDA kernels #7 and #9 evaluate
+(``selective_scan_heads_fwd_dual_plain`` at ``tile=q``,
+``selective_scan_heads_bwd_chunked_plain``), against the TPU kernels and
+the per-step plain versions where sub-chunks meet resets, chunk ends and
+L.
 
 Inputs from numpy with a seed: row 0 packed with resets (one inside a
 subtile), row 1 a carried row of a split pack (first position > 0), B and
@@ -80,30 +82,39 @@ def _no_launches_on_cpu():
 SHAPES = [(40, 2, 32, 8, 16), (37, 3, 16, 4, 8)]
 
 
-def _pallas(u, dt, A, Bm, Cm, Dk, pos, dy, chunk):
-    """The JAX kernels' outputs on these inputs: y and ckpts of both
-    forward schedules, the backward's outputs; L padded to the chunk as
-    ``kops.selective_scan_heads`` pads it (pos = 1, Δ = 0)."""
+def _padL(x, axis, chunk, value=0):
+    """x with axis L padded to a multiple of ``chunk``."""
+    w = [(0, 0)] * x.ndim
+    w[axis] = (0, (-x.shape[axis]) % chunk)
+    return np.pad(x, w, constant_values=value)
+
+
+def _pallas_fwd(u, dt, A, Bm, Cm, Dk, pos, chunk, schedules=kh.SCHEDULES):
+    """The JAX forward kernels' inputs (head-major, L padded to the chunk
+    as ``kops.selective_scan_heads`` pads it: pos = 1, Δ = 0) and their
+    y and ckpts for each of ``schedules``."""
     L = u.shape[1]
-    pad = (-L) % chunk
-
-    def padL(x, axis, value=0):
-        w = [(0, 0)] * x.ndim
-        w[axis] = (0, pad)
-        return np.pad(x, w, constant_values=value)
-
     j = [jnp.asarray(a) for a in (
-        padL(np.moveaxis(u, 2, 1), 2), padL(np.moveaxis(dt, 2, 1), 2),
-        A[:, None], padL(Bm, 1), padL(Cm, 1), Dk[:, None],
-        padL(pos, 1, value=1))]
+        _padL(np.moveaxis(u, 2, 1), 2, chunk),
+        _padL(np.moveaxis(dt, 2, 1), 2, chunk), A[:, None],
+        _padL(Bm, 1, chunk), _padL(Cm, 1, chunk), Dk[:, None],
+        _padL(pos, 1, chunk, value=1))]
     fwd = {}
-    for sched in kh.SCHEDULES:
+    for sched in schedules:
         y, ck = jsk.selective_scan_heads_fwd_pallas(*j, chunk=chunk,
                                                     schedule=sched)
         fwd[sched] = (np.moveaxis(np.asarray(y), 1, 2)[:, :L],
                       np.asarray(ck))
+    return j, fwd
+
+
+def _pallas(u, dt, A, Bm, Cm, Dk, pos, dy, chunk):
+    """The JAX kernels' outputs on these inputs: y and ckpts of both
+    forward schedules, the backward's outputs."""
+    j, fwd = _pallas_fwd(u, dt, A, Bm, Cm, Dk, pos, chunk)
     bwd = jsk.selective_scan_heads_bwd_pallas(
-        *j, ck, jnp.asarray(padL(np.moveaxis(dy, 2, 1), 2)), chunk=chunk)
+        *j, jnp.asarray(fwd[kh.SCHEDULES[-1]][1]),
+        jnp.asarray(_padL(np.moveaxis(dy, 2, 1), 2, chunk)), chunk=chunk)
     return fwd, [np.asarray(a) for a in bwd]
 
 
@@ -182,6 +193,32 @@ def _subchunk_positions(L, chunk, q, seed):
 CHUNKED = [(150, 2, 16, 8, 64, 16), (200, 2, 48, 8, 96, 64),
            (300, 1, 16, 8, 256, 64), (97, 2, 80, 4, 40, 64),
            (130, 1, 48, 8, 256, 16), (70, 1, 16, 4, 96, 16)]
+
+
+@pytest.mark.parametrize("case", CHUNKED, ids=lambda c: "x".join(map(str, c)))
+def test_chunked_forward_matches_pallas_and_per_step(case):
+    """#7's chunked (SSD) arithmetic, the form its CUDA kernel evaluates
+    (``selective_scan_heads_fwd_dual_plain`` at ``tile=q``; the kernel's q
+    is ``FWD_SUB_T``), against the TPU kernel #7 in interpret mode and the
+    per-step plain version: y and the chunk-entry checkpoints; the wrapper
+    on CPU tensors takes the per-step version."""
+    L, H, P, N, chunk, q = case
+    u, dt, A, bc, Dk, _, _ = _inputs(L, H, P, N, L + q)
+    pos = _subchunk_positions(L, chunk, q, L)
+    Bm, Cm = _split(bc, N)
+    _, fwd = _pallas_fwd(u, dt, A, Bm, Cm, Dk, pos, chunk,
+                         ("blocked_heads",))
+    wy, wck = fwd["blocked_heads"]
+    args = _t(u, dt, A, Bm, Cm, Dk, pos)
+    y, ck = kh.selective_scan_heads_fwd_dual_plain(*args, chunk, tile=q)
+    sy, sck = kh.selective_scan_heads_fwd_plain(*args, chunk)
+    assert tuple(ck.shape) == tuple(sck.shape) == wck.shape == \
+        (2, H, -(-L // chunk), P, N)
+    for got, step, want in ((y, sy, wy), (ck, sck, wck)):
+        np.testing.assert_allclose(got.numpy(), step.numpy(), **FWD_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+    wrapped = kh.selective_scan_heads_fwd(*args, chunk)
+    assert torch.equal(wrapped[0], sy) and torch.equal(wrapped[1], sck)
 
 
 @pytest.mark.parametrize("case", CHUNKED, ids=lambda c: "x".join(map(str, c)))
