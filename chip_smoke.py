@@ -14,7 +14,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               version, the library yardstick (where one PyTorch call
               computes the same function) and the least time the card could
               take: #1 conv1d_pack forward (serving), #2 its dx backward;
-              the Mamba-1 selective scan's two schedules, #4 / #6 (blocked)
+              the Mamba-1 selective scan's two schedules, #4 / #6 (blocked;
+              #6 chunk-parallel: carry, combine and chunk kernels, its
+              build knobs and resources in its ``kernels`` entry)
               and #3 / #5 (step) forward / backward, at the mamba-1.4b and
               mamba-2.8b training shapes and a ragged one, timed in the same
               call and checked against each other (#3's checkpoints against
@@ -41,8 +43,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               every launch counter set to 0 just before and read just after
               (exact counts per step asserted); one more pack step under
               ``torch.profiler`` (device time by kernel, the device's busy
-              share); then 2 steps in ``pad`` mode for the paper's
-              comparison.
+              share; it must name #6's three kernels 3 × 48 times); then 2
+              steps in ``pad`` mode for the paper's comparison.
 8. Mamba-2 — serving parity and the engine on mamba2-370m (48 layers,
               bf16), then its training main path: 48 layers, 8 × 4096
               packed (``train_mamba2``), launch counts asserted exactly,
@@ -363,6 +365,17 @@ def scan_bounds(shape, es, n_chunk):
     return fwd, bwd
 
 
+def blocked_bwd_exps(L, chunk):
+    """Exponentials per (b, d, n) of #6 on a row of L steps: the carry pass
+    and the tile recompute take every step, the walk to the tile entries
+    every step of a chunk but its last tile's."""
+    from repro_torch.kernels import selective_scan as ksc
+    tt = ksc.bwd_params()["tile"]
+    walk = sum((-(-(min(L, c0 + chunk) - c0) // tt) - 1) * tt
+               for c0 in range(0, L, chunk))
+    return 2 * L + walk
+
+
 def pair_partials(p, nblk):
     """Per-16-channel dB/dC partials (B, n16, L, N) summed in pairs into
     per-32-channel ones (B, nblk, L, N)."""
@@ -464,9 +477,10 @@ def phase_scan(sfu_rate):
             worst[kb] = max(worst[kb], max(errs.values()))
             got[sched] = outs
             del again
-            # #6 computes the decays twice (its forward pass to the tile
-            # entries, then the recompute and the adjoint), #5 once
-            n_exp = (2 if sched == "blocked" else 1) * B * L * D * N
+            # #6 computes each decay up to three times (its carry pass, the
+            # walk to its tile entries, the tile recompute), #5 once
+            n_exp = (blocked_bwd_exps(L, chunk) if sched == "blocked"
+                     else L) * B * D * N
             rows.append({
                 "kernel": kb, "schedule": sched, "shape": list(shape),
                 "dtype": dtn, "chunk": chunk,
@@ -855,7 +869,7 @@ KERNEL_GROUPS = (("scan_step_bwd_kernel", "scan bwd step #5"),
                  ("heads_bwd_kernel", "heads scan bwd #9"),
                  ("heads_fwd_chunked_kernel", "heads scan fwd #7"),
                  ("heads_dual_kernel", "heads scan fwd dual #8"),
-                 ("scan_bwd_kernel", "scan bwd #6"),
+                 ("scan_bwd_", "scan bwd #6"),     # carry, combine, chunk
                  ("scan_fwd_kernel", "scan fwd #4"),
                  ("conv1d_pack_bwd_dx", "conv dx #2"),
                  ("conv1d_pack_fwd", "conv fwd #1"),
@@ -1119,7 +1133,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import selective_scan as ksc
     from repro_torch.models.lm import LM
 
     t_start = time.perf_counter()
@@ -1172,6 +1187,11 @@ def main():
     emit("train_parity", **tp)
     tr = phase_train()
     prof = tr.pop("profile")
+    named6 = prof.get("by_group_calls", {}).get("scan bwd #6", 0)
+    if named6 != 3 * cfg.n_layers:
+        raise AssertionError(f"the profiled mamba-1.4b step names #6's carry, "
+                             f"combine and chunk kernels {named6} times, "
+                             f"expected 3 × {cfg.n_layers}")
     emit("train", **tr)
     emit("train_profile", **prof)
 
@@ -1277,13 +1297,20 @@ def main():
               exp_floor_ms=step_bwd_row["exp_floor_ms"],
               blocked_same_call_ms=scan_row("selective_scan_bwd",
                                             TRAIN_SHAPE_28)["kernel_ms"]),
-        entry("selective_scan_bwd", "selective_scan.cu",
+        entry("selective_scan_bwd", "selective_scan_bwd.cu",
               "src/repro/kernels/selective_scan.py:525", bwd_row,
               launches["selective_scan_bwd"],
               scan_worst["selective_scan_bwd"],
               exp_floor_ms=bwd_row["exp_floor_ms"],
               step_same_call_ms=scan_row("selective_scan_bwd_step",
-                                         TRAIN_SHAPE)["kernel_ms"]),
+                                         TRAIN_SHAPE)["kernel_ms"],
+              ms_28=scan_row("selective_scan_bwd", TRAIN_SHAPE_28)[
+                  "kernel_ms"],
+              step_same_call_ms_28=step_bwd_row["kernel_ms"],
+              build=ksc.bwd_params(),
+              resources={dt: ksc.bwd_resources(getattr(torch, dt),
+                                               ops.SCAN_CHUNK)
+                         for dt in ("bfloat16", "float32")}),
         entry("selective_scan_heads_fwd", "selective_scan_heads_fwd.cu",
               "src/repro/kernels/selective_scan.py:212",
               heads_row("selective_scan_heads_fwd"),

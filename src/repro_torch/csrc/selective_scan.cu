@@ -1,10 +1,9 @@
 // Segmented selective scan (PackMamba's ScanOp_pack, Mamba-1 per-channel
-// decay), forward and backward, for Hopper (sm_90a).
+// decay), forward, for Hopper (sm_90a): kernel #4.
 //
-// Replaces the Pallas TPU kernels `_fwd_kernel_blocked` (forward) and
-// `_bwd_kernel_blocked` (backward) of src/repro/kernels/selective_scan.py
-// (entries `selective_scan_fwd_pallas` / `selective_scan_bwd_pallas`,
-// schedule="blocked"). Same functions, same outputs:
+// Replaces the Pallas TPU kernel `_fwd_kernel_blocked` of
+// src/repro/kernels/selective_scan.py (entry `selective_scan_fwd_pallas`,
+// schedule="blocked"). Same function, same outputs:
 //
 //   a_t = exp(dt_t * A) (0 where pos_t == 0),  h_t = a_t * h_{t-1} + B_t * dt_t * u_t
 //   y_t = sum_n C_t[n] * h_t[n] + D * u_t
@@ -13,10 +12,7 @@
 //           read through their batch and row strides; Dp (D,) f32;
 //           pos (B,L) i32 -> y (B,L,D) in u's type, ckpt (B,nC,N,D) f32 = the
 //           state at each chunk's entry (nC = ceil(L / chunk)).
-// backward: the forward's inputs, ckpt and dy (B,L,D) -> du, ddt (B,L,D) f32;
-//           dB, dC partials (B, nblk, L, N) f32 (one per block of CH
-//           channels, summed over nblk by the caller); dA partial (B,N,D) f32;
-//           dD partial (B,D) f32 (summed over B by the caller).
+// Its backward (#6) is csrc/selective_scan_bwd.cu, which reads ckpt.
 //
 // What bounds it on this card: not the bytes. At the training shape
 // (B=2, L=4096, D=4096, N=16) the forward moves ~0.24 GB (u, dt, y once,
@@ -30,22 +26,12 @@
 //     L loop lives in one block. A block owns CH = 32 channels of one row b;
 //     each channel's N = 16 states are split over G = 4 neighbouring threads
 //     (4 states each, in registers), which gives 128 threads a block and
-//     B*D/32 blocks. y and the n-reductions of the backward are summed over
-//     the 4 threads with two xor shuffles (a fixed order).
-//   * Per time tile of TT = 16 steps the block stages u, dt (and dy) for its
+//     B*D/32 blocks. y is summed over the 4 threads with two xor shuffles
+//     (a fixed order).
+//   * Per time tile of TT = 16 steps the block stages u, dt for its
 //     channels and B, C, pos of the row in shared memory with coalesced
-//     loads; y (and du, ddt) leave through shared memory the same way. L and
-//     D need no padding: the ragged tile and dead channels are masked here.
-//   * Backward without a (T+1, N, bd) VMEM trajectory: each chunk (a
-//     multiple of TT) is first walked forward from its checkpoint to save the
-//     state at every tile entry (pass 1); then, tile by tile in reverse, the
-//     tile's 17 states are recomputed into shared memory and the adjoint
-//     walks back over them. The state is never recovered by dividing by a
-//     (a is exactly 0 at every reset).
-//   * No float atomics: dB_t and dC_t (sums over channels) are written as
-//     one partial per channel block, each summed over the block's 32
-//     channels in channel order; dA and dD stay in each thread's registers
-//     for its whole row. Results are bitwise repeatable.
+//     loads; y leaves through shared memory the same way. L and D need no
+//     padding: the ragged tile and dead channels are masked here.
 //   * exp is __expf (ex2.approx): the argument dt*A is small (|.| < ~10).
 
 #include <cuda_runtime.h>
@@ -58,7 +44,6 @@ constexpr int N = 16;          // d_state
 constexpr int G = 4;           // threads per channel
 constexpr int NPT = N / G;     // states per thread
 constexpr int CH = 32;         // channels per block
-constexpr int CHP = CH + 1;    // padded row of the backward's state buffers
 constexpr int TT = 16;         // time tile
 constexpr int THREADS = CH * G;
 
@@ -181,173 +166,6 @@ scan_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
   }
 }
 
-// ----------------------------------------------------------------- backward
-
-struct BwdOut {
-  float* du; float* ddt; float* dB; float* dC; float* dA; float* dD;
-};
-
-// Shared-memory layout of the backward (floats unless noted):
-//   sh   (TT+1, N, CHP)  states of the current tile: sh[0] its entry state,
-//                        sh[s+1] the state after step s; overwritten by
-//                        h_t * dy_t (the dC terms) during the reverse walk
-//   sg   (TT, N, CHP)    g_t * dt_t * u_t (the dB terms)
-//   hsub (nsub, N, CHP)  the state at each tile entry of the current chunk
-//   su, sdt, sdy, sdu, sddt (TT, CH);  sB, sC (TT, N);  spos (TT) int
-__host__ __device__ inline size_t bwd_smem_floats(int nsub) {
-  return (size_t)(2 * TT + 1 + nsub) * N * CHP + 5 * TT * CH + 2 * TT * N
-         + TT;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scan_bwd_kernel(Operands op, const float* __restrict__ ckpt,
-                const T* __restrict__ dy, BwdOut out, int chunk) {
-  extern __shared__ float smem[];
-  const int nsub_max = chunk / TT;
-  float* sh = smem;
-  float* sg = sh + (TT + 1) * N * CHP;
-  float* hsub = sg + TT * N * CHP;
-  float* su = hsub + nsub_max * N * CHP;
-  float* sdt = su + TT * CH;
-  float* sdy = sdt + TT * CH;
-  float* sdu = sdy + TT * CH;
-  float* sddt = sdu + TT * CH;
-  float* sB = sddt + TT * CH;
-  float* sC = sB + TT * N;
-  int* spos = (int*)(sC + TT * N);
-
-  const int b = blockIdx.y, blk = blockIdx.x, d0 = blk * CH;
-  const int nblk = gridDim.x;
-  const int tid = threadIdx.x;
-  const int c = tid / G, g = tid % G, d = d0 + c;
-  const bool live = d < op.D;
-  const int L = op.L, D = op.D;
-  const int nC = (L + chunk - 1) / chunk;
-  float A[NPT], gc[NPT], dA[NPT];
-#pragma unroll
-  for (int j = 0; j < NPT; ++j) {
-    A[j] = live ? op.At[(g * NPT + j) * D + d] : 0.f;
-    gc[j] = 0.f;      // a_{t+1} * g_{t+1}, handed back to step t
-    dA[j] = 0.f;
-  }
-  const float Dd = live ? op.Dp[d] : 0.f;
-  float dD = 0.f;
-  // this thread's slot of state n = g*NPT + j in a (., N, CHP) buffer
-  auto slot = [&](int s, int j) { return (s * N + g * NPT + j) * CHP + c; };
-
-  for (int ci = nC - 1; ci >= 0; --ci) {
-    const int tc0 = ci * chunk;
-    const int nsub = (min(L, tc0 + chunk) - tc0 + TT - 1) / TT;
-    // pass 1: the chunk's checkpoint, walked forward to every tile entry
-    float h[NPT];
-    const float* ck = ckpt + (((int64_t)b * nC + ci) * N + g * NPT) * D + d;
-#pragma unroll
-    for (int j = 0; j < NPT; ++j) {
-      h[j] = live ? ck[(int64_t)j * D] : 0.f;
-      hsub[slot(0, j)] = h[j];
-    }
-    for (int k = 0; k + 1 < nsub; ++k) {
-      stage<T>(op, nullptr, b, d0, tc0 + k * TT, su, sdt, nullptr, sB, sC,
-               spos);
-      __syncthreads();
-#pragma unroll 4
-      for (int s = 0; s < TT; ++s) {
-        const float dl = sdt[s * CH + c], du = dl * su[s * CH + c];
-        const bool reset = spos[s] == 0;
-        const float* Bs = sB + s * N + g * NPT;
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          const float a = reset ? 0.f : __expf(dl * A[j]);
-          h[j] = a * h[j] + Bs[j] * du;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) hsub[slot(k + 1, j)] = h[j];
-      __syncthreads();
-    }
-    // pass 2: tiles in reverse — recompute the tile's states, walk back
-    for (int k = nsub - 1; k >= 0; --k) {
-      const int t0 = tc0 + k * TT;
-      const int steps = min(TT, L - t0);
-      stage<T>(op, dy, b, d0, t0, su, sdt, sdy, sB, sC, spos);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < NPT; ++j) {
-        h[j] = hsub[slot(k, j)];
-        sh[slot(0, j)] = h[j];
-      }
-      for (int s = 0; s < steps; ++s) {
-        const float dl = sdt[s * CH + c], du = dl * su[s * CH + c];
-        const bool reset = spos[s] == 0;
-        const float* Bs = sB + s * N + g * NPT;
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          const float a = reset ? 0.f : __expf(dl * A[j]);
-          h[j] = a * h[j] + Bs[j] * du;
-          sh[slot(s + 1, j)] = h[j];
-        }
-      }
-      for (int s = steps - 1; s >= 0; --s) {
-        const float dl = sdt[s * CH + c], uu = su[s * CH + c];
-        const float dyv = sdy[s * CH + c];
-        const float du = dl * uu;
-        const bool reset = spos[s] == 0;
-        const float* Bs = sB + s * N + g * NPT;
-        const float* Cs = sC + s * N + g * NPT;
-        float gB = 0.f, dda = 0.f;
-#pragma unroll
-        for (int j = 0; j < NPT; ++j) {
-          const float a = reset ? 0.f : __expf(dl * A[j]);
-          const float gg = Cs[j] * dyv + gc[j];          // dL/dh_t
-          const float da = gg * sh[slot(s, j)];          // times h_{t-1}
-          dda += da * a * A[j];
-          gB += gg * Bs[j];
-          dA[j] += da * a * dl;
-          sg[slot(s, j)] = gg * du;
-          sh[slot(s + 1, j)] *= dyv;                     // h_t * dy_t
-          gc[j] = a * gg;
-        }
-        gB = quad_sum(gB);
-        dda = quad_sum(dda);
-        if (g == 0) {
-          sdu[s * CH + c] = dl * gB + Dd * dyv;
-          sddt[s * CH + c] = dda + uu * gB;
-          dD += dyv * uu;
-        }
-      }
-      __syncthreads();
-      // dB_t, dC_t: each summed over the block's channels in channel order
-      for (int i = tid; i < 2 * steps * N; i += THREADS) {
-        const int which = i / (steps * N), r = i % (steps * N);
-        const int s = r / N, n = r % N;
-        const float* src = which == 0 ? sg + (s * N + n) * CHP
-                                      : sh + ((s + 1) * N + n) * CHP;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int cc = 0; cc < CH; ++cc) acc += src[cc];
-        float* dst = which == 0 ? out.dB : out.dC;
-        dst[(((int64_t)b * nblk + blk) * L + t0 + s) * N + n] = acc;
-      }
-      for (int i = tid; i < steps * CH; i += THREADS) {
-        const int s = i / CH, cc = i % CH;
-        if (d0 + cc < D) {
-          const int64_t k = ((int64_t)b * L + t0 + s) * D + d0 + cc;
-          out.du[k] = sdu[i];
-          out.ddt[k] = sddt[i];
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < NPT; ++j)
-      out.dA[((int64_t)b * N + g * NPT + j) * D + d] = dA[j];
-    if (g == 0) out.dD[(int64_t)b * D + d] = dD;
-  }
-}
-
 Operands make_operands(const void* u, const void* dt, const void* At,
                        const void* Bm, const void* Cm, int64_t bc_bstride,
                        int64_t bc_lstride, const void* Dp, const void* pos,
@@ -367,33 +185,12 @@ int launch_fwd(const Operands& op, int B, void* y, void* ckpt, int chunk,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const Operands& op, int B, const void* ckpt, const void* dy,
-               const BwdOut& out, int chunk, void* stream) {
-  if ((int64_t)B * op.L * op.D == 0) return 0;
-  if (chunk < TT || chunk % TT || B > 65535) return (int)cudaErrorInvalidValue;
-  const size_t bytes = bwd_smem_floats(chunk / TT) * sizeof(float);
-  static size_t allowed = 0;     // raised once per size, outside any capture
-  if (bytes > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(
-        scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
-  const dim3 grid((op.D + CH - 1) / CH, B);
-  scan_bwd_kernel<T><<<grid, THREADS, bytes, (cudaStream_t)stream>>>(
-      op, (const float*)ckpt, (const T*)dy, out, chunk);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entries, bound with ctypes (kernels/selective_scan.py, whose
-// BLOCK_D, TILE_T and D_STATE are CH, TT and N here). u, dt, dy, y, du, ddt
-// are (B, L, D) contiguous; Bm and Cm have unit stride along N and the given
-// batch and row strides (elements); At (N, D), Dp (D,), ckpt (B, nC, N, D),
-// dB and dC (B, ceil(D/CH), L, N), dA (B, N, D), dD (B, D) are contiguous
+// BLOCK_D, TILE_T and D_STATE are CH, TT and N here). u, dt, y are (B, L, D)
+// contiguous; Bm and Cm have unit stride along N and the given batch and row
+// strides (elements); At (N, D), Dp (D,), ckpt (B, nC, N, D) are contiguous
 // f32. Return the launch's cudaError_t (0 = launched).
 #define SCAN_FWD_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* u, const void* dt, const void* At,         \
@@ -407,24 +204,5 @@ int launch_bwd(const Operands& op, int B, const void* ckpt, const void* dy,
                          B, y, ckpt, chunk, stream);                          \
   }
 
-#define SCAN_BWD_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* u, const void* dt, const void* At,         \
-                      const void* Bm, const void* Cm, int64_t bc_bstride,     \
-                      int64_t bc_lstride, const void* Dp, const void* pos,    \
-                      int64_t pos_bstride, const void* ckpt, const void* dy,  \
-                      void* du, void* ddt, void* dB, void* dC, void* dA,      \
-                      void* dD, int B, int L, int D, int chunk,               \
-                      void* stream) {                                         \
-    return launch_bwd<T>(make_operands(u, dt, At, Bm, Cm, bc_bstride,         \
-                                       bc_lstride, Dp, pos, pos_bstride, L,   \
-                                       D),                                    \
-                         B, ckpt, dy,                                         \
-                         BwdOut{(float*)du, (float*)ddt, (float*)dB,          \
-                                (float*)dC, (float*)dA, (float*)dD},          \
-                         chunk, stream);                                      \
-  }
-
 SCAN_FWD_ENTRY(selective_scan_fwd_f32, float)
 SCAN_FWD_ENTRY(selective_scan_fwd_bf16, __nv_bfloat16)
-SCAN_BWD_ENTRY(selective_scan_bwd_f32, float)
-SCAN_BWD_ENTRY(selective_scan_bwd_bf16, __nv_bfloat16)

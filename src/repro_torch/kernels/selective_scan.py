@@ -6,9 +6,13 @@ Replaces the four Pallas TPU kernels of ``repro.kernels.selective_scan``
 behind its entries ``selective_scan_fwd_pallas`` /
 ``selective_scan_bwd_pallas``, picked as there by ``schedule``:
 
-* ``"blocked"``: ``_fwd_kernel_blocked`` (#4) and ``_bwd_kernel_blocked``
-  (#6) → ``csrc/selective_scan.cu``: a block walks a row's whole L, one
-  step at a time, for ``BLOCK_D`` channels;
+* ``"blocked"``: ``_fwd_kernel_blocked`` (#4) → ``csrc/selective_scan.cu``:
+  a block walks a row's whole L, one step at a time, for ``BLOCK_D``
+  channels; ``_bwd_kernel_blocked`` (#6) → ``csrc/selective_scan_bwd.cu``:
+  chunk-parallel — a carry pass gives each chunk's adjoint with zero carry-in
+  and its decay product, a fixed-order combine hands every chunk its carry,
+  then every chunk runs at once from its checkpoint
+  (``selective_scan_bwd_chunked_plain`` is that arithmetic in PyTorch);
 * ``"step"``: ``_fwd_kernel`` (#3) and ``_bwd_kernel`` (#5) →
   ``csrc/selective_scan_step.cu``: a block walks the row in tiles of
   ``STEP_TILE_T`` steps for ``STEP_BLOCK_D`` channels, each tile a
@@ -23,7 +27,8 @@ Both schedules compute one function and keep the TPU kernels' contract:
   and dC partials (B, nblk, L, N) f32, one per block of ``block_d(schedule)``
   channels (32 for #6, 16 for #5); dA partial (B, N, D) f32; dD partial
   (B, D) f32. The caller sums the partials (``kernels/ops.py``) in a fixed
-  order, whatever the block width.
+  order, whatever the block width. (#6 writes dA and dD per group of chunks;
+  the wrapper sums that axis in a fixed order before it returns.)
 
 The checkpoints are the same for both schedules, so a forward of one feeds
 the backward of the other. None pads: a ragged L and D are masked inside.
@@ -51,7 +56,7 @@ LAUNCHES_FWD_STEP = 0             # #3 (step)
 LAUNCHES_BWD_STEP = 0             # #5 (step)
 SCHEDULES = ("blocked", "step")
 BLOCK_D = 32                      # #4/#6 channels per block (dB/dC partials)
-TILE_T = 16                       # #4/#6 time tile; #6's chunk unit
+TILE_T = 16                       # #4's time tile; #6's chunk unit
 STEP_BLOCK_D = 16                 # #3/#5 channels per block (dB/dC partials)
 STEP_TILE_T = 64                  # #3/#5 time tile = their one chunk
 D_STATE = 16                      # the kernels instantiate N = 16
@@ -163,26 +168,142 @@ def selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
     return du, ddt, dB, dC, dA.transpose(1, 2), dD
 
 
+def selective_scan_bwd_chunked_plain(u, delta, At, Bm, Cm, Dp, positions,
+                                     ckpts, dy, chunk: int,
+                                     block_d: int = BLOCK_D):
+    """#6's arithmetic in PyTorch, every chunk at once (f32). For one
+    (b, d, n), chunk c covers [t0, t1); its adjoint is
+    g_t = g^loc_t + Φ_t·G_c (g^loc: the chunk's adjoint with zero carry-in,
+    Φ_t = Π_{s=t+1}^{t1-1} a_s, G_c = a_{t1}·g_{t1} the carry from chunk
+    c+1), so
+
+        G_{c-1} = E_c + P_c·G_c,  E_c = a_{t0}·g^loc_{t0},  P_c = Π_{s∈c} a_s.
+
+    1. carry: (E_c, P_c) for every chunk, one reverse walk vectorised over
+       the chunks; 2. combine: G_c from the last chunk down; 3. each chunk's
+       backward from (checkpoint, G_c). L is padded to whole chunks with
+       identity steps (a = 1, dy = 0). Returns ``selective_scan_bwd_plain``'s
+       outputs."""
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    nC = n_chunks(L, chunk)
+    pad = nC * chunk - L
+
+    def chunked(x, fill):            # (B, L, ...) → (B, nC, chunk, ...)
+        if pad:
+            x = torch.cat([x, x.new_full((Bz, pad) + x.shape[2:], fill)], 1)
+        return x.reshape(Bz, nC, chunk, *x.shape[2:])
+
+    u32, d32 = chunked(u.float(), 0.0), chunked(delta.float(), 0.0)
+    dy32 = chunked(dy.float(), 0.0)
+    B32, C32 = chunked(Bm.float(), 0.0), chunked(Cm.float(), 0.0)
+    pos = chunked(positions, 1)
+    A = At.float().t()                                       # (D, N)
+    a = torch.exp(d32[..., None] * A)                        # (B,nC,T,D,N)
+    a = torch.where((pos == 0)[..., None, None], 0.0, a)
+    bdu = B32[:, :, :, None, :] * (d32 * u32)[..., None]
+    cdy = C32[:, :, :, None, :] * dy32[..., None]
+    # 1. carry pass
+    cg = torch.zeros((Bz, nC, Dm, N), dtype=torch.float32, device=u.device)
+    P = torch.ones_like(cg)
+    for s in reversed(range(chunk)):
+        cg = a[:, :, s] * (cdy[:, :, s] + cg)
+        P = P * a[:, :, s]
+    # 2. combine, in a fixed order
+    Gc = torch.empty_like(cg)
+    G = torch.zeros_like(cg[:, 0])
+    for c in reversed(range(nC)):
+        Gc[:, c] = G
+        G = cg[:, c] + P[:, c] * G
+    # 3. every chunk from its checkpoint and carry
+    hs = [ckpts.transpose(2, 3).float()]                     # (B,nC,D,N)
+    for s in range(chunk):
+        hs.append(a[:, :, s] * hs[-1] + bdu[:, :, s])
+    gc = Gc
+    shape = (Bz, nC, chunk, Dm)
+    du, ddt = u32.new_empty(shape), u32.new_empty(shape)
+    gdu, hdy = a.new_empty(a.shape), a.new_empty(a.shape)
+    dA = torch.zeros_like(cg)
+    Dv = Dp.float()
+    for s in reversed(range(chunk)):
+        g = cdy[:, :, s] + gc
+        daa = g * hs[s] * a[:, :, s]
+        gB = (g * B32[:, :, s, None, :]).sum(-1)
+        du[:, :, s] = d32[:, :, s] * gB + Dv * dy32[:, :, s]
+        ddt[:, :, s] = (daa * A).sum(-1) + u32[:, :, s] * gB
+        gdu[:, :, s] = g * (d32 * u32)[:, :, s, :, None]
+        hdy[:, :, s] = hs[s + 1] * dy32[:, :, s, :, None]
+        dA += daa * d32[:, :, s, :, None]
+        gc = a[:, :, s] * g
+
+    def rows(x):                     # (B, nC, chunk, ...) → (B, L, ...)
+        return x.reshape(Bz, nC * chunk, *x.shape[3:])[:, :L]
+
+    def partials(x):                 # (B,nC,T,D,N) → (B, nblk, L, N)
+        x = rows(x)
+        return _block_sum(x.reshape(Bz * L, Dm, N), block_d).reshape(
+            Bz, L, -1, N).transpose(1, 2)
+
+    dD = (rows(dy32) * rows(u32)).sum(1)
+    return (rows(du), rows(ddt), partials(gdu), partials(hdy),
+            dA.sum(1).transpose(1, 2), dD)
+
+
 # ------------------------------------------------------------------ kernels
 
+_BWD_LIB = "selective_scan_bwd"   # #6's library
+
+
 def _entry(kind, dtype, schedule):
-    """The C entry ``selective_scan_<kind>_<dtype>`` (#4/#6) or
-    ``selective_scan_step_<kind>_<dtype>`` (#3/#5), its ctypes signature
-    declared."""
+    """The C entry ``selective_scan_fwd_<dtype>`` (#4, library
+    ``selective_scan``), ``selective_scan_bwd_<dtype>`` (#6, library
+    ``selective_scan_bwd``) or ``selective_scan_step_<kind>_<dtype>``
+    (#3/#5), its ctypes signature declared."""
     fn = _entries.get((kind, dtype, schedule))
     if fn is None:
-        lib = "selective_scan_step" if schedule == "step" else \
-            "selective_scan"
-        fn = getattr(_build.load(lib), f"{lib}_{kind}_{_DTYPES[dtype]}")
+        step = schedule == "step"
+        lib = "selective_scan_step" if step else \
+            _BWD_LIB if kind == "bwd" else "selective_scan"
+        name = f"{lib}_{kind}" if step else f"selective_scan_{kind}"
+        fn = getattr(_build.load(lib), f"{name}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
-        fn.argtypes = head + ([vp, vp, i32, i32, i32, i32, vp]
-                              if kind == "fwd" else
-                              [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                               i32, vp])
+        outs = 2 if kind == "fwd" else 8 if step else 12
+        fn.argtypes = head + [vp] * outs + [i32, i32, i32, i32, vp]
         fn.restype = i32
         _entries[(kind, dtype, schedule)] = fn
     return fn
+
+
+def bwd_params() -> dict:
+    """#6's build knobs: ``tile`` (its time tile), ``group`` (chunks a
+    block of its chunk kernel), ``min_blocks`` (that kernel's launch
+    bound)."""
+    got = _entries.get("bwd_params")
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        _build.load(_BWD_LIB).selective_scan_bwd_params(out)
+        got = dict(zip(("tile", "group", "min_blocks"), out))
+        _entries["bwd_params"] = got
+    return got
+
+
+def bwd_resources(dtype, chunk: int) -> dict:
+    """#6's three kernels on the current CUDA device for ``dtype`` input at
+    ``chunk``: blocks and warps an SM, registers and local (spill) bytes a
+    thread, shared bytes a block."""
+    lib = _build.load(_BWD_LIB)
+    res = {}
+    for which, name in enumerate(("carry", "combine", "chunk")):
+        out = (ctypes.c_int * 5)()
+        err = lib.selective_scan_bwd_occupancy(
+            int(dtype == torch.bfloat16), which, chunk, out)
+        if err != 0:
+            raise RuntimeError(f"selective_scan_bwd_occupancy failed: "
+                               f"cudaError {err}")
+        res[name] = dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
+                              "local_bytes", "shared_bytes"), out))
+    return res
 
 
 def _check(u, delta, At, Bm, Cm, Dp, positions, chunk):
@@ -311,15 +432,29 @@ def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
     ddt = torch.empty((Bz, L, Dm), **f32)
     dB = torch.empty((Bz, nblk, L, D_STATE), **f32)
     dC = torch.empty((Bz, nblk, L, D_STATE), **f32)
-    dA = torch.empty((Bz, D_STATE, Dm), **f32)
-    dD = torch.empty((Bz, Dm), **f32)
     if du.numel() == 0:
-        return du, ddt, dB, dC, dA.zero_(), dD.zero_()
+        return (du, ddt, dB, dC, torch.zeros((Bz, D_STATE, Dm), **f32),
+                torch.zeros((Bz, Dm), **f32))
+    if schedule == "step":
+        dA = torch.empty((Bz, D_STATE, Dm), **f32)
+        dD = torch.empty((Bz, Dm), **f32)
+        scratch = []
+    else:
+        # dA, dD per group of chunks; the carry pass's E, P (E becomes G)
+        # and its f32 copies of B, C
+        nC = n_chunks(L, chunk)
+        ngrp = -(-nC // bwd_params()["group"])
+        dA = torch.empty((Bz, ngrp, D_STATE, Dm), **f32)
+        dD = torch.empty((Bz, ngrp, Dm), **f32)
+        scratch = [torch.empty((Bz, nC, D_STATE, Dm), **f32)
+                   for _ in range(2)]
+        scratch += [torch.empty((Bz, L, D_STATE), **f32) for _ in range(2)]
     err = _entry("bwd", u.dtype, schedule)(
         *_head(u, delta, At, Bm, Cm, Dp, positions), ckpts.data_ptr(),
         dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(), Bz, L, Dm, chunk,
-        torch.cuda.current_stream().cuda_stream)
+        dC.data_ptr(), dA.data_ptr(), dD.data_ptr(),
+        *(t.data_ptr() for t in scratch), Bz, L, Dm,
+        chunk, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan backward kernel ({schedule}) "
                            f"launch failed: cudaError {err}")
@@ -327,4 +462,5 @@ def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
         LAUNCHES_BWD_STEP += 1
     else:
         LAUNCHES_BWD += 1
+        dA, dD = dA.sum(1), dD.sum(1)
     return du, ddt, dB, dC, dA, dD

@@ -489,3 +489,91 @@ def test_autograd_through_the_scan_kernels_repeats_and_counts(cuda,
     assert moved == ([0, 0, 2, 2] if schedule == "step" else [2, 2, 0, 0])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# Kernel #6 (chunk-parallel, ``csrc/selective_scan_bwd.cu``) on the cases of
+# tests/test_torch_scan_bwd_chunked.py, scaled to each chunk: (id, rows, L as
+# a function of the chunk, D, positions, dtype, offset of B and C in their
+# projection: 8 keeps every row 16-byte aligned (cp.async staging), 5 does
+# not (plain loads)).
+CHUNKED_CASES = [
+    ("packed", 2, lambda c: 4 * c, 64, "packed", "float32", 8),
+    ("one_segment_spans_every_chunk", 2, lambda c: 5 * c, 64, "one",
+     "float32", 8),
+    ("resets_on_chunk_first_and_last_steps", 2, lambda c: 4 * c, 64,
+     "edges", "float32", 8),
+    ("ragged_L", 2, lambda c: 2 * c + 5, 64, "packed", "float32", 8),
+    ("L_below_chunk", 2, lambda c: c - 6, 64, "packed", "float32", 8),
+    ("D_not_multiple_of_32", 2, lambda c: 3 * c, 40, "packed", "float32", 8),
+    ("bf16", 2, lambda c: 4 * c, 64, "packed", "bfloat16", 8),
+    ("bf16_ragged_L_and_D_unaligned", 2, lambda c: 3 * c + 7, 100, "edges",
+     "bfloat16", 5),
+]
+
+
+def _chunked_case_inputs(cuda, Bz, L, D, kind, dtype, off, chunk, seed):
+    """As ``_scan_inputs``, with row 0's positions of ``kind``: ``packed``
+    (resets at 5 and 21), ``one`` (one segment over the row), ``edges``
+    (resets on a chunk's first and on another's last step); row 1 a
+    carried row of a split pack."""
+    rng = np.random.default_rng(seed)
+    N, tdt = ksc.D_STATE, getattr(torch, dtype)
+    u, dy = (torch.as_tensor(rng.normal(size=(Bz, L, D))).to(cuda, tdt)
+             for _ in range(2))
+    dt = torch.as_tensor(rng.uniform(0.01, 0.3, (Bz, L, D))).to(cuda, tdt)
+    dbl = torch.as_tensor(rng.normal(size=(Bz, L, off + 2 * N))).to(cuda,
+                                                                    tdt)
+    _, Bm, Cm = dbl.split([off, N, N], dim=-1)
+    At = -torch.as_tensor(np.exp(rng.normal(size=(N, D)))).to(
+        cuda, torch.float32)
+    Dp = torch.as_tensor(rng.normal(size=(D,))).to(cuda, torch.float32)
+    cuts = {"packed": [0, 5, 21], "one": [0],
+            "edges": [0, chunk, 2 * chunk - 1, 3 * chunk]}[kind]
+    cuts = sorted({c for c in cuts if c < L}) + [L]
+    pos = np.zeros((Bz, L), np.int32)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    pos[1] = tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 3, L)], L).positions[1]
+    return (u, dt, At, Bm, Cm, Dp, torch.as_tensor(pos).to(cuda)), dy
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("Bz,Lf,D,kind,dtype,off",
+                         [c[1:] for c in CHUNKED_CASES],
+                         ids=[c[0] for c in CHUNKED_CASES])
+def test_chunked_bwd_kernel_matches_plain_and_repeats(cuda, Bz, Lf, D, kind,
+                                                      dtype, off, chunk):
+    """#6 against ``selective_scan_bwd_plain`` on the checkpoints of #4;
+    twice, bitwise equal; one launch counted per call."""
+    L = Lf(chunk)
+    args, dy = _chunked_case_inputs(cuda, Bz, L, D, kind, dtype, off, chunk,
+                                    L + D + chunk)
+    _, ck = ksc.selective_scan_fwd(*args, chunk)
+    n0 = ksc.LAUNCHES_BWD
+    outs = ksc.selective_scan_bwd(*args, ck, dy, chunk)
+    again = ksc.selective_scan_bwd(*args, ck, dy, chunk)
+    torch.cuda.synchronize()
+    assert ksc.LAUNCHES_BWD == n0 + 2
+    want = ksc.selective_scan_bwd_plain(*args, ck, dy, chunk)
+    for name, g, w, r in zip(("du", "ddelta", "dB", "dC", "dA", "dD"), outs,
+                             want, again):
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3, msg=name)
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_bwd_kernels_do_not_spill(cuda, dtype):
+    """#6's three kernels keep their arrays in registers (no local memory)
+    in both builds; the chunk kernel holds more than the 8 warps an SM of
+    the design it replaced for bf16 input (the training path), and no
+    fewer for f32."""
+    res = ksc.bwd_resources(dtype, 64)
+    for name, r in res.items():
+        assert r["local_bytes"] == 0, (name, r)
+        assert r["blocks_per_sm"] >= 1, (name, r)
+    if dtype == torch.bfloat16:
+        assert res["chunk"]["warps_per_sm"] > 8, res["chunk"]
+    else:
+        assert res["chunk"]["warps_per_sm"] >= 8, res["chunk"]
