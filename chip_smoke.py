@@ -17,7 +17,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the Mamba-1 selective scan's two schedules, #4 / #6 (blocked;
               #6 chunk-parallel: carry, combine and chunk kernels, its
               build knobs and resources in its ``kernels`` entry)
-              and #3 / #5 (step) forward / backward, at the mamba-1.4b and
+              and #3 / #5 (step) forward / backward (#5: 8 steps a lane,
+              its registers, warps an SM and waves in its rows' and its
+              entry's ``resources``), at the mamba-1.4b and
               mamba-2.8b training shapes and a ragged one, timed in the same
               call and checked against each other (#3's checkpoints against
               #4's, #5 against #6); #7 / #8 / #9 the head-structured
@@ -56,7 +58,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               (``train_step``): 64 layers, d_model 2560, 2 × 4096 packed,
               bf16, 1 warm-up and 4 timed steps with exact launch counts per
               step (#1 128, #2 64, #3 128, #5 64, #4 and #6 0) and one
-              profiled step; pack only.
+              profiled step, which must name #3 and #5 128 and 64 times;
+              pack only.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -386,7 +389,17 @@ def pair_partials(p, nblk):
     return p.reshape(p.shape[0], nblk, 2, *p.shape[2:]).sum(2)
 
 
-def phase_scan(sfu_rate):
+def step_bwd_resources(dtype, shape, sms):
+    """#5's registers, spills, warps an SM and waves (its B·⌈D/16⌉ blocks
+    over the SMs' block slots) at ``shape``."""
+    from repro_torch.kernels import selective_scan as ksc
+    r = ksc.step_bwd_resources(dtype)
+    blocks = shape[0] * -(-shape[2] // ksc.STEP_BLOCK_D)
+    return {**r, "blocks": blocks,
+            "waves": blocks / (sms * max(1, r["blocks_per_sm"]))}
+
+
+def phase_scan(sfu_rate, sms):
     """The Mamba-1 scan's two schedules at each shape of ``SCAN_CASES``,
     timed in one call: #4/#6 (``blocked``) and #3/#5 (``step``), each
     against the plain versions (one forward and one backward per case,
@@ -481,6 +494,8 @@ def phase_scan(sfu_rate):
             # walk to its tile entries, the tile recompute), #5 once
             n_exp = (blocked_bwd_exps(L, chunk) if sched == "blocked"
                      else L) * B * D * N
+            extra = ({"resources": step_bwd_resources(dtype, shape, sms)}
+                     if sched == "step" else {})
             rows.append({
                 "kernel": kb, "schedule": sched, "shape": list(shape),
                 "dtype": dtn, "chunk": chunk,
@@ -491,7 +506,7 @@ def phase_scan(sfu_rate):
                 "kernel_eager_ms": eager_ms(bwd, 10, 2),
                 "plain_ms": plain_bwd_ms, "library_ms": None,
                 "bound_ms": bnd_b, "bound_by": by_b,
-                "exp_floor_ms": exp_floor_ms(n_exp, sfu_rate)})
+                "exp_floor_ms": exp_floor_ms(n_exp, sfu_rate), **extra})
             emit("kernels", **rows[-1])
             times[sched] = (kern_f, rows[-1]["kernel_ms"])
         # the two schedules on one card
@@ -1165,7 +1180,7 @@ def main():
 
     conv_rows, conv_worst = phase_conv_fwd()
     dx_rows, dx_worst = phase_conv_dx()
-    scan_rows, scan_worst = phase_scan(sfu_rate)
+    scan_rows, scan_worst = phase_scan(sfu_rate, sms)
     heads_rows, heads_worst = phase_heads()
 
     # serving first, from the same state as before training existed
@@ -1231,6 +1246,14 @@ def main():
     emit("train_parity_step", **tp3)
     tr3 = phase_train("mamba-2.8b", schedule="step", pad=False)
     prof3 = tr3.pop("profile")
+    named3 = {g: prof3.get("by_group_calls", {}).get(g, 0)
+              for g in ("scan fwd step #3", "scan bwd step #5")}
+    layers3 = tr3["layers"]
+    if named3 != {"scan fwd step #3": 2 * layers3,
+                  "scan bwd step #5": layers3}:
+        raise AssertionError(f"the profiled mamba-2.8b step names the step "
+                             f"kernels {named3} times, expected "
+                             f"{2 * layers3} and {layers3}")
     emit("train_step", **tr3)
     emit("train_step_profile", **prof3)
 
@@ -1290,11 +1313,15 @@ def main():
               exp_floor_ms=fwd_row["exp_floor_ms"],
               step_same_call_ms=scan_row("selective_scan_fwd_step",
                                          TRAIN_SHAPE)["kernel_ms"]),
-        entry("selective_scan_bwd_step", "selective_scan_step.cu",
+        entry("selective_scan_bwd_step", "selective_scan_step_bwd.cu",
               "src/repro/kernels/selective_scan.py:441", step_bwd_row,
               launches3["selective_scan_bwd_step"],
               scan_worst["selective_scan_bwd_step"], path="train_step",
               exp_floor_ms=step_bwd_row["exp_floor_ms"],
+              build=ksc.step_bwd_params(),
+              resources={dt: step_bwd_resources(getattr(torch, dt),
+                                                TRAIN_SHAPE_28, sms)
+                         for dt in ("bfloat16", "float32")},
               blocked_same_call_ms=scan_row("selective_scan_bwd",
                                             TRAIN_SHAPE_28)["kernel_ms"]),
         entry("selective_scan_bwd", "selective_scan_bwd.cu",

@@ -13,10 +13,14 @@ behind its entries ``selective_scan_fwd_pallas`` /
   and its decay product, a fixed-order combine hands every chunk its carry,
   then every chunk runs at once from its checkpoint
   (``selective_scan_bwd_chunked_plain`` is that arithmetic in PyTorch);
-* ``"step"``: ``_fwd_kernel`` (#3) and ``_bwd_kernel`` (#5) →
-  ``csrc/selective_scan_step.cu``: a block walks the row in tiles of
-  ``STEP_TILE_T`` steps for ``STEP_BLOCK_D`` channels, each tile a
-  segmented associative scan over time (parallel inside the block).
+* ``"step"``: ``_fwd_kernel`` (#3) → ``csrc/selective_scan_step.cu`` and
+  ``_bwd_kernel`` (#5) → ``csrc/selective_scan_step_bwd.cu``: a block walks
+  the row in tiles of ``STEP_TILE_T`` steps for ``STEP_BLOCK_D`` channels,
+  each tile a segmented associative scan over time (parallel inside the
+  block: a channel's tile split over lanes of consecutive steps, 4 a lane in
+  #3, 8 in #5, combined by a log-depth shuffle scan; #5's dB/dC terms summed
+  over a warp's channels by shuffles before the block's warps are added;
+  ``selective_scan_bwd_step_lanes_plain`` is #5's arithmetic in PyTorch).
 
 Both schedules compute one function and keep the TPU kernels' contract:
 
@@ -249,23 +253,174 @@ def selective_scan_bwd_chunked_plain(u, delta, At, Bm, Cm, Dp, positions,
             dA.sum(1).transpose(1, 2), dD)
 
 
+def selective_scan_bwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
+                                        ckpts, dy, lanes: int = 8,
+                                        steps: int = 8,
+                                        block_d: int = STEP_BLOCK_D):
+    """#5's arithmetic in PyTorch (f32). Tiles of T = ``lanes``·``steps``
+    steps (the checkpoint chunk), last first; a channel's tile split over
+    ``lanes`` lanes of ``steps`` consecutive steps. Per tile and state:
+
+    * recompute: each lane folds its steps into (Π a, h from 0); a
+      Kogge–Stone combine over the lanes (offsets 1, 2, 4, …), the tile's
+      checkpoint folded into lane 0, gives each lane its entry state; the
+      lane replays its steps;
+    * adjoint: each lane folds its steps backwards into (Π a, gc from 0),
+      the later tile's carry folded into the last lane, the same combine
+      from the high lanes; the lane replays g_t = C_t·dy_t + gc_{t+1}
+      backwards (``selective_scan_bwd_plain``'s formulas);
+    * dB_t, dC_t: summed pairwise over a warp's 32/``lanes`` channels
+      (neighbours first, as the kernel's xor reduce-scatter adds them), then
+      over the warps of each ``block_d`` channels in order; dA: each lane's
+      terms summed backwards over its steps, pairwise over the lanes, added
+      tile after tile; dD likewise over the lanes at the end.
+
+    L is padded to whole tiles with identity steps (a = 1, dy = 0), D to
+    whole blocks with dead channels. Returns ``selective_scan_bwd_plain``'s
+    outputs."""
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    S, R, T = lanes, steps, lanes * steps
+    cpw = 32 // S
+    if 32 % S or block_d % cpw:
+        raise ValueError(f"{lanes} lanes a channel give {cpw} channels a "
+                         f"warp, which must divide block_d {block_d}")
+    nT = n_chunks(L, T)
+    if ckpts.shape[1] != nT:
+        raise ValueError(f"ckpts hold {ckpts.shape[1]} chunks; tiles of "
+                         f"{T} steps need {nT}")
+    pad, dpad = nT * T - L, (-Dm) % block_d
+    Dw = Dm + dpad
+
+    def tiles(x, fill, chan):         # (B, L, ...) → (B, nT, S, R, ...)
+        if pad:
+            x = torch.cat([x, x.new_full((Bz, pad) + x.shape[2:], fill)], 1)
+        if chan and dpad:
+            x = torch.cat([x, x.new_zeros(x.shape[:2] + (dpad,))], 2)
+        return x.reshape(Bz, nT, S, R, *x.shape[2:])
+
+    u32, d32 = tiles(u.float(), 0.0, True), tiles(delta.float(), 0.0, True)
+    dy32 = tiles(dy.float(), 0.0, True)
+    B32, C32 = tiles(Bm.float(), 0.0, False), tiles(Cm.float(), 0.0, False)
+    pos = tiles(positions, 1, False)
+    A = torch.cat([At.float(), At.new_zeros((N, dpad))], 1).t()  # (Dw, N)
+    Dv = torch.cat([Dp.float(), Dp.new_zeros(dpad)])
+    ck = torch.cat([ckpts.float(),
+                    ckpts.new_zeros(ckpts.shape[:3] + (dpad,))],
+                   3).transpose(2, 3)                        # (B, nT, Dw, N)
+    du_t = d32 * u32                                         # (B,nT,S,R,Dw)
+    lane = torch.arange(S, device=u.device)[:, None, None]   # over (S, Dw, N)
+
+    def shift(x, off, up):            # lane s reads lane s ∓ off (masked)
+        return torch.roll(x, off if up else -off, dims=1)
+
+    def lane_tree(x):                 # (B, S, ...) → (B, ...), pairwise
+        while x.shape[1] > 1:         # over lanes s ^ m, m = S/2, ..., 1
+            h = x.shape[1] // 2
+            x = x[:, :h] + x[:, h:]
+        return x[:, 0]
+
+    out_shape = (Bz, nT, S, R, Dw)
+    du, ddt = u32.new_empty(out_shape), u32.new_empty(out_shape)
+    pdB = u32.new_empty(out_shape + (N,))
+    pdC = u32.new_empty(out_shape + (N,))
+    dA = u32.new_zeros((Bz, Dw, N))
+    gc_later = u32.new_zeros((Bz, Dw, N))
+    for k in reversed(range(nT)):
+        dl, dut, dyv = d32[:, k], du_t[:, k], dy32[:, k]     # (B, S, R, Dw)
+        a = torch.exp(dl[..., None] * A)                     # (B,S,R,Dw,N)
+        a = torch.where((pos[:, k] == 0)[..., None, None], 0.0, a)
+        bb = B32[:, k][:, :, :, None, :] * dut[..., None]
+        cc = C32[:, k][:, :, :, None, :] * dyv[..., None]
+        # recompute
+        Af, Bf = a[:, :, 0], bb[:, :, 0]                     # (B, S, Dw, N)
+        for r in range(1, R):
+            Bf = a[:, :, r] * Bf + bb[:, :, r]
+            Af = Af * a[:, :, r]
+        h_in = ck[:, k]
+        Bf = torch.cat([(Af[:, 0] * h_in + Bf[:, 0])[:, None], Bf[:, 1:]], 1)
+        off = 1
+        while off < S:
+            Ap, Bp = shift(Af, off, True), shift(Bf, off, True)
+            on = lane >= off
+            Bf = torch.where(on, Af * Bp + Bf, Bf)
+            Af = torch.where(on, Af * Ap, Af)
+            off *= 2
+        hp = [torch.cat([h_in[:, None], Bf[:, :-1]], 1)]
+        for r in range(R):
+            hp.append(a[:, :, r] * hp[-1] + bb[:, :, r])
+        # adjoint carry
+        Ar, Gr = a[:, :, R - 1], a[:, :, R - 1] * cc[:, :, R - 1]
+        for r in reversed(range(R - 1)):
+            Gr = a[:, :, r] * (cc[:, :, r] + Gr)
+            Ar = Ar * a[:, :, r]
+        last = Ar[:, -1] * gc_later + Gr[:, -1]
+        Gr = torch.cat([Gr[:, :-1], last[:, None]], 1)
+        off = 1
+        while off < S:
+            An, Gn = shift(Ar, off, False), shift(Gr, off, False)
+            on = lane + off < S
+            Gr = torch.where(on, Ar * Gn + Gr, Gr)
+            Ar = torch.where(on, Ar * An, Ar)
+            off *= 2
+        gc = torch.cat([Gr[:, 1:], gc_later[:, None]], 1)
+        gc_later = Gr[:, 0]
+        # replay backwards
+        gB = u32.new_zeros((Bz, S, R, Dw))
+        dda = u32.new_zeros((Bz, S, R, Dw))
+        dAn = u32.new_zeros((Bz, S, Dw, N))
+        for r in reversed(range(R)):
+            g = cc[:, :, r] + gc
+            ta = g * hp[r] * a[:, :, r]
+            dda[:, :, r] = (ta * A).sum(-1)
+            dAn = dAn + ta * dl[:, :, r, :, None]
+            gB[:, :, r] = (g * B32[:, k][:, :, r, None, :]).sum(-1)
+            pdB[:, k, :, r] = g * dut[:, :, r, :, None]
+            pdC[:, k, :, r] = hp[r + 1] * dyv[:, :, r, :, None]
+            gc = a[:, :, r] * g
+        du[:, k] = dl * gB + Dv * dyv
+        ddt[:, k] = dda + u32[:, k] * gB
+        dA = dA + lane_tree(dAn)
+
+    def rows(x):                      # (B, nT, S, R, ...) → (B, L, ...)
+        return x.reshape(Bz, nT * T, *x.shape[4:])[:, :L]
+
+    def partials(x):                  # (B,nT,S,R,Dw,N) → (B, nblk, L, N)
+        x = rows(x).reshape(Bz, L, Dw // block_d, block_d // cpw, cpw, N)
+        while x.shape[4] > 1:         # a warp's channels, neighbours first
+            x = x[:, :, :, :, 0::2] + x[:, :, :, :, 1::2]
+        x = x[:, :, :, :, 0]
+        acc = x[:, :, :, 0]
+        for w in range(1, x.shape[3]):    # the warps in order
+            acc = acc + x[:, :, :, w]
+        return acc.transpose(1, 2)
+
+    dD = lane_tree((dy32 * u32).sum((1, 3)))
+    return (rows(du)[..., :Dm], rows(ddt)[..., :Dm], partials(pdB),
+            partials(pdC), dA[:, :Dm].transpose(1, 2), dD[:, :Dm])
+
+
 # ------------------------------------------------------------------ kernels
 
 _BWD_LIB = "selective_scan_bwd"   # #6's library
+_STEP_BWD_LIB = "selective_scan_step_bwd"   # #5's library
+_LIBS = {("fwd", "blocked"): "selective_scan", ("bwd", "blocked"): _BWD_LIB,
+         ("fwd", "step"): "selective_scan_step", ("bwd", "step"):
+         _STEP_BWD_LIB}
 
 
 def _entry(kind, dtype, schedule):
-    """The C entry ``selective_scan_fwd_<dtype>`` (#4, library
-    ``selective_scan``), ``selective_scan_bwd_<dtype>`` (#6, library
-    ``selective_scan_bwd``) or ``selective_scan_step_<kind>_<dtype>``
-    (#3/#5), its ctypes signature declared."""
+    """The C entry ``selective_scan_<kind>_<dtype>`` (#4 from library
+    ``selective_scan``, #6 from ``selective_scan_bwd``) or
+    ``selective_scan_step_<kind>_<dtype>`` (#3 from ``selective_scan_step``,
+    #5 from ``selective_scan_step_bwd``), its ctypes signature declared."""
     fn = _entries.get((kind, dtype, schedule))
     if fn is None:
         step = schedule == "step"
-        lib = "selective_scan_step" if step else \
-            _BWD_LIB if kind == "bwd" else "selective_scan"
-        name = f"{lib}_{kind}" if step else f"selective_scan_{kind}"
-        fn = getattr(_build.load(lib), f"{name}_{_DTYPES[dtype]}")
+        name = f"selective_scan_step_{kind}" if step else \
+            f"selective_scan_{kind}"
+        fn = getattr(_build.load(_LIBS[(kind, schedule)]),
+                     f"{name}_{_DTYPES[dtype]}")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         head = [vp, vp, vp, vp, vp, i64, i64, vp, vp, i64]
         outs = 2 if kind == "fwd" else 8 if step else 12
@@ -304,6 +459,33 @@ def bwd_resources(dtype, chunk: int) -> dict:
         res[name] = dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
                               "local_bytes", "shared_bytes"), out))
     return res
+
+
+def step_bwd_params() -> dict:
+    """#5's build knobs: ``steps`` a lane, ``block_d`` (channels a block),
+    ``group`` (states between its channel-sum barriers), ``min_blocks``
+    (its launch bound for bf16 input)."""
+    got = _entries.get("step_bwd_params")
+    if got is None:
+        out = (ctypes.c_int * 4)()
+        _build.load(_STEP_BWD_LIB).selective_scan_step_bwd_params(out)
+        got = dict(zip(("steps", "block_d", "group", "min_blocks"), out))
+        _entries["step_bwd_params"] = got
+    return got
+
+
+def step_bwd_resources(dtype) -> dict:
+    """#5 on the current CUDA device for ``dtype`` input: blocks and warps
+    an SM, registers and local (spill) bytes a thread, shared bytes a
+    block."""
+    out = (ctypes.c_int * 5)()
+    err = _build.load(_STEP_BWD_LIB).selective_scan_step_bwd_occupancy(
+        int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_step_bwd_occupancy failed: "
+                           f"cudaError {err}")
+    return dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
+                     "local_bytes", "shared_bytes"), out))
 
 
 def _check(u, delta, At, Bm, Cm, Dp, positions, chunk):

@@ -1,13 +1,14 @@
-"""Time the step-schedule scan kernels (#3, #5) under other launch bounds.
+"""Time the step-schedule scan forward (#3) under other launch bounds.
 
-``csrc/selective_scan_step.cu`` cuts each kernel's register budget with
+``csrc/selective_scan_step.cu`` cuts #3's register budget with
 ``__launch_bounds__(256, MIN_BLOCKS)``. This script rebuilds the source once
-for each pair (forward, backward) of ``MIN_BLOCKS`` in ``VARIANTS``, all
-``nvcc`` processes at once, into ``build/repro_torch/sweep/``, and times
-each build's forward and backward through the usual wrappers at
-mamba-2.8b's and mamba-1.4b's training shapes in bf16. The variants are
-timed round-robin and each keeps its fastest round; each variant's outputs
-are checked against the default build's. Prints one JSON object.
+for each ``MIN_BLOCKS`` in ``VARIANTS``, all ``nvcc`` processes at once,
+into ``build/repro_torch/sweep/``, and times each build's forward through
+the usual wrapper at mamba-2.8b's and mamba-1.4b's training shapes in bf16.
+The variants are timed round-robin and each keeps its fastest round; each
+variant's outputs are checked against the default build's. Prints one JSON
+object. (#5, the backward, has its own source and sweep:
+``tools/sweep_step_bwd.py``.)
 
     PYTHONPATH=src python3 -m repro_torch.tools.sweep_step_bounds
 
@@ -25,24 +26,23 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import selective_scan as ksc
 
-VARIANTS = [(1, 1), (2, 2), (3, 2), (4, 2)]   # (forward, backward); the
-DEFAULT = (4, 2)                               # source's default
+VARIANTS = [1, 2, 3, 4]           # blocks an SM of the forward
+DEFAULT = 4                       # the source's default
 SHAPES = [(2, 4096, 5120), (2, 4096, 4096)]
 ROUNDS, ITERS = 3, 20
 
 
 def build_variants():
-    """name → library path, one per entry of ``VARIANTS``."""
+    """variant → library path, one per entry of ``VARIANTS``."""
     out = _build.BUILD_ROOT / "sweep" / _build._key()
     out.mkdir(parents=True, exist_ok=True)
     src = _build.CSRC / "selective_scan_step.cu"
     procs = {}
-    for f, b in VARIANTS:
-        lib = out / f"libstep_f{f}_b{b}.so"
-        procs[(f, b)] = (lib, subprocess.Popen(
+    for f in VARIANTS:
+        lib = out / f"libstep_f{f}.so"
+        procs[f] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS,
-             f"-DSTEP_FWD_MIN_BLOCKS={f}", f"-DSTEP_BWD_MIN_BLOCKS={b}",
-             "-o", str(lib), str(src)],
+             f"-DSTEP_FWD_MIN_BLOCKS={f}", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
@@ -54,9 +54,10 @@ def build_variants():
 
 
 def use(lib):
-    """Route the step wrappers to ``lib`` (ctypes entries rebound)."""
+    """Route the step forward wrapper to ``lib`` (ctypes entry rebound)."""
     _build._libs["selective_scan_step"] = ctypes.CDLL(str(lib))
-    for k in [k for k in ksc._entries if k[2] == "step"]:
+    for k in [k for k in ksc._entries if k[:1] == ("fwd",) and k[2] ==
+              "step"]:
         del ksc._entries[k]
 
 
@@ -111,36 +112,27 @@ def main():
     chunk = ksc.STEP_TILE_T
     result = {"device": smi, "variants": {}}
     for shape in SHAPES:
-        args, dy = inputs(shape, seed=shape[2])
+        args, _ = inputs(shape, seed=shape[2])
         use(libs[DEFAULT])
         y0, ck0 = ksc.selective_scan_fwd(*args, chunk, "step")
-        g0 = ksc.selective_scan_bwd(*args, ck0, dy, chunk, "step")
-        best = {v: [float("inf"), float("inf")] for v in VARIANTS}
+        best = {v: float("inf") for v in VARIANTS}
         err = {}
         for _ in range(ROUNDS):
             for v in VARIANTS:
                 use(libs[v])
                 fwd = lambda: ksc.selective_scan_fwd(*args, chunk, "step")
-                bwd = lambda: ksc.selective_scan_bwd(*args, ck0, dy, chunk,
-                                                     "step")
                 y, ck = fwd()
-                g = bwd()
-                err[v] = max([(y.float() - y0.float()).abs().max().item(),
-                              (ck - ck0).abs().max().item()]
-                             + [(a - b).abs().max().item()
-                                for a, b in zip(g, g0)])
-                del y, ck, g
-                best[v][0] = min(best[v][0], time_ms(fwd))
-                best[v][1] = min(best[v][1], time_ms(bwd))
+                err[v] = max((y.float() - y0.float()).abs().max().item(),
+                             (ck - ck0).abs().max().item())
+                del y, ck
+                best[v] = min(best[v], time_ms(fwd))
         for v in VARIANTS:
             if err[v] > 1e-5:
                 raise AssertionError(f"variant {v} differs from the default "
                                      f"build at {shape}: {err[v]}")
-            result["variants"].setdefault(f"fwd{v[0]}_bwd{v[1]}", {})[
-                str(list(shape))] = {"fwd_ms": best[v][0],
-                                     "bwd_ms": best[v][1],
-                                     "max_diff_vs_default": err[v]}
-        del args, dy, y0, ck0, g0
+            result["variants"].setdefault(f"fwd{v}", {})[str(list(shape))] = {
+                "fwd_ms": best[v], "max_diff_vs_default": err[v]}
+        del args, y0, ck0
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
     return 0

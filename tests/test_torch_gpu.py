@@ -440,13 +440,38 @@ def test_step_and_blocked_kernels_agree(cuda, dtype):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=name)
 
 
-@pytest.mark.parametrize("Bz,L,D", [(1, 1, 3), (1, 5, 33), (3, 17, 64),
-                                    (2, 64, 16), (1, 65, 17)])
-def test_step_kernels_on_edge_shapes(cuda, Bz, L, D):
-    """One step, fewer channels than a block, an odd batch, exactly one
-    tile, one step past a tile: #3 and #5 against their plain versions
-    (f32)."""
+def _lane_edge_positions(Bz, L, steps=8):
+    """Row 0: resets on the first and last steps of a tile's first and
+    last lanes of ``steps`` steps (#5's lanes) and on tile edges; the other
+    rows one segment each, carried in (first position > 0)."""
+    cuts = [0, steps - 1, 64 - steps, 63, 64, 64 + steps - 1, 128 - steps,
+            128]
+    cuts = sorted({c for c in cuts if c < L}) + [L]
+    pos = np.tile(np.arange(L) + 3, (Bz, 1)).astype(np.int32)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    return pos
+
+
+# (B, L, D, resets): one step, fewer channels than a block, an odd batch,
+# exactly one tile, one step past a tile; then resets on #5's 8-step lane
+# edges and on tile edges, at a ragged L and D
+STEP_EDGE_CASES = [(1, 1, 3, None), (1, 5, 33, None), (3, 17, 64, None),
+                   (2, 64, 16, None), (1, 65, 17, None),
+                   (2, 130, 17, "lane_edges"), (3, 200, 48, "lane_edges")]
+
+
+@pytest.mark.parametrize(
+    "Bz,L,D,resets", STEP_EDGE_CASES,
+    ids=[f"{b}-{l}-{d}" + (f"-{r}" if r else "")
+         for b, l, d, r in STEP_EDGE_CASES])
+def test_step_kernels_on_edge_shapes(cuda, Bz, L, D, resets):
+    """#3 and #5 against their plain versions (f32) at the edge shapes and
+    resets of ``STEP_EDGE_CASES``."""
     args, dy = _scan_inputs(cuda, torch.float32, Bz, L, D, L + D)
+    if resets:
+        args = (*args[:6], torch.as_tensor(_lane_edge_positions(Bz, L)).to(
+            cuda))
     y, ck = ksc.selective_scan_fwd(*args, 64, "step")
     wy, wck = ksc.selective_scan_fwd_plain(*args, 64)
     torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
@@ -455,6 +480,18 @@ def test_step_kernels_on_edge_shapes(cuda, Bz, L, D):
                     ksc.selective_scan_bwd_plain(*args, ck, dy, 64,
                                                  ksc.STEP_BLOCK_D)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_bwd_kernel_does_not_spill(cuda, dtype):
+    """#5 keeps its arrays in registers (no local memory) in both builds,
+    and for bf16 input (the training path) holds more than the 16 warps an
+    SM of the design it replaced."""
+    r = ksc.step_bwd_resources(dtype)
+    assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= 1, r
+    if dtype == torch.bfloat16:
+        assert r["warps_per_sm"] > 16, r
 
 
 @pytest.mark.parametrize("chunk", [32, 128])
