@@ -17,7 +17,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the Mamba-1 selective scan's two schedules, #4 / #6 (blocked;
               #6 chunk-parallel: carry, combine and chunk kernels, its
               build knobs and resources in its ``kernels`` entry)
-              and #3 / #5 (step) forward / backward (#5: 8 steps a lane,
+              and #3 / #5 (step) forward / backward (each 8 steps a lane,
               its registers, warps an SM and waves in its rows' and its
               entry's ``resources``), at the mamba-1.4b and
               mamba-2.8b training shapes and a ragged one, timed in the same
@@ -389,12 +389,17 @@ def pair_partials(p, nblk):
     return p.reshape(p.shape[0], nblk, 2, *p.shape[2:]).sum(2)
 
 
-def step_bwd_resources(dtype, shape, sms):
-    """#5's registers, spills, warps an SM and waves (its B·⌈D/16⌉ blocks
-    over the SMs' block slots) at ``shape``."""
+def step_resources(kind, dtype, shape, sms):
+    """#3's (``kind`` "fwd") or #5's ("bwd") registers, spills, warps an
+    SM and waves (its B·⌈D/channels a block⌉ blocks over the SMs' block
+    slots) at ``shape``."""
     from repro_torch.kernels import selective_scan as ksc
-    r = ksc.step_bwd_resources(dtype)
-    blocks = shape[0] * -(-shape[2] // ksc.STEP_BLOCK_D)
+    if kind == "fwd":
+        r, width = (ksc.step_fwd_resources(dtype),
+                    ksc.step_fwd_params()["block_d"])
+    else:
+        r, width = ksc.step_bwd_resources(dtype), ksc.STEP_BLOCK_D
+    blocks = shape[0] * -(-shape[2] // width)
     return {**r, "blocks": blocks,
             "waves": blocks / (sms * max(1, r["blocks_per_sm"]))}
 
@@ -461,6 +466,8 @@ def phase_scan(sfu_rate, sms):
             (bnd_f, by_f), (bnd_b, by_b) = scan_bounds(shape, es,
                                                        ck.shape[1])
             kern_f = graph_ms(fwd, 10, 3)
+            extra = ({"resources": step_resources("fwd", dtype, shape, sms)}
+                     if sched == "step" else {})
             rows.append({
                 "kernel": kf, "schedule": sched, "shape": list(shape),
                 "dtype": dtn, "chunk": chunk, "max_abs_err": e_fwd,
@@ -468,7 +475,8 @@ def phase_scan(sfu_rate, sms):
                 "kernel_eager_ms": eager_ms(fwd, 10, 2),
                 "plain_ms": plain_fwd_ms, "library_ms": None,
                 "bound_ms": bnd_f, "bound_by": by_f,
-                "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate)})
+                "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate),
+                **extra})
             emit("kernels", **rows[-1])
             bwd = functools.partial(ksc.selective_scan_bwd, *fa, ck4, dy,
                                     chunk, sched)
@@ -494,7 +502,7 @@ def phase_scan(sfu_rate, sms):
             # walk to its tile entries, the tile recompute), #5 once
             n_exp = (blocked_bwd_exps(L, chunk) if sched == "blocked"
                      else L) * B * D * N
-            extra = ({"resources": step_bwd_resources(dtype, shape, sms)}
+            extra = ({"resources": step_resources("bwd", dtype, shape, sms)}
                      if sched == "step" else {})
             rows.append({
                 "kernel": kb, "schedule": sched, "shape": list(shape),
@@ -1304,6 +1312,10 @@ def main():
               launches3["selective_scan_fwd_step"],
               scan_worst["selective_scan_fwd_step"], path="train_step",
               exp_floor_ms=step_fwd_row["exp_floor_ms"],
+              build=ksc.step_fwd_params(),
+              resources={dt: step_resources("fwd", getattr(torch, dt),
+                                            TRAIN_SHAPE_28, sms)
+                         for dt in ("bfloat16", "float32")},
               blocked_same_call_ms=scan_row("selective_scan_fwd",
                                             TRAIN_SHAPE_28)["kernel_ms"]),
         entry("selective_scan_fwd", "selective_scan.cu",
@@ -1319,8 +1331,8 @@ def main():
               scan_worst["selective_scan_bwd_step"], path="train_step",
               exp_floor_ms=step_bwd_row["exp_floor_ms"],
               build=ksc.step_bwd_params(),
-              resources={dt: step_bwd_resources(getattr(torch, dt),
-                                                TRAIN_SHAPE_28, sms)
+              resources={dt: step_resources("bwd", getattr(torch, dt),
+                                            TRAIN_SHAPE_28, sms)
                          for dt in ("bfloat16", "float32")},
               blocked_same_call_ms=scan_row("selective_scan_bwd",
                                             TRAIN_SHAPE_28)["kernel_ms"]),

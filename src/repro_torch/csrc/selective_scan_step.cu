@@ -18,68 +18,98 @@
 //      chunk's entry (nC = ceil(L / chunk); chunk == TL, so a chunk is a
 //      tile).
 //
-// What bounds it on this card: the exponentials. At mamba-2.8b's training
-// shape (B=2, L=4096, D=5120, N=16) it needs B*L*D*N = 6.7e8 exp2 results;
-// the special-function unit gives 16 a clock per SM, ~160 us on 132 SMs at
-// 1.98 GHz. Its bytes (u, dt, y once, the checkpoints) are ~0.29 GB = ~88
-// us at 3.35 TB/s.
+// What bounds it on this card: the instructions each (t, n, d) issues. It
+// needs B*L*D*N exp2 results (6.7e8 at mamba-2.8b's training shape B=2,
+// L=4096, D=5120, N=16: ~160 us at the special-function unit's 16 a clock
+// per SM) and moves ~0.29 GB (u, dt, y once, the checkpoints: ~88 us at
+// 3.35 TB/s); but a time-parallel scan issues ~12 lane instructions per
+// (t, n, d): the exponent's FMA and the exp2, B*dt*u, the fold's two, the
+// replay's two, and a lane's share of the lane scan's shuffles and of the
+// loads (95 a state and lane for 8 steps, as compiled). Shared-memory
+// traffic is not the limit: B and C kept in bf16 there (half the bytes,
+// more conversions) ran slower. So the design cuts the instructions per
+// step and keeps the grid in one wave.
 //
 // Design (the paper's ScanOp_pack shape, as upstream Mamba's
 // selective_scan_fwd_kernel: a segmented associative scan over time):
-//   * A block owns one row b and CH = 16 adjacent channels; each channel's
-//     steps are split over S = 16 neighbouring lanes of one warp, R = 4
-//     consecutive steps each: 256 threads, B*D/16 blocks (640 at 2.8b).
-//   * The block walks the row in tiles of TL = S*R = 64 steps, the
-//     checkpoint chunk, so a tile's entry state is a checkpoint. Per tile
-//     u, dt, B, C and pos are staged in shared memory from coalesced loads,
-//     transposed to (channel or state, time) rows so that a thread reads its
-//     R steps as one float4. The next tile's loads are issued into
-//     registers before the current tile is computed.
-//   * Per state n: each thread forms its R pairs (a_t, b_t) =
-//     (exp(dt_t*A)*[pos_t != 0], B_t*dt_t*u_t) and folds them into one;
-//     the S lanes combine the folds with a Kogge-Stone inclusive scan of
-//     width 16 (shuffles) under (a1,b1)o(a2,b2) = (a1*a2, a2*b1 + b2), the
-//     tile's carried-in state folded into lane 0; each lane then replays its
-//     R steps from its exclusive prefix, adding C_t[n]*h_t to y_t in
-//     registers. The R decays stay in registers between fold and replay, so
-//     each (t, n) is exponentiated once.
+//   * A block owns one row b and CH adjacent channels and walks the row in
+//     tiles of TL = 64 steps (the checkpoint chunk), first to last. A
+//     channel's tile is split over S = TL / R neighbouring lanes of one warp,
+//     R consecutive steps each: R = 8, CH = 16 give 128 threads, B*D/16
+//     blocks, and 5 blocks an SM, so mamba-2.8b's 640 blocks and mamba-1.4b's
+//     512 fit one wave of 660.
+//   * Per state n each lane forms its R pairs (a_t, b_t) = (exp(dt_t*A)
+//     *[pos_t != 0], B_t*dt_t*u_t), keeps them in registers and folds them
+//     into one; the S lanes combine the folds by a Kogge-Stone inclusive
+//     scan (log2(S) rounds of shuffles) under (a1,b1)o(a2,b2) = (a1*a2,
+//     a2*b1 + b2) with zero carry-in. The tile's entry state h_in is applied
+//     after the scan: a lane's exit state is A_incl*h_in + B_incl (one FMA),
+//     its entry the previous lane's exit (one shuffle; h_in for lane 0). So
+//     the previous tile is off the scan's chain. The lane then replays its R
+//     steps, adding C_t[n]*h_t to y_t in registers: one exponential per
+//     (t, n, d).
+//   * The carried state lives in two shared slots by tile parity: tile k
+//     reads h_in from slot k&1 (and writes it out as its checkpoint) while
+//     the channel's last lane writes the tile's exit state into slot
+//     (k+1)&1, so no slot is written in the tile that reads it.
+//   * The reset is folded into the exponent: a_t = ex2(dt_t*A*log2(e) +
+//     r_t), r_t = -inf at a reset (ex2(-inf) = +0 exactly) and 0 elsewhere,
+//     so a reset costs no select. A is pre-scaled by log2(e) once a block.
+//   * Operands: the next tile's u, dt, B, C and positions are copied with
+//     cp.async (16-byte, zero-filled past L and D; plain loads when a row is
+//     not 16-byte aligned) into the other of two staging buffers while the
+//     current tile computes. At a tile's start B and C are converted to f32
+//     rows by state (a lane reads its R steps of a state as float4s); y
+//     leaves through a shared tile in u's type, a row of 16 bytes a
+//     thread, during the next tile, and the checkpoints as float4 rows.
+//     Two barriers a tile order every hazard: (A) after tile k landed, before
+//     tile k+1's copy into the buffer tile k-1 used, y's write-out of tile
+//     k-1 and the conversion; (B) before the lanes read the converted rows.
 //   * Ragged L and D are masked, nothing is padded: steps past L are
 //     identity steps (a = 1, b = 0); dead channels have A = 0 and
 //     u = dt = 0. A reset is a = 0 exactly; nothing divides by a.
-//   * exp is __expf (ex2.approx): the argument dt*A is small (|.| < ~10).
-//   * The staging helpers (Prefetch, fetch, commit) have a dy slot and a
-//     checkpoint value that the forward leaves unused (it passes no dy);
-//     they are left as they are so that #3 compiles to the code it had.
+//   * Per-tile code derives its offsets from a fresh %tid.x (tid_now), so
+//     that nothing is held, or spilled, through the states' loop.
+//
+// Build-time knobs (tools/sweep_step_bounds.py times them; its reading is in
+// PERF.md): STEP_FWD_R the steps a lane (4, 8 or 16), STEP_FWD_CH the
+// channels a block (16 or 32), STEP_FWD_MIN_BLOCKS the launch bound for bf16
+// input (f32: at most 4, which its shared memory allows). The defaults, 8
+// steps, 16 channels and 5 blocks, put mamba-2.8b's grid in one wave with
+// every SM loaded alike; 32 channels a block leave its SMs unevenly loaded.
+// The states' loop runs two states at once: one at a time (more warps, fewer
+// registers) ran slower, four at a time spilled.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#ifndef STEP_FWD_R
+#define STEP_FWD_R 8
+#endif
+#ifndef STEP_FWD_CH
+#define STEP_FWD_CH 16
+#endif
+#ifndef STEP_FWD_MIN_BLOCKS
+#define STEP_FWD_MIN_BLOCKS 5          // bf16 input
+#endif
+
 namespace {
 
 constexpr int N = 16;               // d_state
-constexpr int CH = 16;              // channels per block
-constexpr int S = 16;               // lanes per channel
-constexpr int R = 4;                // consecutive steps per lane
-constexpr int TL = S * R;           // time tile (64)
-constexpr int TLP = TL + 4;         // padded row: float4-aligned, <= 2-way
-//                                     bank conflicts on the transposing stores
-constexpr int THREADS = CH * S;     // 256
-constexpr int PER = TL * CH / THREADS;  // elements of a (TL, CH) tile a thread
+constexpr int TL = 64;              // time tile = the checkpoint chunk
+constexpr int R = STEP_FWD_R;       // consecutive steps a lane
+constexpr int S = TL / R;           // lanes a channel
+constexpr int CH = STEP_FWD_CH;     // channels a block
+constexpr int THREADS = CH * S;
+constexpr int TLP = TL + 4;         // a row of TL steps, swizzled (tpos)
+constexpr int MIN_BLOCKS_F32 = STEP_FWD_MIN_BLOCKS < 4 ? STEP_FWD_MIN_BLOCKS
+                                                       : 4;
 constexpr unsigned FULL = 0xffffffffu;
-// Blocks an SM the register budget is cut to (__launch_bounds__). Picked
-// by src/repro_torch/tools/sweep_step_bounds.py, which rebuilds this file
-// with other values (-DSTEP_FWD_MIN_BLOCKS=..) and times them at
-// mamba-2.8b's and mamba-1.4b's training shapes; its readings are in
-// PERF.md. The forward was fastest at 4 at both shapes.
-#ifndef STEP_FWD_MIN_BLOCKS
-#define STEP_FWD_MIN_BLOCKS 4
-#endif
-constexpr int FWD_MIN_BLOCKS = STEP_FWD_MIN_BLOCKS;
-static_assert(CH == N, "the staging maps a (TL, CH) and a (TL, N) tile alike");
-static_assert(S == 16 && THREADS == 256, "shuffle widths assume 16 lanes a "
-              "channel, 2 channels a warp");
-static_assert(N * CH == THREADS, "one checkpoint value a thread");
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(R == 4 || R == 8 || R == 16, "R must be 4, 8 or 16");
+static_assert(CH == 16 || CH == 32, "CH must be 16 or 32");
+static_assert(THREADS % 32 == 0, "whole warps a block");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -93,6 +123,71 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <typename T> __device__ __forceinline__ T zero() {
+  return from_f32<T>(0.f);
+}
+
+// Step t's column in a swizzled row of TLP floats: the steps from 32 on move
+// 4 banks, so a quarter-warp's float4 reads of its lanes' runs meet no bank
+// twice.
+__device__ __forceinline__ int tpos(int t) { return t + ((t >> 5) << 2); }
+
+// threadIdx.x, read anew at each call: what the per-tile code derives from
+// it is recomputed where it is used, not held (or spilled) through the
+// states' loop, which needs the registers.
+__device__ __forceinline__ int tid_now() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));   // bytes < 16: the rest zero-filled
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// N values of a staged (t, N) row of B or C as f32 (16-byte loads).
+__device__ __forceinline__ void load_row(const float* src, float* v) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 x = ((const float4*)src)[q];
+    v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
+  }
+}
+__device__ __forceinline__ void load_row(const __nv_bfloat16* src, float* v) {
+#pragma unroll
+  for (int q = 0; q < N / 8; ++q) {
+    const uint4 x = ((const uint4*)src)[q];
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[8 * q + 2 * k] = __uint_as_float(w[k] << 16);
+      v[8 * q + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+}
+
+// A lane's R steps of one state's row of sB or sC (16-byte loads).
+__device__ __forceinline__ void load_run(const float* row, float* v) {
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const float4 x = ((const float4*)row)[q];
+    v[4 * q] = x.x; v[4 * q + 1] = x.y; v[4 * q + 2] = x.z; v[4 * q + 3] = x.w;
+  }
+}
 
 struct Operands {
   const void* u; const void* dt; const float* At; const void* Bm;
@@ -100,174 +195,272 @@ struct Operands {
   const int32_t* pos; int64_t pos_bstride; int L, D;
 };
 
-// One tile's operands in flight: this thread's share of u, dt, dy (TL, CH)
-// and B, C (TL, N) as f32, one position, one checkpoint value (backward).
-struct Prefetch {
-  float u[PER], dt[PER], dy[PER], B[PER], C[PER];
-  int pos;
-  float ck;
+// Shared memory, in this order:
+//   sA (N, CH) f32             A * log2(e)
+//   hc (2, N, CH) f32          the carried state, one slot by tile parity
+//   sB, sC (N, TLP) f32        the tile's B, C by state, swizzled (tpos)
+//   spos (2, TL) int           positions, one row a staging buffer
+//   two staging buffers in the input type T: u, dt (TL rows of CH, 16 bytes
+//   of pad after every R rows: a lane's column reads meet no bank twice), B,
+//   C (TL, N)
+//   sy in T, laid out as u: the tile's y, out during the next tile
+constexpr int ROWS_PAD = S;             // pads in a staged (TL, CH) tile
+template <typename T> __host__ __device__ constexpr int stage_len() {  // of one
+  return TL * CH + ROWS_PAD * (16 / (int)sizeof(T));
+}
+// Byte offsets of the regions above (each a multiple of 16).
+template <typename T> struct Layout {
+  static constexpr int HC = N * CH * 4;
+  static constexpr int SB = HC + 2 * N * CH * 4;
+  static constexpr int SC = SB + N * TLP * 4;
+  static constexpr int POS = SC + N * TLP * 4;
+  static constexpr int BUF = POS + 2 * TL * 4;
+  static constexpr int BUF_BYTES =
+      (2 * stage_len<T>() + 2 * TL * N) * (int)sizeof(T);
+  static constexpr int SY = BUF + 2 * BUF_BYTES;
+  static constexpr int BYTES = SY + stage_len<T>() * (int)sizeof(T);
+};
+template <typename T> constexpr size_t smem_bytes() {
+  return Layout<T>::BYTES;
+}
+
+template <typename T> struct Stage {
+  T *u, *dt, *Br, *Cr;
+  int* pos;
 };
 
-// Issue the loads of steps [t0, t0 + TL) of row b, channels [d0, d0 + CH):
-// u, dt, dy 0 past L or D; B, C 0 past L; pos 1 past L (no reset).
+// Staging buffer i (0 or 1).
 template <typename T>
-__device__ __forceinline__ void fetch(const Operands& op, const T* dy, int b,
-                                      int d0, int t0, Prefetch& p) {
-  const int tid = threadIdx.x;
+__device__ __forceinline__ Stage<T> stage_buf(unsigned char* smem, int i) {
+  T* t = (T*)(smem + Layout<T>::BUF + i * Layout<T>::BUF_BYTES);
+  return Stage<T>{t, t + stage_len<T>(), t + 2 * stage_len<T>(),
+                  t + 2 * stage_len<T>() + TL * N,
+                  (int*)(smem + Layout<T>::POS) + i * TL};
+}
+
+// Element offset of (step row, channel) in a staged (TL, CH) tile.
+__device__ __forceinline__ int srow(int row, int pade) {
+  return row * CH + (row / R) * pade;
+}
+
+// Issue the copies of tile k (steps [k TL, k TL + TL)) of row b, channels
+// [d0, d0 + CH) into `st`: u, dt, B, C and pos (zeros past L and D; pos 0
+// past L, read as no reset). `aligned`: every row and start is 16-byte
+// aligned, so cp.async (one group, committed by the caller); else plain
+// loads into the same buffer.
+template <typename T>
+__device__ __forceinline__ void stage(const Operands& op, int b, int d0,
+                                      int k, bool aligned, const Stage<T>& st) {
+  const int tid = tid_now(), L = op.L, D = op.D, t0 = k * TL;
+  constexpr int E16 = 16 / sizeof(T);      // elements a 16-byte copy
   const T* u = (const T*)op.u;
   const T* dt = (const T*)op.dt;
   const T* Bm = (const T*)op.Bm;
   const T* Cm = (const T*)op.Cm;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = tid + k * THREADS, t = t0 + i / CH, c = i % CH;
-    const bool in_t = t < op.L, ok = in_t && d0 + c < op.D;
-    const int64_t off = ((int64_t)b * op.L + t) * op.D + d0 + c;
-    p.u[k] = ok ? to_f32(u[off]) : 0.f;
-    p.dt[k] = ok ? to_f32(dt[off]) : 0.f;
-    if (dy != nullptr) p.dy[k] = ok ? to_f32(dy[off]) : 0.f;
-    const int64_t kb = b * op.bc_bstride + (int64_t)t * op.bc_lstride + c;
-    p.B[k] = in_t ? to_f32(Bm[kb]) : 0.f;
-    p.C[k] = in_t ? to_f32(Cm[kb]) : 0.f;
+  const int64_t row0 = (int64_t)b * L;
+  if (aligned) {
+    constexpr int CPR = CH / E16;          // copies a (t, CH) row
+    for (int i = tid; i < 2 * TL * CPR; i += THREADS) {
+      const int a = i / (TL * CPR), r = i % (TL * CPR);
+      const int row = r / CPR, q = r % CPR, t = t0 + row, d = d0 + q * E16;
+      const bool ok = t < L && d < D;
+      const T* src = a == 0 ? u : dt;
+      cp16((a == 0 ? st.u : st.dt) + srow(row, E16) + q * E16,
+           ok ? src + (row0 + t) * D + d : src, ok ? 16 : 0);
+    }
+    constexpr int NPR = N / E16;           // copies a (t, N) row
+    for (int i = tid; i < 2 * TL * NPR; i += THREADS) {
+      const int a = i / (TL * NPR), r = i % (TL * NPR);
+      const int row = r / NPR, q = r % NPR, t = t0 + row;
+      const bool ok = t < L;
+      const T* src = a == 0 ? Bm : Cm;
+      cp16((a == 0 ? st.Br : st.Cr) + row * N + q * E16,
+           ok ? src + b * op.bc_bstride + (int64_t)t * op.bc_lstride + q * E16
+              : src, ok ? 16 : 0);
+    }
+    if (tid < TL / 4) {
+      const int t = t0 + 4 * tid;
+      const int bytes = max(0, min(16, (L - t) * 4));
+      cp16(st.pos + 4 * tid,
+           bytes ? op.pos + b * op.pos_bstride + t : op.pos, bytes);
+    }
+    return;
+  }
+  for (int i = tid; i < 2 * TL * CH; i += THREADS) {
+    const int a = i / (TL * CH), r = i % (TL * CH);
+    const int row = r / CH, c = r % CH, t = t0 + row, d = d0 + c;
+    (a == 0 ? st.u : st.dt)[srow(row, E16) + c] =
+        t < L && d < D ? (a == 0 ? u : dt)[(row0 + t) * D + d] : zero<T>();
+  }
+  for (int i = tid; i < 2 * TL * N; i += THREADS) {
+    const int a = i / (TL * N), r = i % (TL * N);
+    const int row = r / N, n = r % N, t = t0 + row;
+    (a == 0 ? st.Br : st.Cr)[r] =
+        t < L ? (a == 0 ? Bm : Cm)[b * op.bc_bstride +
+                                   (int64_t)t * op.bc_lstride + n]
+              : zero<T>();
   }
   if (tid < TL) {
     const int t = t0 + tid;
-    p.pos = t < op.L ? op.pos[b * op.pos_bstride + t] : 1;
+    st.pos[tid] = t < L ? op.pos[b * op.pos_bstride + t] : 0;
   }
 }
 
-// Store a fetched tile into the (column, time) rows of shared memory.
-__device__ __forceinline__ void commit(const Prefetch& p, float* su,
-                                       float* sdt, float* sdy, float* sB,
-                                       float* sC, int* spos, bool with_dy) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = tid + k * THREADS, t = i / CH, c = i % CH;
-    su[c * TLP + t] = p.u[k];
-    sdt[c * TLP + t] = p.dt[k];
-    if (with_dy) sdy[c * TLP + t] = p.dy[k];
-    sB[c * TLP + t] = p.B[k];
-    sC[c * TLP + t] = p.C[k];
-  }
-  if (tid < TL) spos[tid] = p.pos;
-}
-
-__device__ __forceinline__ void load4(const float* src, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(src);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void store4(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// This lane's R decays and inputs for state n, folded and scanned over the
-// S lanes of its channel: returns the state at the entry of the lane's
-// first step (h_in for lane 0) and sets `end` to the tile's last state.
-__device__ __forceinline__ float scan_entry(const float* a, const float* bb,
-                                            float h_in, int s, float& end) {
-  float Af = a[0], Bf = bb[0];
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    Bf = a[r] * Bf + bb[r];
-    Af *= a[r];
-  }
-  if (s == 0) Bf = Af * h_in + Bf;
-#pragma unroll
-  for (int off = 1; off < S; off *= 2) {
-    const float Ap = __shfl_up_sync(FULL, Af, off, S);
-    const float Bp = __shfl_up_sync(FULL, Bf, off, S);
-    if (s >= off) {
-      Bf = Af * Bp + Bf;
-      Af *= Ap;
-    }
-  }
-  float h = __shfl_up_sync(FULL, Bf, 1, S);
-  if (s == 0) h = h_in;
-  end = __shfl_sync(FULL, Bf, S - 1, S);
-  return h;
-}
-
-// This lane's R decays, inputs and positions for one state.
-__device__ __forceinline__ void step_terms(const float* dl, const float* du,
-                                           const bool* reset, float An,
-                                           const float* Bv, float* a,
-                                           float* bb) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    a[r] = reset[r] ? 0.f : __expf(dl[r] * An);
-    bb[r] = Bv[r] * du[r];
-  }
-}
-
-// ------------------------------------------------------------------ forward
-
+// y of tile k from sy, a 16-byte row piece a thread when aligned.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, FWD_MIN_BLOCKS)
-scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt) {
-  __shared__ __align__(16) float su[CH * TLP], sdt[CH * TLP], sy[CH * TLP];
-  __shared__ __align__(16) float sB[N * TLP], sC[N * TLP];
-  __shared__ float sA[N * CH], shc[N * CH];   // A and the carried state
-  __shared__ __align__(16) int spos[TL];
+__device__ __forceinline__ void write_y(const Operands& op, T* y, int b,
+                                        int d0, int k, bool aligned,
+                                        const T* sy) {
+  constexpr int E16 = 16 / sizeof(T);
+  const int L = op.L, D = op.D, t0 = k * TL;
+  if (aligned) {
+    constexpr int CPR = CH / E16;
+    for (int i = tid_now(); i < TL * CPR; i += THREADS) {
+      const int row = i / CPR, q = i % CPR, d = d0 + q * E16;
+      if (t0 + row < L && d < D)
+        *(uint4*)(y + ((int64_t)b * L + t0 + row) * D + d) =
+            *(const uint4*)(sy + srow(row, E16) + q * E16);
+    }
+    return;
+  }
+  for (int i = tid_now(); i < TL * CH; i += THREADS) {
+    const int row = i / CH, c = i % CH;
+    if (t0 + row < L && d0 + c < D)
+      y[((int64_t)b * L + t0 + row) * D + d0 + c] = sy[srow(row, E16) + c];
+  }
+}
+
+// Block (blockIdx.x, b): channels [CH blockIdx.x, + CH) of row b.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2
+                                               ? STEP_FWD_MIN_BLOCKS
+                                               : MIN_BLOCKS_F32)
+scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
+                     int aligned) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Lay = Layout<T>;
+  float* sA = (float*)smem;
+  float* hc = (float*)(smem + Lay::HC);
+  float* sB = (float*)(smem + Lay::SB);
+  float* sC = (float*)(smem + Lay::SC);
+  T* sy = (T*)(smem + Lay::SY);
   const int b = blockIdx.y, d0 = blockIdx.x * CH;
-  const int tid = threadIdx.x, c = tid / S, s = tid % S, d = d0 + c;
-  const bool live = d < op.D;
   const int L = op.L, D = op.D;
   const int nT = (L + TL - 1) / TL;     // tiles = chunks
-  {
-    const int n = tid / CH, cc = tid % CH;     // one (n, channel) a thread
-    sA[tid] = d0 + cc < D ? op.At[(int64_t)n * D + d0 + cc] : 0.f;
-    shc[tid] = 0.f;
+  constexpr int E16 = 16 / sizeof(T);
+  for (int i = tid_now(); i < N * CH; i += THREADS) {
+    const int d = d0 + i % CH;
+    sA[i] = d < D ? op.At[(int64_t)(i / CH) * D + d] * LOG2E : 0.f;
+    hc[i] = 0.f;                        // slot 0: tile 0's entry state
   }
-  __syncthreads();     // the zero state is read by other threads at t = 0
-  const float Dd = live ? op.Dp[d] : 0.f;
-  Prefetch p;
-  fetch<T>(op, nullptr, b, d0, 0, p);
+  stage<T>(op, b, d0, 0, aligned, stage_buf<T>(smem, 0));
+  cp_commit();
+#pragma unroll 1
   for (int k = 0; k < nT; ++k) {
     const int t0 = k * TL;
-    // the state at the tile's entry, read before the barrier that lets
-    // this tile's lane 0 overwrite it
-    if (live) ckpt[(((int64_t)b * nT + k) * N + s) * D + d] = shc[s * CH + c];
-    commit(p, su, sdt, nullptr, sB, sC, spos, false);
-    __syncthreads();
-    if (k + 1 < nT) fetch<T>(op, nullptr, b, d0, t0 + TL, p);
-    float uu[R], dl[R], du[R], yv[R];
-    bool reset[R];
-    load4(su + c * TLP + s * R, uu);
-    load4(sdt + c * TLP + s * R, dl);
-    const int4 pq = *reinterpret_cast<const int4*>(spos + s * R);
-    reset[0] = pq.x == 0; reset[1] = pq.y == 0;
-    reset[2] = pq.z == 0; reset[3] = pq.w == 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      du[r] = dl[r] * uu[r];
-      yv[r] = Dd * uu[r];
+    const Stage<T> cur = stage_buf<T>(smem, k & 1);
+    cp_wait_all();
+    __syncthreads();    // (A) tile k landed; every read of tile k-1 done
+    if (k + 1 < nT) {
+      stage<T>(op, b, d0, k + 1, aligned, stage_buf<T>(smem, (k + 1) & 1));
+      cp_commit();
     }
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float Bv[R], Cv[R], a[R], bb[R], end;
-      load4(sB + n * TLP + s * R, Bv);
-      load4(sC + n * TLP + s * R, Cv);
-      step_terms(dl, du, reset, sA[n * CH + c], Bv, a, bb);
-      float h = scan_entry(a, bb, shc[n * CH + c], s, end);
-      if (s == 0) shc[n * CH + c] = end;      // the lane that reads it
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        h = a[r] * h + bb[r];
-        yv[r] += Cv[r] * h;
+    if (k > 0) write_y<T>(op, y, b, d0, k - 1, aligned, sy);
+    {   // the checkpoint: the state at tile k's entry, from slot k&1
+      const float* hin = hc + (k & 1) * N * CH;
+      float* dst = ckpt + ((int64_t)b * nT + k) * N * D + d0;
+      if (aligned) {
+        for (int i = tid_now(); i < N * CH / 4; i += THREADS) {
+          const int n = i / (CH / 4), c = 4 * (i % (CH / 4));
+          if (d0 + c < D)
+            *(float4*)(dst + (int64_t)n * D + c) =
+                *(const float4*)(hin + 4 * i);
+        }
+      } else {
+        for (int i = tid_now(); i < N * CH; i += THREADS)
+          if (d0 + i % CH < D) dst[(int64_t)(i / CH) * D + i % CH] = hin[i];
       }
     }
-    store4(sy + c * TLP + s * R, yv);
-    __syncthreads();
+    for (int i = tid_now(); i < 2 * TL; i += THREADS) {  // a row of B or C
+      const int t = i % TL;                             // a thread
+      float v[N];
+      load_row((i < TL ? cur.Br : cur.Cr) + t * N, v);
+      float* dst = (i < TL ? sB : sC) + tpos(t);
 #pragma unroll
-    for (int kk = 0; kk < PER; ++kk) {
-      const int i = tid + kk * THREADS, t = i / CH, cc = i % CH;
-      if (t0 + t < L && d0 + cc < D)
-        y[((int64_t)b * L + t0 + t) * D + d0 + cc] = from_f32<T>(sy[cc * TLP + t]);
+      for (int n = 0; n < N; ++n) dst[n * TLP] = v[n];
     }
+    __syncthreads();    // (B) B, C in place
+    const int lt = tid_now(), c = lt / S, s = lt % S;
+    const int o0 = srow(s * R, E16) + c;   // this lane's staged column
+    float dl[R], du[R], rb[R], yv[R];
+    {
+      const float Dd = d0 + c < D ? op.Dp[d0 + c] : 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = s * R + r, o = o0 + r * CH;
+        const float uu = to_f32(cur.u[o]);
+        dl[r] = to_f32(cur.dt[o]);
+        du[r] = dl[r] * uu;
+        yv[r] = Dd * uu;
+        rb[r] = cur.pos[row] == 0 && t0 + row < L ? __int_as_float(0xff800000)
+                                                   : 0.f;   // -inf
+      }
+    }
+    const float* hin = hc + (k & 1) * N * CH + c;
+    float* hout = hc + ((k + 1) & 1) * N * CH + c;
+#pragma unroll 2
+    for (int n = 0; n < N; ++n) {
+      const float A2 = sA[n * CH + c];
+      float Cv[R], a[R], bb[R];
+      {
+        float Bv[R];
+        load_run(sB + n * TLP + tpos(s * R), Bv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a[r] = ex2(fmaf(dl[r], A2, rb[r]));     // exactly 0 at a reset
+          bb[r] = Bv[r] * du[r];
+        }
+      }
+      // fold the lane's steps: (Af, Bf) maps the state before its first
+      // step to the one after its last; then the inclusive scan over the
+      // channel's S lanes with zero carry-in
+      float Af = a[0], Bf = bb[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        Bf = fmaf(a[r], Bf, bb[r]);
+        Af *= a[r];
+      }
+#pragma unroll
+      for (int off = 1; off < S; off *= 2) {
+        const float Ap = __shfl_up_sync(FULL, Af, off, S);
+        const float Bp = __shfl_up_sync(FULL, Bf, off, S);
+        if (s >= off) {
+          Bf = fmaf(Af, Bp, Bf);
+          Af *= Ap;
+        }
+      }
+      // the tile's entry state applied after the scan: this lane's exit
+      // state; its entry is the previous lane's exit (h_in for lane 0)
+      const float h_in = hin[n * CH];
+      const float he = fmaf(Af, h_in, Bf);
+      float h = __shfl_up_sync(FULL, he, 1, S);
+      if (s == 0) h = h_in;
+      if (s == S - 1) hout[n * CH] = he;    // the next tile's entry state
+      load_run(sC + n * TLP + tpos(s * R), Cv);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        h = fmaf(a[r], h, bb[r]);
+        yv[r] = fmaf(Cv[r], h, yv[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) sy[o0 + r * CH] = from_f32<T>(yv[r]);
   }
+  __syncthreads();      // the last tile's y in sy
+  write_y<T>(op, y, b, d0, nT - 1, aligned, sy);
 }
+
+// ------------------------------------------------------------ launches
 
 Operands make_operands(const void* u, const void* dt, const void* At,
                        const void* Bm, const void* Cm, int64_t bc_bstride,
@@ -278,22 +471,62 @@ Operands make_operands(const void* u, const void* dt, const void* At,
 }
 
 template <typename T>
+bool is_aligned(const Operands& op, const void* y, const void* ckpt) {
+  const uintptr_t p = (uintptr_t)op.u | (uintptr_t)op.dt | (uintptr_t)y |
+                      (uintptr_t)op.Bm | (uintptr_t)op.Cm |
+                      (uintptr_t)op.pos | (uintptr_t)ckpt;
+  const int64_t es = sizeof(T);
+  return p % 16 == 0 && op.D * es % 16 == 0 && op.D % 4 == 0 &&
+         op.bc_bstride * es % 16 == 0 && op.bc_lstride * es % 16 == 0 &&
+         op.pos_bstride % 4 == 0;
+}
+
+template <typename T>
+int prepare() {
+  static bool done = false;     // raised once, outside any graph capture
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_step_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<T>());
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+template <typename T>
 int launch_fwd(const Operands& op, int B, void* y, void* ckpt, int chunk,
                void* stream) {
   if ((int64_t)B * op.L * op.D == 0) return 0;
   if (chunk != TL || B > 65535) return (int)cudaErrorInvalidValue;
+  if (int e = prepare<T>()) return e;
   const dim3 grid((op.D + CH - 1) / CH, B);
-  scan_step_fwd_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      op, (T*)y, (float*)ckpt);
+  scan_step_fwd_kernel<T><<<grid, THREADS, smem_bytes<T>(),
+                            (cudaStream_t)stream>>>(
+      op, (T*)y, (float*)ckpt, (int)is_aligned<T>(op, y, ckpt));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int* out) {
+  if (int e = prepare<T>()) return e;
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, scan_step_fwd_kernel<T>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], scan_step_fwd_kernel<T>, THREADS, smem_bytes<T>());
+  out[1] = out[0] * THREADS / 32;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)(fa.sharedSizeBytes + smem_bytes<T>());
+  return (int)e;
 }
 
 }  // namespace
 
 // Plain C entries, bound with ctypes (kernels/selective_scan.py, whose
-// STEP_BLOCK_D, STEP_TILE_T and D_STATE are CH, TL and N here). The
-// arguments are those of selective_scan.cu's entries; chunk must be TL.
-// Return the launch's cudaError_t (0 = launched).
+// STEP_TILE_T and D_STATE are TL and N here). The arguments are those of
+// selective_scan.cu's entries; chunk must be TL. Return the launch's
+// cudaError_t (0 = launched).
 #define STEP_FWD_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* u, const void* dt, const void* At,         \
                       const void* Bm, const void* Cm, int64_t bc_bstride,     \
@@ -308,3 +541,18 @@ int launch_fwd(const Operands& op, int B, void* y, void* ckpt, int chunk,
 
 STEP_FWD_ENTRY(selective_scan_step_fwd_f32, float)
 STEP_FWD_ENTRY(selective_scan_step_fwd_bf16, __nv_bfloat16)
+
+// The build's knobs: out = {R, CH, MIN_BLOCKS}.
+extern "C" int selective_scan_step_fwd_params(int* out) {
+  out[0] = R;
+  out[1] = CH;
+  out[2] = STEP_FWD_MIN_BLOCKS;
+  return 0;
+}
+
+// Resources of the kernel for bf16 (bf16 != 0) or f32 input: out = {blocks
+// an SM, warps an SM, registers a thread, local (spill) bytes a thread,
+// shared bytes a block}.
+extern "C" int selective_scan_step_fwd_occupancy(int bf16, int* out) {
+  return bf16 ? occupancy<__nv_bfloat16>(out) : occupancy<float>(out);
+}

@@ -15,12 +15,15 @@ behind its entries ``selective_scan_fwd_pallas`` /
   (``selective_scan_bwd_chunked_plain`` is that arithmetic in PyTorch);
 * ``"step"``: ``_fwd_kernel`` (#3) → ``csrc/selective_scan_step.cu`` and
   ``_bwd_kernel`` (#5) → ``csrc/selective_scan_step_bwd.cu``: a block walks
-  the row in tiles of ``STEP_TILE_T`` steps for ``STEP_BLOCK_D`` channels,
+  the row in tiles of ``STEP_TILE_T`` steps for 16 channels (#5's
+  ``STEP_BLOCK_D``; #3's width is its build knob, ``step_fwd_params()``),
   each tile a segmented associative scan over time (parallel inside the
-  block: a channel's tile split over lanes of consecutive steps, 4 a lane in
-  #3, 8 in #5, combined by a log-depth shuffle scan; #5's dB/dC terms summed
-  over a warp's channels by shuffles before the block's warps are added;
-  ``selective_scan_bwd_step_lanes_plain`` is #5's arithmetic in PyTorch).
+  block: a channel's tile split over lanes of 8 consecutive steps, combined
+  by a log-depth shuffle scan; #3 applies the tile's entry state after the
+  combine; #5's dB/dC terms summed over a warp's channels by shuffles before
+  the block's warps are added; ``selective_scan_fwd_step_lanes_plain`` and
+  ``selective_scan_bwd_step_lanes_plain`` are #3's and #5's arithmetic in
+  PyTorch, for the tests).
 
 Both schedules compute one function and keep the TPU kernels' contract:
 
@@ -61,7 +64,7 @@ LAUNCHES_BWD_STEP = 0             # #5 (step)
 SCHEDULES = ("blocked", "step")
 BLOCK_D = 32                      # #4/#6 channels per block (dB/dC partials)
 TILE_T = 16                       # #4's time tile; #6's chunk unit
-STEP_BLOCK_D = 16                 # #3/#5 channels per block (dB/dC partials)
+STEP_BLOCK_D = 16                 # #5 channels per block (dB/dC partials)
 STEP_TILE_T = 64                  # #3/#5 time tile = their one chunk
 D_STATE = 16                      # the kernels instantiate N = 16
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -253,6 +256,84 @@ def selective_scan_bwd_chunked_plain(u, delta, At, Bm, Cm, Dp, positions,
             dA.sum(1).transpose(1, 2), dD)
 
 
+def selective_scan_fwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
+                                        steps: int = 8,
+                                        block_d: int = 16):
+    """#3's arithmetic in PyTorch (f32). Tiles of ``STEP_TILE_T`` steps (the
+    checkpoint chunk); a channel's tile split over T / ``steps`` lanes of
+    ``steps`` consecutive steps. Per tile and state:
+
+    * each lane folds its steps into (Π a, h from 0); a Kogge–Stone combine
+      over the lanes (offsets 1, 2, 4, …) with zero carry-in gives each lane
+      the map (A_incl, B_incl) from the tile's entry to its exit;
+    * the tile's entry state h_in is applied after it: a lane exits at
+      A_incl·h_in + B_incl, and enters at the previous lane's exit (h_in for
+      lane 0); the last lane's exit is the next tile's h_in, so the tiles'
+      chain holds one product and one sum a state;
+    * the lane replays its steps; y = D·u plus C_t[n]·h_t[n] for n = 0, 1,
+      … in turn, as the kernel adds them.
+
+    L is padded to whole tiles with identity steps (a = 1, b = 0), D to whole
+    blocks of ``block_d`` with dead channels (A = 0). Returns
+    ``selective_scan_fwd_plain``'s outputs: (y in u's dtype, ckpts (B, nC,
+    N, D) f32)."""
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    T, R = STEP_TILE_T, steps
+    S = T // R
+    if T % R or S & (S - 1):
+        raise ValueError(f"steps {steps} must split a tile of {T} over a "
+                         f"power of two of lanes")
+    nT = n_chunks(L, T)
+    pad, dpad = nT * T - L, (-Dm) % block_d
+    Dw = Dm + dpad
+
+    def tiles(x, fill, chan):         # (B, L, ...) → (B, nT, S, R, ...)
+        if pad:
+            x = torch.cat([x, x.new_full((Bz, pad) + x.shape[2:], fill)], 1)
+        if chan and dpad:
+            x = torch.cat([x, x.new_zeros(x.shape[:2] + (dpad,))], 2)
+        return x.reshape(Bz, nT, S, R, *x.shape[2:])
+
+    u32, d32 = tiles(u.float(), 0.0, True), tiles(delta.float(), 0.0, True)
+    B32, C32 = tiles(Bm.float(), 0.0, False), tiles(Cm.float(), 0.0, False)
+    pos = tiles(positions, 1, False)
+    A = torch.cat([At.float(), At.new_zeros((N, dpad))], 1).t()  # (Dw, N)
+    Dv = torch.cat([Dp.float(), Dp.new_zeros(dpad)])
+    a = torch.exp(d32[..., None] * A)                    # (B,nT,S,R,Dw,N)
+    a = torch.where((pos == 0)[..., None, None], 0.0, a)
+    bb = B32[..., None, :] * (d32 * u32)[..., None]
+    # each lane's fold, then the combine over the lanes, every tile at once
+    Af, Bf = a[:, :, :, 0], bb[:, :, :, 0]               # (B, nT, S, Dw, N)
+    for r in range(1, R):
+        Bf = a[:, :, :, r] * Bf + bb[:, :, :, r]
+        Af = Af * a[:, :, :, r]
+    lane = torch.arange(S, device=u.device)[:, None, None]
+    off = 1
+    while off < S:
+        Ap, Bp = torch.roll(Af, off, dims=2), torch.roll(Bf, off, dims=2)
+        on = lane >= off
+        Bf = torch.where(on, Af * Bp + Bf, Bf)
+        Af = torch.where(on, Af * Ap, Af)
+        off *= 2
+    # the tiles' chain: h_in of each tile from the last lane's map
+    h_in = [u32.new_zeros((Bz, Dw, N))]
+    for k in range(nT - 1):
+        h_in.append(Af[:, k, S - 1] * h_in[-1] + Bf[:, k, S - 1])
+    h_in = torch.stack(h_in, 1)                          # (B, nT, Dw, N)
+    exit_ = Af * h_in[:, :, None] + Bf                   # each lane's exit
+    h = torch.cat([h_in[:, :, None], exit_[:, :, :-1]], 2)
+    y = u32.new_empty(u32.shape)                         # (B, nT, S, R, Dw)
+    for r in range(R):
+        h = a[:, :, :, r] * h + bb[:, :, :, r]
+        acc = Dv * u32[:, :, :, r]
+        for n in range(N):
+            acc = acc + C32[:, :, :, r, None, n] * h[..., n]
+        y[:, :, :, r] = acc
+    y = y.reshape(Bz, nT * T, Dw)[:, :L, :Dm]
+    return y.to(u.dtype), h_in.transpose(2, 3)[..., :Dm].contiguous()
+
+
 def selective_scan_bwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
                                         ckpts, dy, lanes: int = 8,
                                         steps: int = 8,
@@ -403,10 +484,10 @@ def selective_scan_bwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
 # ------------------------------------------------------------------ kernels
 
 _BWD_LIB = "selective_scan_bwd"   # #6's library
+_STEP_FWD_LIB = "selective_scan_step"       # #3's library
 _STEP_BWD_LIB = "selective_scan_step_bwd"   # #5's library
 _LIBS = {("fwd", "blocked"): "selective_scan", ("bwd", "blocked"): _BWD_LIB,
-         ("fwd", "step"): "selective_scan_step", ("bwd", "step"):
-         _STEP_BWD_LIB}
+         ("fwd", "step"): _STEP_FWD_LIB, ("bwd", "step"): _STEP_BWD_LIB}
 
 
 def _entry(kind, dtype, schedule):
@@ -459,6 +540,32 @@ def bwd_resources(dtype, chunk: int) -> dict:
         res[name] = dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
                               "local_bytes", "shared_bytes"), out))
     return res
+
+
+def step_fwd_params() -> dict:
+    """#3's build knobs: ``steps`` a lane, ``block_d`` (channels a block),
+    ``min_blocks`` (its launch bound for bf16 input)."""
+    got = _entries.get("step_fwd_params")
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        _build.load(_STEP_FWD_LIB).selective_scan_step_fwd_params(out)
+        got = dict(zip(("steps", "block_d", "min_blocks"), out))
+        _entries["step_fwd_params"] = got
+    return got
+
+
+def step_fwd_resources(dtype) -> dict:
+    """#3 on the current CUDA device for ``dtype`` input: blocks and warps
+    an SM, registers and local (spill) bytes a thread, shared bytes a
+    block."""
+    out = (ctypes.c_int * 5)()
+    err = _build.load(_STEP_FWD_LIB).selective_scan_step_fwd_occupancy(
+        int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_step_fwd_occupancy failed: "
+                           f"cudaError {err}")
+    return dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
+                     "local_bytes", "shared_bytes"), out))
 
 
 def step_bwd_params() -> dict:

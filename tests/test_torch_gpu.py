@@ -440,12 +440,14 @@ def test_step_and_blocked_kernels_agree(cuda, dtype):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=name)
 
 
-def _lane_edge_positions(Bz, L, steps=8):
+def _lane_edge_positions(Bz, L, steps):
     """Row 0: resets on the first and last steps of a tile's first and
-    last lanes of ``steps`` steps (#5's lanes) and on tile edges; the other
-    rows one segment each, carried in (first position > 0)."""
-    cuts = [0, steps - 1, 64 - steps, 63, 64, 64 + steps - 1, 128 - steps,
-            128]
+    last lanes, for lanes of each of ``steps`` steps (#3's and #5's lanes),
+    and on tile edges; the other rows one segment each, carried in (first
+    position > 0)."""
+    cuts = [0, 63, 64, 128]
+    for r in steps:
+        cuts += [r - 1, 64 - r, 64 + r - 1, 128 - r]
     cuts = sorted({c for c in cuts if c < L}) + [L]
     pos = np.tile(np.arange(L) + 3, (Bz, 1)).astype(np.int32)
     for a, b in zip(cuts[:-1], cuts[1:]):
@@ -454,11 +456,17 @@ def _lane_edge_positions(Bz, L, steps=8):
 
 
 # (B, L, D, resets): one step, fewer channels than a block, an odd batch,
-# exactly one tile, one step past a tile; then resets on #5's 8-step lane
+# exactly one tile, one step past a tile; then resets on #3's and #5's lane
 # edges and on tile edges, at a ragged L and D
 STEP_EDGE_CASES = [(1, 1, 3, None), (1, 5, 33, None), (3, 17, 64, None),
                    (2, 64, 16, None), (1, 65, 17, None),
-                   (2, 130, 17, "lane_edges"), (3, 200, 48, "lane_edges")]
+                   (2, 130, 17, "lane_edges"), (3, 200, 48, "lane_edges"),
+                   (2, 256, 40, "lane_edges")]
+
+
+def _step_lane_steps():
+    """Steps a lane of the built #3 and #5."""
+    return (ksc.step_fwd_params()["steps"], ksc.step_bwd_params()["steps"])
 
 
 @pytest.mark.parametrize(
@@ -470,8 +478,8 @@ def test_step_kernels_on_edge_shapes(cuda, Bz, L, D, resets):
     resets of ``STEP_EDGE_CASES``."""
     args, dy = _scan_inputs(cuda, torch.float32, Bz, L, D, L + D)
     if resets:
-        args = (*args[:6], torch.as_tensor(_lane_edge_positions(Bz, L)).to(
-            cuda))
+        args = (*args[:6], torch.as_tensor(_lane_edge_positions(
+            Bz, L, _step_lane_steps())).to(cuda))
     y, ck = ksc.selective_scan_fwd(*args, 64, "step")
     wy, wck = ksc.selective_scan_fwd_plain(*args, 64)
     torch.testing.assert_close(y, wy, atol=1e-4, rtol=1e-4)
@@ -480,6 +488,36 @@ def test_step_kernels_on_edge_shapes(cuda, Bz, L, D, resets):
                     ksc.selective_scan_bwd_plain(*args, ck, dy, 64,
                                                  ksc.STEP_BLOCK_D)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_fwd_kernel_repeats_bitwise(cuda, dtype):
+    """#3 twice on the same inputs (resets on its lane edges, a ragged L
+    and D, B and C strided): y and the checkpoints bitwise equal."""
+    args, _ = _scan_inputs(cuda, getattr(torch, dtype), 2, 700, 200, 4)
+    args = (*args[:6], torch.as_tensor(_lane_edge_positions(
+        2, 700, _step_lane_steps())).to(cuda))
+    y, ck = ksc.selective_scan_fwd(*args, 64, "step")
+    y2, ck2 = ksc.selective_scan_fwd(*args, 64, "step")
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(ck, ck2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_fwd_kernel_does_not_spill(cuda, dtype):
+    """#3 keeps its arrays in registers (no local memory) in both builds."""
+    r = ksc.step_fwd_resources(dtype)
+    assert r["local_bytes"] == 0, r
+    assert r["blocks_per_sm"] >= 1, r
+
+
+def test_step_fwd_grid_is_one_wave_at_mamba_2_8b(cuda):
+    """At mamba-2.8b's training shape (2, 4096, 5120) bf16, #3's blocks fit
+    the card's block slots at once: blocks an SM × SMs ≥ grid."""
+    r = ksc.step_fwd_resources(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    grid = 2 * -(-5120 // ksc.step_fwd_params()["block_d"])
+    assert r["blocks_per_sm"] * sms >= grid, (r, sms, grid)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
