@@ -15,17 +15,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               computes the same function) and the least time the card could
               take: #1 conv1d_pack forward (serving), #2 its dx backward;
               the Mamba-1 selective scan's two schedules, #4 / #6 (blocked;
-              #6 chunk-parallel: carry, combine and chunk kernels, its
-              build knobs and resources in its ``kernels`` entry)
-              and #3 / #5 (step) forward / backward (each 8 steps a lane,
-              its registers, warps an SM and waves in its rows' and its
-              entry's ``resources``), at the mamba-1.4b and
+              #4 is #3's kernel with any chunk, also run at chunks 128
+              and 48; #6 chunk-parallel: carry, combine and chunk kernels; the
+              build knobs and resources of both in their ``kernels``
+              entries) and #3 / #5 (step) forward / backward (each 8 steps
+              a lane, its registers, warps an SM and waves in its rows' and
+              its entry's ``resources``), at the mamba-1.4b and
               mamba-2.8b training shapes and a ragged one, timed in the same
               call and checked against each other (#3's checkpoints against
               #4's, #5 against #6); #7 / #8 / #9 the head-structured
               (Mamba-2) scan forward (the chunked form on the tensor
-              cores), its dual form and their backward. The backward
-              kernels and #7 run twice and must agree bitwise.
+              cores), its dual form and their backward. The scan kernels
+              and #7 run twice and must agree bitwise.
 4. parity   — serving: ``prefill_packed`` end logits and states of 4
               prompts against per-prompt ``prefill`` (f32, full width).
 5. engine   — the serving main path: the continuous-batching engine on
@@ -91,6 +92,9 @@ SCAN_RAGGED = (2, 997, 4104)     # and a D that is no multiple of a channel
 SCAN_CASES = ((TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE_28, "bfloat16"),
               (SCAN_RAGGED, "bfloat16"), (SCAN_RAGGED, "float32"),
               (TRAIN_SHAPE, "float32"))
+SCAN_OTHER_CHUNKS = (128, 48)     # #4 off the main path's chunk 64, at
+#                                  SCAN_RAGGED (its any-chunk kernel): chunk
+#                                  starts on tile edges and inside tiles
 SCAN_KERNELS = {"blocked": ("selective_scan_fwd", "selective_scan_bwd"),
                 "step": ("selective_scan_fwd_step", "selective_scan_bwd_step")}
 HEADS_SHAPE = (8, 4096, 32, 64)  # (rows, L, H, P): mamba2-370m training
@@ -389,14 +393,15 @@ def pair_partials(p, nblk):
     return p.reshape(p.shape[0], nblk, 2, *p.shape[2:]).sum(2)
 
 
-def step_resources(kind, dtype, shape, sms):
-    """#3's (``kind`` "fwd") or #5's ("bwd") registers, spills, warps an
-    SM and waves (its B·⌈D/channels a block⌉ blocks over the SMs' block
-    slots) at ``shape``."""
+def scan_resources(kind, dtype, shape, sms, chunk=64):
+    """The forward's (``kind`` "fwd": #3's and #4's kernel that ``chunk``
+    takes) or #5's ("step_bwd") registers, spills, warps an SM and waves
+    (its B·⌈D/channels a block⌉ blocks over the SMs' block slots) at
+    ``shape``."""
     from repro_torch.kernels import selective_scan as ksc
     if kind == "fwd":
-        r, width = (ksc.step_fwd_resources(dtype),
-                    ksc.step_fwd_params()["block_d"])
+        r, width = (ksc.lanes_fwd_resources(dtype, chunk),
+                    ksc.lanes_fwd_params()["block_d"])
     else:
         r, width = ksc.step_bwd_resources(dtype), ksc.STEP_BLOCK_D
     blocks = shape[0] * -(-shape[2] // width)
@@ -408,9 +413,10 @@ def phase_scan(sfu_rate, sms):
     """The Mamba-1 scan's two schedules at each shape of ``SCAN_CASES``,
     timed in one call: #4/#6 (``blocked``) and #3/#5 (``step``), each
     against the plain versions (one forward and one backward per case,
-    the backward fed #4's checkpoints, as every kernel backward is); the
-    backward kernels twice, bitwise equal; and the two schedules against
-    each other — #3's checkpoints against #4's, #5 against #6."""
+    the backward fed #4's checkpoints, as every kernel backward is); every
+    kernel twice, bitwise equal; and the two schedules against each other
+    — #3's checkpoints against #4's, #5 against #6. Then #4 at the chunks
+    of ``SCAN_OTHER_CHUNKS`` (``phase_scan_chunks``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ksc
@@ -441,7 +447,12 @@ def phase_scan(sfu_rate, sms):
             kf, kb = SCAN_KERNELS[sched]
             fwd = functools.partial(ksc.selective_scan_fwd, *fa, chunk, sched)
             y, ck = fwd()
+            y2, ck2 = fwd()
             torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(ck, ck2)):
+                raise AssertionError(f"{kf} is not bitwise repeatable at "
+                                     f"{shape} {dtype}")
+            del y2, ck2
             ckpts[sched] = ck
             y32 = y.float()
             err_y = (y32 - wy32).abs()
@@ -466,17 +477,15 @@ def phase_scan(sfu_rate, sms):
             (bnd_f, by_f), (bnd_b, by_b) = scan_bounds(shape, es,
                                                        ck.shape[1])
             kern_f = graph_ms(fwd, 10, 3)
-            extra = ({"resources": step_resources("fwd", dtype, shape, sms)}
-                     if sched == "step" else {})
             rows.append({
                 "kernel": kf, "schedule": sched, "shape": list(shape),
                 "dtype": dtn, "chunk": chunk, "max_abs_err": e_fwd,
-                "tolerance": tol, "kernel_ms": kern_f,
+                "tolerance": tol, "bitwise_repeat": True, "kernel_ms": kern_f,
                 "kernel_eager_ms": eager_ms(fwd, 10, 2),
                 "plain_ms": plain_fwd_ms, "library_ms": None,
                 "bound_ms": bnd_f, "bound_by": by_f,
                 "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate),
-                **extra})
+                "resources": scan_resources("fwd", dtype, shape, sms)})
             emit("kernels", **rows[-1])
             bwd = functools.partial(ksc.selective_scan_bwd, *fa, ck4, dy,
                                     chunk, sched)
@@ -502,7 +511,8 @@ def phase_scan(sfu_rate, sms):
             # walk to its tile entries, the tile recompute), #5 once
             n_exp = (blocked_bwd_exps(L, chunk) if sched == "blocked"
                      else L) * B * D * N
-            extra = ({"resources": step_resources("bwd", dtype, shape, sms)}
+            extra = ({"resources": scan_resources("step_bwd", dtype, shape,
+                                                  sms)}
                      if sched == "step" else {})
             rows.append({
                 "kernel": kb, "schedule": sched, "shape": list(shape),
@@ -543,7 +553,67 @@ def phase_scan(sfu_rate, sms):
         del outs, e_ck
         gc.collect()
         torch.cuda.empty_cache()
+    rows += phase_scan_chunks(sfu_rate, sms, worst)
     return rows, worst
+
+
+def phase_scan_chunks(sfu_rate, sms, worst):
+    """#4 at each chunk of ``SCAN_OTHER_CHUNKS`` at ``SCAN_RAGGED`` bf16:
+    against the plain version (the forward tolerances of ``phase_scan``),
+    twice, bitwise equal, timed beside #4 at chunk 64 in the same call."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ksc
+    shape, dtype = SCAN_RAGGED, torch.bfloat16
+    B, L, D = shape
+    N, es = 16, 2
+    fa = scan_inputs(shape, dtype, seed=L)[:7]
+    at64 = graph_ms(functools.partial(ksc.selective_scan_fwd, *fa,
+                                      ops.SCAN_CHUNK), 10, 3)
+    rows = []
+    for chunk in SCAN_OTHER_CHUNKS:
+        (wy, wck), plain_ms = once_ms(
+            lambda: ksc.selective_scan_fwd_plain(*fa, chunk))
+        fwd = functools.partial(ksc.selective_scan_fwd, *fa, chunk)
+        y, ck = fwd()
+        y2, ck2 = fwd()
+        torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(ck, ck2)):
+            raise AssertionError(f"#4 at chunk {chunk} is not bitwise "
+                                 f"repeatable")
+        wy32 = wy.float()
+        err_y = (y.float() - wy32).abs()
+        err_ck = (ck - wck).abs()
+        ok = bool((err_y <= 2.0 ** -7 * wy32.abs()
+                   + 1e-4 * wy32.abs().max().item()).all()) and \
+            ck.shape == wck.shape and \
+            bool((err_ck <= 1e-4 * (1 + wck.abs())).all())
+        if not ok:
+            raise AssertionError(
+                f"#4 at chunk {chunk} disagrees with its plain version at "
+                f"{shape}: y {err_y.max().item()}, ckpts "
+                f"{err_ck.max().item()}")
+        e = max(err_y.max().item(), err_ck.max().item())
+        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], e)
+        bnd, by = scan_bounds(shape, es, ck.shape[1])[0]
+        rows.append({
+            "kernel": "selective_scan_fwd", "schedule": "blocked",
+            "shape": list(shape), "dtype": "bfloat16", "chunk": chunk,
+            "max_abs_err": e,
+            "tolerance": ("y 2^-7 · |ref| + 1e-4 · max|ref| (two bf16 "
+                          "roundings); ckpts 1e-4 · (1 + |ref|)"),
+            "bitwise_repeat": True, "kernel_ms": graph_ms(fwd, 10, 3),
+            "kernel_ms_chunk_64_same_call": at64,
+            "kernel_eager_ms": eager_ms(fwd, 10, 2), "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "exp_floor_ms": exp_floor_ms(B * L * D * N, sfu_rate),
+            "resources": scan_resources("fwd", dtype, shape, sms, chunk)})
+        emit("kernels", **rows[-1])
+        del wy, wck, y, ck, y2, ck2, wy32, err_y, err_ck
+    del fa
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def heads_inputs(shape, dtype, seed):
@@ -1287,7 +1357,8 @@ def main():
                         HEADS_SHAPE)
 
     def scan_row(name, shape):
-        return main_row([r for r in scan_rows if r["kernel"] == name], shape)
+        return main_row([r for r in scan_rows if r["kernel"] == name
+                         and r["chunk"] == ops.SCAN_CHUNK], shape)
 
     launches, launches2 = tr["launches"], tr2["launches"]
     launches3 = tr3["launches"]
@@ -1307,13 +1378,13 @@ def main():
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),
               launches["conv1d_pack_bwd_dx"], dx_worst),
-        entry("selective_scan_fwd_step", "selective_scan_step.cu",
+        entry("selective_scan_fwd_step", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:116", step_fwd_row,
               launches3["selective_scan_fwd_step"],
               scan_worst["selective_scan_fwd_step"], path="train_step",
               exp_floor_ms=step_fwd_row["exp_floor_ms"],
-              build=ksc.step_fwd_params(),
-              resources={dt: step_resources("fwd", getattr(torch, dt),
+              build=ksc.lanes_fwd_params(),
+              resources={dt: scan_resources("fwd", getattr(torch, dt),
                                             TRAIN_SHAPE_28, sms)
                          for dt in ("bfloat16", "float32")},
               blocked_same_call_ms=scan_row("selective_scan_fwd",
@@ -1324,14 +1395,24 @@ def main():
               scan_worst["selective_scan_fwd"],
               exp_floor_ms=fwd_row["exp_floor_ms"],
               step_same_call_ms=scan_row("selective_scan_fwd_step",
-                                         TRAIN_SHAPE)["kernel_ms"]),
+                                         TRAIN_SHAPE)["kernel_ms"],
+              ms_28=scan_row("selective_scan_fwd", TRAIN_SHAPE_28)[
+                  "kernel_ms"],
+              build=ksc.lanes_fwd_params(),
+              resources={dt: scan_resources("fwd", getattr(torch, dt),
+                                            TRAIN_SHAPE, sms)
+                         for dt in ("bfloat16", "float32")},
+              other_chunks_ms={
+                  r["chunk"]: r["kernel_ms"] for r in scan_rows
+                  if r["kernel"] == "selective_scan_fwd"
+                  and r["chunk"] != ops.SCAN_CHUNK}),
         entry("selective_scan_bwd_step", "selective_scan_step_bwd.cu",
               "src/repro/kernels/selective_scan.py:441", step_bwd_row,
               launches3["selective_scan_bwd_step"],
               scan_worst["selective_scan_bwd_step"], path="train_step",
               exp_floor_ms=step_bwd_row["exp_floor_ms"],
               build=ksc.step_bwd_params(),
-              resources={dt: step_resources("bwd", getattr(torch, dt),
+              resources={dt: scan_resources("step_bwd", getattr(torch, dt),
                                             TRAIN_SHAPE_28, sms)
                          for dt in ("bfloat16", "float32")},
               blocked_same_call_ms=scan_row("selective_scan_bwd",

@@ -1,13 +1,6 @@
-// Segmented selective scan forward (PackMamba's ScanOp_pack, Mamba-1
-// per-channel decay), the `step` schedule: parallel over TIME inside a
-// block, for Hopper (sm_90a): kernel #3.
-//
-// Replaces the Pallas TPU kernel `_fwd_kernel` of
-// src/repro/kernels/selective_scan.py (entry `selective_scan_fwd_pallas`,
-// schedule="step"). Same function and outputs as the `blocked` forward of
-// selective_scan.cu (#4), same checkpoint contract, so either forward feeds
-// either backward (#5, selective_scan_step_bwd.cu; #6,
-// selective_scan_bwd.cu):
+// The Mamba-1 selective scan forward parallel over TIME inside a block, for
+// Hopper (sm_90a): the machinery of kernels #3 (the `step` schedule) and
+// #4 (`blocked`), both wrapped in selective_scan.cu. Both compute
 //
 //   a_t = exp(dt_t * A) (0 where pos_t == 0),  h_t = a_t * h_{t-1} + B_t * dt_t * u_t
 //   y_t = sum_n C_t[n] * h_t[n] + D * u_t
@@ -15,29 +8,18 @@
 // in:  u, dt (B,L,D) f32|bf16; At (N,D) f32; Bm, Cm (B,L,N) of u's type,
 //      read through their batch and row strides; Dp (D,) f32; pos (B,L) i32
 // out: y (B,L,D) in u's type, ckpt (B,nC,N,D) f32 = the state at each
-//      chunk's entry (nC = ceil(L / chunk); chunk == TL, so a chunk is a
-//      tile).
+//      chunk's entry (nC = ceil(L / chunk)).
 //
-// What bounds it on this card: the instructions each (t, n, d) issues. It
-// needs B*L*D*N exp2 results (6.7e8 at mamba-2.8b's training shape B=2,
-// L=4096, D=5120, N=16: ~160 us at the special-function unit's 16 a clock
-// per SM) and moves ~0.29 GB (u, dt, y once, the checkpoints: ~88 us at
-// 3.35 TB/s); but a time-parallel scan issues ~12 lane instructions per
-// (t, n, d): the exponent's FMA and the exp2, B*dt*u, the fold's two, the
-// replay's two, and a lane's share of the lane scan's shuffles and of the
-// loads (95 a state and lane for 8 steps, as compiled). Shared-memory
-// traffic is not the limit: B and C kept in bf16 there (half the bytes,
-// more conversions) ran slower. So the design cuts the instructions per
-// step and keeps the grid in one wave.
+// The including source defines SCAN_LANES_R (steps a lane: 4, 8 or 16) and
+// SCAN_LANES_CH (channels a block: 16 or 32) first, and wraps
+// `scan_lanes_fwd` in a __global__ of its own name and launch bounds.
 //
-// Design (the paper's ScanOp_pack shape, as upstream Mamba's
+// Layout and arithmetic (the paper's ScanOp_pack shape, as upstream Mamba's
 // selective_scan_fwd_kernel: a segmented associative scan over time):
 //   * A block owns one row b and CH adjacent channels and walks the row in
-//     tiles of TL = 64 steps (the checkpoint chunk), first to last. A
-//     channel's tile is split over S = TL / R neighbouring lanes of one warp,
-//     R consecutive steps each: R = 8, CH = 16 give 128 threads, B*D/16
-//     blocks, and 5 blocks an SM, so mamba-2.8b's 640 blocks and mamba-1.4b's
-//     512 fit one wave of 660.
+//     tiles of TL = 64 steps, first to last. A channel's tile is split over
+//     S = TL / R neighbouring lanes of one warp, R consecutive steps each:
+//     R = 8, CH = 16 give 128 threads and B*D/16 blocks.
 //   * Per state n each lane forms its R pairs (a_t, b_t) = (exp(dt_t*A)
 //     *[pos_t != 0], B_t*dt_t*u_t), keeps them in registers and folds them
 //     into one; the S lanes combine the folds by a Kogge-Stone inclusive
@@ -47,11 +29,18 @@
 //     its entry the previous lane's exit (one shuffle; h_in for lane 0). So
 //     the previous tile is off the scan's chain. The lane then replays its R
 //     steps, adding C_t[n]*h_t to y_t in registers: one exponential per
-//     (t, n, d).
+//     (t, n, d), and y's sum over the states in a fixed order.
 //   * The carried state lives in two shared slots by tile parity: tile k
-//     reads h_in from slot k&1 (and writes it out as its checkpoint) while
-//     the channel's last lane writes the tile's exit state into slot
-//     (k+1)&1, so no slot is written in the tile that reads it.
+//     reads h_in from slot k&1 while the channel's last lane writes the
+//     tile's exit state into slot (k+1)&1, so no slot is written in the
+//     tile that reads it.
+//   * Checkpoints, by the mode the wrapper instantiates:
+//     CKPT_TILES (chunk == TL): every tile's entry state, from slot k&1.
+//     CKPT_ANY (any other chunk): chunk starts may fall inside tiles. Each
+//     lane marks, once a tile, which of its R steps start a chunk (a bit
+//     mask; none on a dead channel or past L) and writes h, the state before
+//     such a step, from its registers during the replay, before the step's
+//     FMA. Never from a slot: the slot holds tile entries only.
 //   * The reset is folded into the exponent: a_t = ex2(dt_t*A*log2(e) +
 //     r_t), r_t = -inf at a reset (ex2(-inf) = +0 exactly) and 0 elsewhere,
 //     so a reset costs no select. A is pre-scaled by log2(e) once a block.
@@ -61,7 +50,7 @@
 //     current tile computes. At a tile's start B and C are converted to f32
 //     rows by state (a lane reads its R steps of a state as float4s); y
 //     leaves through a shared tile in u's type, a row of 16 bytes a
-//     thread, during the next tile, and the checkpoints as float4 rows.
+//     thread, during the next tile, and the tile checkpoints as float4 rows.
 //     Two barriers a tile order every hazard: (A) after tile k landed, before
 //     tile k+1's copy into the buffer tile k-1 used, y's write-out of tile
 //     k-1 and the conversion; (B) before the lanes read the converted rows.
@@ -70,46 +59,39 @@
 //     u = dt = 0. A reset is a = 0 exactly; nothing divides by a.
 //   * Per-tile code derives its offsets from a fresh %tid.x (tid_now), so
 //     that nothing is held, or spilled, through the states' loop.
-//
-// Build-time knobs (tools/sweep_step_bounds.py times them; its reading is in
-// PERF.md): STEP_FWD_R the steps a lane (4, 8 or 16), STEP_FWD_CH the
-// channels a block (16 or 32), STEP_FWD_MIN_BLOCKS the launch bound for bf16
-// input (f32: at most 4, which its shared memory allows). The defaults, 8
-// steps, 16 channels and 5 blocks, put mamba-2.8b's grid in one wave with
-// every SM loaded alike; 32 channels a block leave its SMs unevenly loaded.
-// The states' loop runs two states at once: one at a time (more warps, fewer
-// registers) ran slower, four at a time spilled.
+
+#pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#ifndef STEP_FWD_R
-#define STEP_FWD_R 8
-#endif
-#ifndef STEP_FWD_CH
-#define STEP_FWD_CH 16
-#endif
-#ifndef STEP_FWD_MIN_BLOCKS
-#define STEP_FWD_MIN_BLOCKS 5          // bf16 input
+#if !defined(SCAN_LANES_R) || !defined(SCAN_LANES_CH)
+#error "define SCAN_LANES_R and SCAN_LANES_CH before including this header"
 #endif
 
 namespace {
 
 constexpr int N = 16;               // d_state
-constexpr int TL = 64;              // time tile = the checkpoint chunk
-constexpr int R = STEP_FWD_R;       // consecutive steps a lane
+constexpr int TL = 64;              // time tile
+constexpr int R = SCAN_LANES_R;     // consecutive steps a lane
 constexpr int S = TL / R;           // lanes a channel
-constexpr int CH = STEP_FWD_CH;     // channels a block
+constexpr int CH = SCAN_LANES_CH;   // channels a block
 constexpr int THREADS = CH * S;
 constexpr int TLP = TL + 4;         // a row of TL steps, swizzled (tpos)
-constexpr int MIN_BLOCKS_F32 = STEP_FWD_MIN_BLOCKS < 4 ? STEP_FWD_MIN_BLOCKS
-                                                       : 4;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(R == 4 || R == 8 || R == 16, "R must be 4, 8 or 16");
 static_assert(CH == 16 || CH == 32, "CH must be 16 or 32");
 static_assert(THREADS % 32 == 0, "whole warps a block");
+
+enum CkptMode { CKPT_TILES, CKPT_ANY };
+
+// The launch bound for f32 input: at most 4 blocks, which its shared
+// memory allows.
+__host__ __device__ constexpr int f32_min_blocks(int bf16_min_blocks) {
+  return bf16_min_blocks < 4 ? bf16_min_blocks : 4;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -330,13 +312,13 @@ __device__ __forceinline__ void write_y(const Operands& op, T* y, int b,
   }
 }
 
-// Block (blockIdx.x, b): channels [CH blockIdx.x, + CH) of row b.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, sizeof(T) == 2
-                                               ? STEP_FWD_MIN_BLOCKS
-                                               : MIN_BLOCKS_F32)
-scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
-                     int aligned) {
+// The block (blockIdx.x, b): channels [CH blockIdx.x, + CH) of row b.
+// CK: the checkpoint mode (see the top); CKPT_TILES ignores `chunk` (TL).
+template <typename T, int CK>
+__device__ __forceinline__ void scan_lanes_fwd(const Operands& op,
+                                               T* __restrict__ y,
+                                               float* __restrict__ ckpt,
+                                               int aligned, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   using Lay = Layout<T>;
   float* sA = (float*)smem;
@@ -346,7 +328,8 @@ scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
   T* sy = (T*)(smem + Lay::SY);
   const int b = blockIdx.y, d0 = blockIdx.x * CH;
   const int L = op.L, D = op.D;
-  const int nT = (L + TL - 1) / TL;     // tiles = chunks
+  const int nT = (L + TL - 1) / TL;     // tiles
+  const int nC = CK == CKPT_TILES ? nT : (L + chunk - 1) / chunk;
   constexpr int E16 = 16 / sizeof(T);
   for (int i = tid_now(); i < N * CH; i += THREADS) {
     const int d = d0 + i % CH;
@@ -366,9 +349,10 @@ scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
       cp_commit();
     }
     if (k > 0) write_y<T>(op, y, b, d0, k - 1, aligned, sy);
-    {   // the checkpoint: the state at tile k's entry, from slot k&1
+    if (CK == CKPT_TILES) {
+      // the checkpoint: the state at tile k's entry, from slot k&1
       const float* hin = hc + (k & 1) * N * CH;
-      float* dst = ckpt + ((int64_t)b * nT + k) * N * D + d0;
+      float* dst = ckpt + ((int64_t)b * nC + k) * N * D + d0;
       if (aligned) {
         for (int i = tid_now(); i < N * CH / 4; i += THREADS) {
           const int n = i / (CH / 4), c = 4 * (i % (CH / 4));
@@ -405,6 +389,18 @@ scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
         rb[r] = cur.pos[row] == 0 && t0 + row < L ? __int_as_float(0xff800000)
                                                    : 0.f;   // -inf
       }
+    }
+    // CKPT_ANY: bit r of cmask marks step ts + r as a chunk start (none on
+    // a dead channel or past L); the j-th marked step is chunk first + j
+    unsigned cmask = 0;
+    float* ck = ckpt;
+    if (CK == CKPT_ANY) {
+      const int ts = t0 + s * R;
+      const int first = (ts + chunk - 1) / chunk;
+      if (d0 + c < D)
+        for (int j = first * chunk - ts; j < R && ts + j < L; j += chunk)
+          cmask |= 1u << j;
+      ck = ckpt + ((int64_t)b * nC + first) * N * D + d0 + c;
     }
     const float* hin = hc + (k & 1) * N * CH + c;
     float* hout = hc + ((k + 1) & 1) * N * CH + c;
@@ -449,6 +445,8 @@ scan_step_fwd_kernel(Operands op, T* __restrict__ y, float* __restrict__ ckpt,
       load_run(sC + n * TLP + tpos(s * R), Cv);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        if (CK == CKPT_ANY && (cmask >> r & 1u))   // h: the state before
+          ck[((int64_t)__popc(cmask & ((1u << r) - 1u)) * N + n) * D] = h;
         h = fmaf(a[r], h, bb[r]);
         yv[r] = fmaf(Cv[r], h, yv[r]);
       }
@@ -481,78 +479,35 @@ bool is_aligned(const Operands& op, const void* y, const void* ckpt) {
          op.pos_bstride % 4 == 0;
 }
 
-template <typename T>
-int prepare() {
-  static bool done = false;     // raised once, outside any graph capture
+// Raise the kernel's dynamic shared memory limit to `bytes`, once (outside
+// any graph capture).
+template <auto Kernel>
+int prepare(size_t bytes) {
+  static bool done = false;
   if (done) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      scan_step_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<T>());
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   done = true;
   return 0;
 }
 
-template <typename T>
-int launch_fwd(const Operands& op, int B, void* y, void* ckpt, int chunk,
-               void* stream) {
-  if ((int64_t)B * op.L * op.D == 0) return 0;
-  if (chunk != TL || B > 65535) return (int)cudaErrorInvalidValue;
-  if (int e = prepare<T>()) return e;
-  const dim3 grid((op.D + CH - 1) / CH, B);
-  scan_step_fwd_kernel<T><<<grid, THREADS, smem_bytes<T>(),
-                            (cudaStream_t)stream>>>(
-      op, (T*)y, (float*)ckpt, (int)is_aligned<T>(op, y, ckpt));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int occupancy(int* out) {
-  if (int e = prepare<T>()) return e;
+// The kernel's resources with `bytes` of dynamic shared memory: out =
+// {blocks an SM, warps an SM, registers a thread, local (spill) bytes a
+// thread, shared bytes a block}.
+template <auto Kernel>
+int resources(size_t bytes, int* out) {
+  if (int e = prepare<Kernel>(bytes)) return e;
   cudaFuncAttributes fa{};
-  cudaError_t e = cudaFuncGetAttributes(&fa, scan_step_fwd_kernel<T>);
+  cudaError_t e = cudaFuncGetAttributes(&fa, Kernel);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], scan_step_fwd_kernel<T>, THREADS, smem_bytes<T>());
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], Kernel,
+                                                      THREADS, bytes);
   out[1] = out[0] * THREADS / 32;
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;
-  out[4] = (int)(fa.sharedSizeBytes + smem_bytes<T>());
+  out[4] = (int)(fa.sharedSizeBytes + bytes);
   return (int)e;
 }
 
 }  // namespace
-
-// Plain C entries, bound with ctypes (kernels/selective_scan.py, whose
-// STEP_TILE_T and D_STATE are TL and N here). The arguments are those of
-// selective_scan.cu's entries; chunk must be TL. Return the launch's
-// cudaError_t (0 = launched).
-#define STEP_FWD_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(const void* u, const void* dt, const void* At,         \
-                      const void* Bm, const void* Cm, int64_t bc_bstride,     \
-                      int64_t bc_lstride, const void* Dp, const void* pos,    \
-                      int64_t pos_bstride, void* y, void* ckpt, int B, int L, \
-                      int D, int chunk, void* stream) {                       \
-    return launch_fwd<T>(make_operands(u, dt, At, Bm, Cm, bc_bstride,         \
-                                       bc_lstride, Dp, pos, pos_bstride, L,   \
-                                       D),                                    \
-                         B, y, ckpt, chunk, stream);                          \
-  }
-
-STEP_FWD_ENTRY(selective_scan_step_fwd_f32, float)
-STEP_FWD_ENTRY(selective_scan_step_fwd_bf16, __nv_bfloat16)
-
-// The build's knobs: out = {R, CH, MIN_BLOCKS}.
-extern "C" int selective_scan_step_fwd_params(int* out) {
-  out[0] = R;
-  out[1] = CH;
-  out[2] = STEP_FWD_MIN_BLOCKS;
-  return 0;
-}
-
-// Resources of the kernel for bf16 (bf16 != 0) or f32 input: out = {blocks
-// an SM, warps an SM, registers a thread, local (spill) bytes a thread,
-// shared bytes a block}.
-extern "C" int selective_scan_step_fwd_occupancy(int bf16, int* out) {
-  return bf16 ? occupancy<__nv_bfloat16>(out) : occupancy<float>(out);
-}

@@ -6,24 +6,28 @@ Replaces the four Pallas TPU kernels of ``repro.kernels.selective_scan``
 behind its entries ``selective_scan_fwd_pallas`` /
 ``selective_scan_bwd_pallas``, picked as there by ``schedule``:
 
-* ``"blocked"``: ``_fwd_kernel_blocked`` (#4) → ``csrc/selective_scan.cu``:
-  a block walks a row's whole L, one step at a time, for ``BLOCK_D``
-  channels; ``_bwd_kernel_blocked`` (#6) → ``csrc/selective_scan_bwd.cu``:
-  chunk-parallel — a carry pass gives each chunk's adjoint with zero carry-in
-  and its decay product, a fixed-order combine hands every chunk its carry,
-  then every chunk runs at once from its checkpoint
-  (``selective_scan_bwd_chunked_plain`` is that arithmetic in PyTorch);
-* ``"step"``: ``_fwd_kernel`` (#3) → ``csrc/selective_scan_step.cu`` and
-  ``_bwd_kernel`` (#5) → ``csrc/selective_scan_step_bwd.cu``: a block walks
-  the row in tiles of ``STEP_TILE_T`` steps for 16 channels (#5's
-  ``STEP_BLOCK_D``; #3's width is its build knob, ``step_fwd_params()``),
+* ``"blocked"``: ``_fwd_kernel_blocked`` (#4) → ``csrc/selective_scan.cu``
+  and ``_bwd_kernel_blocked`` (#6) → ``csrc/selective_scan_bwd.cu``. #4 is
+  #3's kernel (below, from ``csrc/scan_fwd_lanes.cuh``) with any chunk: at
+  chunk 64 it writes every tile's entry state; at any other chunk each lane
+  writes the state before each of its steps that starts a chunk from its
+  registers during the replay. #6 is chunk-parallel — a carry pass gives
+  each chunk's adjoint with zero carry-in and its decay product, a
+  fixed-order combine hands every chunk its carry, then every chunk runs at
+  once from its checkpoint (``selective_scan_bwd_chunked_plain`` is that
+  arithmetic in PyTorch);
+* ``"step"``: ``_fwd_kernel`` (#3) → ``csrc/selective_scan.cu`` (#4's
+  chunk-64 kernel under its own name) and ``_bwd_kernel`` (#5) →
+  ``csrc/selective_scan_step_bwd.cu``: a block walks the row in tiles of
+  ``STEP_TILE_T`` steps for 16 channels (#5's ``STEP_BLOCK_D``; #3's and
+  #4's width is their one build knob set, ``lanes_fwd_params()``),
   each tile a segmented associative scan over time (parallel inside the
   block: a channel's tile split over lanes of 8 consecutive steps, combined
   by a log-depth shuffle scan; #3 applies the tile's entry state after the
   combine; #5's dB/dC terms summed over a warp's channels by shuffles before
-  the block's warps are added; ``selective_scan_fwd_step_lanes_plain`` and
-  ``selective_scan_bwd_step_lanes_plain`` are #3's and #5's arithmetic in
-  PyTorch, for the tests).
+  the block's warps are added; ``selective_scan_fwd_step_lanes_plain``, for
+  #3 and, with its ``chunk``, #4, and ``selective_scan_bwd_step_lanes_plain``
+  for #5 are that arithmetic in PyTorch, for the tests).
 
 Both schedules compute one function and keep the TPU kernels' contract:
 
@@ -39,7 +43,7 @@ Both schedules compute one function and keep the TPU kernels' contract:
 
 The checkpoints are the same for both schedules, so a forward of one feeds
 the backward of the other. None pads: a ragged L and D are masked inside.
-``chunk``: #4 takes any length, #6 a multiple of ``TILE_T``, #3 and #5
+``chunk``: #4 takes any length ≥ 1, #6 a multiple of ``TILE_T``, #3 and #5
 exactly ``STEP_TILE_T`` (their tile is the chunk; ``ops.SCAN_CHUNK``).
 
 * A CPU tensor takes the plain version (the same for both schedules, as the
@@ -62,10 +66,10 @@ LAUNCHES_BWD = 0                  # #6 (blocked)
 LAUNCHES_FWD_STEP = 0             # #3 (step)
 LAUNCHES_BWD_STEP = 0             # #5 (step)
 SCHEDULES = ("blocked", "step")
-BLOCK_D = 32                      # #4/#6 channels per block (dB/dC partials)
-TILE_T = 16                       # #4's time tile; #6's chunk unit
+BLOCK_D = 32                      # #6 channels per block (dB/dC partials)
+TILE_T = 16                       # #6's time tile: its chunk is a multiple
 STEP_BLOCK_D = 16                 # #5 channels per block (dB/dC partials)
-STEP_TILE_T = 64                  # #3/#5 time tile = their one chunk
+STEP_TILE_T = 64                  # #3/#4/#5 time tile; #3/#5's one chunk
 D_STATE = 16                      # the kernels instantiate N = 16
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _entries = {}                     # (kind, dtype, schedule) → C entry, bound
@@ -258,10 +262,11 @@ def selective_scan_bwd_chunked_plain(u, delta, At, Bm, Cm, Dp, positions,
 
 def selective_scan_fwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
                                         steps: int = 8,
-                                        block_d: int = 16):
-    """#3's arithmetic in PyTorch (f32). Tiles of ``STEP_TILE_T`` steps (the
-    checkpoint chunk); a channel's tile split over T / ``steps`` lanes of
-    ``steps`` consecutive steps. Per tile and state:
+                                        block_d: int = 16,
+                                        chunk: int = STEP_TILE_T):
+    """#3's and #4's arithmetic in PyTorch (f32). Tiles of T =
+    ``STEP_TILE_T`` steps; a channel's tile split over T / ``steps`` lanes
+    of ``steps`` consecutive steps. Per tile and state:
 
     * each lane folds its steps into (Π a, h from 0); a Kogge–Stone combine
       over the lanes (offsets 1, 2, 4, …) with zero carry-in gives each lane
@@ -272,6 +277,11 @@ def selective_scan_fwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
       chain holds one product and one sum a state;
     * the lane replays its steps; y = D·u plus C_t[n]·h_t[n] for n = 0, 1,
       … in turn, as the kernel adds them.
+
+    The checkpoints, every ``chunk`` steps (nC = ceil(L / chunk)): the state
+    before each chunk's first step as its lane holds it in the replay (at
+    chunk T the tiles' entry states h_in, as the kernels' chunk-64 path
+    writes them from the slots).
 
     L is padded to whole tiles with identity steps (a = 1, b = 0), D to whole
     blocks of ``block_d`` with dead channels (A = 0). Returns
@@ -284,6 +294,8 @@ def selective_scan_fwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
     if T % R or S & (S - 1):
         raise ValueError(f"steps {steps} must split a tile of {T} over a "
                          f"power of two of lanes")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     nT = n_chunks(L, T)
     pad, dpad = nT * T - L, (-Dm) % block_d
     Dw = Dm + dpad
@@ -324,14 +336,18 @@ def selective_scan_fwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
     exit_ = Af * h_in[:, :, None] + Bf                   # each lane's exit
     h = torch.cat([h_in[:, :, None], exit_[:, :, :-1]], 2)
     y = u32.new_empty(u32.shape)                         # (B, nT, S, R, Dw)
+    before = []                                          # h before step r
     for r in range(R):
+        before.append(h)
         h = a[:, :, :, r] * h + bb[:, :, :, r]
         acc = Dv * u32[:, :, :, r]
         for n in range(N):
             acc = acc + C32[:, :, :, r, None, n] * h[..., n]
         y[:, :, :, r] = acc
     y = y.reshape(Bz, nT * T, Dw)[:, :L, :Dm]
-    return y.to(u.dtype), h_in.transpose(2, 3)[..., :Dm].contiguous()
+    # (B, nT, S, R, Dw, N) by step; at a tile's first step, its h_in
+    ck = torch.stack(before, 3).reshape(Bz, nT * T, Dw, N)[:, :L:chunk]
+    return y.to(u.dtype), ck.transpose(2, 3)[..., :Dm].contiguous()
 
 
 def selective_scan_bwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
@@ -483,18 +499,18 @@ def selective_scan_bwd_step_lanes_plain(u, delta, At, Bm, Cm, Dp, positions,
 
 # ------------------------------------------------------------------ kernels
 
+_FWD_LIB = "selective_scan"       # #3's and #4's library
 _BWD_LIB = "selective_scan_bwd"   # #6's library
-_STEP_FWD_LIB = "selective_scan_step"       # #3's library
 _STEP_BWD_LIB = "selective_scan_step_bwd"   # #5's library
-_LIBS = {("fwd", "blocked"): "selective_scan", ("bwd", "blocked"): _BWD_LIB,
-         ("fwd", "step"): _STEP_FWD_LIB, ("bwd", "step"): _STEP_BWD_LIB}
+_LIBS = {("fwd", "blocked"): _FWD_LIB, ("bwd", "blocked"): _BWD_LIB,
+         ("fwd", "step"): _FWD_LIB, ("bwd", "step"): _STEP_BWD_LIB}
 
 
 def _entry(kind, dtype, schedule):
     """The C entry ``selective_scan_<kind>_<dtype>`` (#4 from library
     ``selective_scan``, #6 from ``selective_scan_bwd``) or
-    ``selective_scan_step_<kind>_<dtype>`` (#3 from ``selective_scan_step``,
-    #5 from ``selective_scan_step_bwd``), its ctypes signature declared."""
+    ``selective_scan_step_<kind>_<dtype>`` (#3 from ``selective_scan``, #5
+    from ``selective_scan_step_bwd``), its ctypes signature declared."""
     fn = _entries.get((kind, dtype, schedule))
     if fn is None:
         step = schedule == "step"
@@ -542,27 +558,29 @@ def bwd_resources(dtype, chunk: int) -> dict:
     return res
 
 
-def step_fwd_params() -> dict:
-    """#3's build knobs: ``steps`` a lane, ``block_d`` (channels a block),
-    ``min_blocks`` (its launch bound for bf16 input)."""
-    got = _entries.get("step_fwd_params")
+def lanes_fwd_params() -> dict:
+    """#3's and #4's build knobs (one set, one kernel): ``steps`` a lane,
+    ``block_d`` (channels a block), ``min_blocks`` (the launch bound of the
+    chunk-64 kernel for bf16 input)."""
+    got = _entries.get("lanes_fwd_params")
     if got is None:
         out = (ctypes.c_int * 3)()
-        _build.load(_STEP_FWD_LIB).selective_scan_step_fwd_params(out)
+        _build.load(_FWD_LIB).selective_scan_fwd_params(out)
         got = dict(zip(("steps", "block_d", "min_blocks"), out))
-        _entries["step_fwd_params"] = got
+        _entries["lanes_fwd_params"] = got
     return got
 
 
-def step_fwd_resources(dtype) -> dict:
-    """#3 on the current CUDA device for ``dtype`` input: blocks and warps
-    an SM, registers and local (spill) bytes a thread, shared bytes a
-    block."""
+def lanes_fwd_resources(dtype, chunk: int = STEP_TILE_T) -> dict:
+    """The forward kernel that ``chunk`` takes (64: #3's, and #4's on the
+    main path; any other chunk: #4's), on the current CUDA device for
+    ``dtype`` input: blocks and warps an SM, registers and local (spill)
+    bytes a thread, shared bytes a block."""
     out = (ctypes.c_int * 5)()
-    err = _build.load(_STEP_FWD_LIB).selective_scan_step_fwd_occupancy(
-        int(dtype == torch.bfloat16), out)
+    err = _build.load(_FWD_LIB).selective_scan_fwd_occupancy(
+        int(dtype == torch.bfloat16), int(chunk), out)
     if err != 0:
-        raise RuntimeError(f"selective_scan_step_fwd_occupancy failed: "
+        raise RuntimeError(f"selective_scan_fwd_occupancy failed: "
                            f"cudaError {err}")
     return dict(zip(("blocks_per_sm", "warps_per_sm", "registers",
                      "local_bytes", "shared_bytes"), out))

@@ -1,16 +1,17 @@
-"""Time kernel #3 (``csrc/selective_scan_step.cu``) under other build knobs,
-with #5 as the control in the same call.
+"""Time the Mamba-1 scan forward (``csrc/selective_scan.cu``: kernel #4,
+and #3, the same kernel under another name) under other build knobs, with
+#6 as the control in the same call.
 
-The source takes three ``-D`` values: ``STEP_FWD_R`` (steps a lane),
-``STEP_FWD_CH`` (channels a block) and ``STEP_FWD_MIN_BLOCKS`` (its launch
-bound for bf16 input).
+The source takes three ``-D`` values: ``SCAN_LANES_R`` (steps a lane),
+``SCAN_LANES_CH`` (channels a block) and ``SCAN_LANES_MIN_BLOCKS`` (the
+launch bound of its chunk-64 kernel for bf16 input).
 This script rebuilds the source once for each entry of ``VARIANTS``, all
 ``nvcc`` processes at once, into ``build/repro_torch/sweep/``, reports each
 build's registers, spills (local bytes) and warps an SM in both builds and
 its waves (blocks ÷ (SMs × blocks an SM)) at each shape, then times each
-build through the usual wrapper at mamba-2.8b's and mamba-1.4b's training
-shapes and a ragged one in bf16, round-robin with #5, each keeping its
-fastest round. Every variant's outputs are checked against the default
+build through #4's wrapper at chunk 64 at mamba-2.8b's and mamba-1.4b's
+training shapes and a ragged one in bf16, round-robin with #6, each keeping
+its fastest round. Every variant's outputs are checked against the default
 build's: y within two bf16 roundings (a variant may add the steps in
 another order), the checkpoints within 1e-4 · (1 + |default|). Prints one
 JSON object.
@@ -47,13 +48,13 @@ def build_variants():
     """variant → library path, one per entry of ``VARIANTS``."""
     out = _build.BUILD_ROOT / "sweep" / _build._key()
     out.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "selective_scan_step.cu"
+    src = _build.CSRC / "selective_scan.cu"
     procs = {}
     for v in VARIANTS:
-        lib = out / f"libstep_fwd_{name(v)}.so"
+        lib = out / f"libscan_fwd_{name(v)}.so"
         procs[v] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DSTEP_FWD_R={v[0]}",
-             f"-DSTEP_FWD_CH={v[1]}", f"-DSTEP_FWD_MIN_BLOCKS={v[2]}",
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DSCAN_LANES_R={v[0]}",
+             f"-DSCAN_LANES_CH={v[1]}", f"-DSCAN_LANES_MIN_BLOCKS={v[2]}",
              "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -66,11 +67,10 @@ def build_variants():
 
 
 def use(lib):
-    """Route #3's wrapper to ``lib`` (ctypes entries rebound)."""
-    _build._libs[ksc._STEP_FWD_LIB] = ctypes.CDLL(str(lib))
+    """Route the forward's wrappers to ``lib`` (ctypes entries rebound)."""
+    _build._libs[ksc._FWD_LIB] = ctypes.CDLL(str(lib))
     for k in [k for k in ksc._entries
-              if k == "step_fwd_params" or k[:1] == ("fwd",) and k[2] ==
-              "step"]:
+              if k == "lanes_fwd_params" or k[:1] == ("fwd",)]:
         del ksc._entries[k]
 
 
@@ -135,13 +135,13 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     libs = build_variants()
     chunk = ksc.STEP_TILE_T
-    result = {"device": smi, "sms": sms, "variants": {}, "control_5": {}}
+    result = {"device": smi, "sms": sms, "variants": {}, "control_6": {}}
     for v in VARIANTS:
         use(libs[v])
-        res = {dt: ksc.step_fwd_resources(getattr(torch, dt))
+        res = {dt: ksc.lanes_fwd_resources(getattr(torch, dt))
                for dt in ("bfloat16", "float32")}
         result["variants"][name(v)] = {
-            "params": ksc.step_fwd_params(), "resources": res,
+            "params": ksc.lanes_fwd_params(), "resources": res,
             "waves": {str(list(s)): s[0] * -(-s[2] // v[1]) /
                       (sms * max(1, res["bfloat16"]["blocks_per_sm"]))
                       for s in SHAPES}}
@@ -149,16 +149,15 @@ def main():
         for shape in SHAPES:
             args, dy = inputs(shape, seed=shape[2])
             use(libs[DEFAULT])
-            y0, ck0 = ksc.selective_scan_fwd(*args, chunk, "step")
+            y0, ck0 = ksc.selective_scan_fwd(*args, chunk)
             best = {v: float("inf") for v in VARIANTS}
-            best5, err = float("inf"), {}
-            step_bwd = lambda: ksc.selective_scan_bwd(*args, ck0, dy, chunk,
-                                                      "step")
+            best6, err = float("inf"), {}
+            bwd = lambda: ksc.selective_scan_bwd(*args, ck0, dy, chunk)
             for _ in range(ROUNDS):
-                best5 = min(best5, time_ms(step_bwd))
+                best6 = min(best6, time_ms(bwd))
                 for v in VARIANTS:
                     use(libs[v])
-                    fwd = lambda: ksc.selective_scan_fwd(*args, chunk, "step")
+                    fwd = lambda: ksc.selective_scan_fwd(*args, chunk)
                     y, ck = fwd()
                     err[v] = excess(y, ck, y0, ck0)
                     del y, ck
@@ -170,8 +169,8 @@ def main():
                                          f"{err[v]}")
                 result["variants"][name(v)][str(list(shape))] = {
                     "fwd_ms": best[v], "max_diff_y": err[v][1],
-                    "max_diff_ckpts": err[v][2], "vs_5": best[v] / best5}
-            result["control_5"][str(list(shape))] = best5
+                    "max_diff_ckpts": err[v][2], "vs_6": best[v] / best6}
+            result["control_6"][str(list(shape))] = best6
             del args, dy, y0, ck0
             torch.cuda.empty_cache()
     finally:

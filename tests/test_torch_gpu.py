@@ -466,7 +466,7 @@ STEP_EDGE_CASES = [(1, 1, 3, None), (1, 5, 33, None), (3, 17, 64, None),
 
 def _step_lane_steps():
     """Steps a lane of the built #3 and #5."""
-    return (ksc.step_fwd_params()["steps"], ksc.step_bwd_params()["steps"])
+    return (ksc.lanes_fwd_params()["steps"], ksc.step_bwd_params()["steps"])
 
 
 @pytest.mark.parametrize(
@@ -506,7 +506,7 @@ def test_step_fwd_kernel_repeats_bitwise(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_step_fwd_kernel_does_not_spill(cuda, dtype):
     """#3 keeps its arrays in registers (no local memory) in both builds."""
-    r = ksc.step_fwd_resources(dtype)
+    r = ksc.lanes_fwd_resources(dtype)
     assert r["local_bytes"] == 0, r
     assert r["blocks_per_sm"] >= 1, r
 
@@ -514,9 +514,9 @@ def test_step_fwd_kernel_does_not_spill(cuda, dtype):
 def test_step_fwd_grid_is_one_wave_at_mamba_2_8b(cuda):
     """At mamba-2.8b's training shape (2, 4096, 5120) bf16, #3's blocks fit
     the card's block slots at once: blocks an SM × SMs ≥ grid."""
-    r = ksc.step_fwd_resources(torch.bfloat16)
+    r = ksc.lanes_fwd_resources(torch.bfloat16)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    grid = 2 * -(-5120 // ksc.step_fwd_params()["block_d"])
+    grid = 2 * -(-5120 // ksc.lanes_fwd_params()["block_d"])
     assert r["blocks_per_sm"] * sms >= grid, (r, sms, grid)
 
 
@@ -652,3 +652,85 @@ def test_chunked_bwd_kernels_do_not_spill(cuda, dtype):
         assert res["chunk"]["warps_per_sm"] > 8, res["chunk"]
     else:
         assert res["chunk"]["warps_per_sm"] >= 8, res["chunk"]
+
+
+# ------------------------------------------------- the blocked forward (#4)
+
+# chunk 64 is the main path's (#3's kernel: every tile's entry state); the
+# others take the any-chunk kernel (the state before each chunk start, from
+# a lane's registers): 16 and 48 start inside tiles, 128 on every other
+# tile edge, 512 is longer than every L below
+BLOCKED_FWD_CHUNKS = [16, 48, 64, 128, 512]
+
+# (id, rows, L, D, dtype, offset of B and C in their projection: 8 keeps
+# every row 16-byte aligned (cp.async staging), 5 and 3 do not (plain
+# loads))
+BLOCKED_FWD_CASES = [
+    ("ragged_L_and_D", 2, 300, 100, "float32", 8),
+    ("one_step_past_a_tile", 2, 65, 17, "float32", 8),
+    ("L_below_tile_odd_batch", 3, 17, 64, "float32", 8),
+    ("bf16_ragged_L_and_D", 2, 300, 100, "bfloat16", 8),
+    ("bf16_B_C_unaligned", 2, 203, 48, "bfloat16", 5),
+    ("f32_B_C_unaligned", 2, 130, 40, "float32", 3),
+]
+
+
+def _blocked_fwd_inputs(cuda, Bz, L, D, dtype, off, chunk, seed):
+    """``_chunked_case_inputs``' operands; row 0 resets on the first and
+    last steps of a tile's first and last lanes (#4's steps a lane), on tile
+    edges and on the first steps of the first three chunks; the other rows
+    carried (first position > 0)."""
+    args, _ = _chunked_case_inputs(cuda, Bz, L, D, "packed", dtype, off,
+                                   chunk, seed)
+    r = ksc.lanes_fwd_params()["steps"]
+    cuts = {0, r - 1, 64 - r, 63, 64, 64 + r - 1, 128 - r, 128, chunk,
+            2 * chunk, 3 * chunk}
+    cuts = sorted(c for c in cuts if c < L) + [L]
+    pos = np.tile(np.arange(L) + 3, (Bz, 1)).astype(np.int32)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        pos[0, a:b] = np.arange(b - a)
+    return (*args[:6], torch.as_tensor(pos).to(cuda))
+
+
+@pytest.mark.parametrize("chunk", BLOCKED_FWD_CHUNKS)
+@pytest.mark.parametrize("Bz,L,D,dtype,off",
+                         [c[1:] for c in BLOCKED_FWD_CASES],
+                         ids=[c[0] for c in BLOCKED_FWD_CASES])
+def test_blocked_fwd_kernel_matches_plain_and_repeats(cuda, Bz, L, D, dtype,
+                                                      off, chunk):
+    """#4 against ``selective_scan_fwd_plain`` at each chunk, on resets at
+    lane, tile and chunk edges; twice, bitwise equal; one launch counted
+    per call."""
+    args = _blocked_fwd_inputs(cuda, Bz, L, D, dtype, off, chunk,
+                               L + D + chunk)
+    n0 = ksc.LAUNCHES_FWD
+    y, ck = ksc.selective_scan_fwd(*args, chunk)
+    y2, ck2 = ksc.selective_scan_fwd(*args, chunk)
+    torch.cuda.synchronize()
+    assert ksc.LAUNCHES_FWD == n0 + 2
+    assert ck.shape == (Bz, -(-L // chunk), ksc.D_STATE, D)
+    _assert_forward_close(y, ck, *ksc.selective_scan_fwd_plain(*args, chunk),
+                          dtype)
+    assert torch.equal(y, y2) and torch.equal(ck, ck2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_fwd_kernels_do_not_spill(cuda, dtype):
+    """#4's any-chunk kernel keeps its arrays and its chunk-start mask in
+    registers (no local memory) in both builds (its chunk-64 kernel is #3's:
+    ``test_step_fwd_kernel_does_not_spill``)."""
+    r = ksc.lanes_fwd_resources(dtype, 48)
+    assert r["local_bytes"] == 0, r
+    assert 0 < r["registers"] <= 255, r
+    assert r["blocks_per_sm"] >= 1, r
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_and_blocked_forwards_agree_on_lane_edges(cuda, dtype):
+    """#3 and #4 at chunk 64 on resets at lane and tile edges: one kernel
+    under two names, so y and the checkpoints bitwise equal."""
+    args = _blocked_fwd_inputs(cuda, 2, 700, 200, dtype, 8, 64, 5)
+    y3, ck3 = ksc.selective_scan_fwd(*args, 64, "step")
+    y4, ck4 = ksc.selective_scan_fwd(*args, 64, "blocked")
+    torch.cuda.synchronize()
+    assert torch.equal(y3, y4) and torch.equal(ck3, ck4)
