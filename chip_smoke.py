@@ -13,7 +13,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               paths' shapes, in bf16 and f32, timed beside the plain
               version, the library yardstick (where one PyTorch call
               computes the same function) and the least time the card could
-              take: #1 conv1d_pack forward (serving), #2 its dx backward;
+              take: #1 conv1d_pack forward (the serving buckets) and #2
+              its dx backward, both at the three models' training shapes
+              and one element a thread at (2, 997, 4100), twice and
+              bitwise equal (their run lengths, blocks, registers and
+              spills in their ``kernels`` entries' ``resources``);
               the Mamba-1 selective scan's two schedules, #4 / #6 (blocked;
               #4 is #3's kernel with any chunk, also run at chunks 128
               and 48; #6 chunk-parallel: carry, combine and chunk kernels; the
@@ -47,7 +51,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               (exact counts per step asserted); one more pack step under
               ``torch.profiler`` (device time by kernel, the device's busy
               share; it must name #6's three kernels 3 × 48 times); then 2
-              steps in ``pad`` mode for the paper's comparison.
+              steps in ``pad`` mode for the paper's comparison. Every
+              profiled step runs with the launch counters too, which must
+              repeat the timed steps' counts, and its trace must name each
+              counted kernel as often as it launched: a trace that lost a
+              device record is set aside and the step traced again (at
+              most 3 traces).
 8. Mamba-2 — serving parity and the engine on mamba2-370m (48 layers,
               bf16), then its training main path: 48 layers, 8 × 4096
               packed (``train_mamba2``), launch counts asserted exactly,
@@ -87,6 +96,11 @@ MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
 TRAIN_SHAPE = (2, 4096, 4096)    # (rows, L, d_inner): mamba-1.4b training
 TRAIN_SHAPE_28 = (2, 4096, 5120)  # mamba-2.8b training
 RAGGED_SHAPE = (2, 997, 4096)    # an L that is no multiple of any tile
+MAMBA2_CONV_SHAPE = (8, 4096, 2048)  # mamba2-370m training: (rows, L, d_inner)
+ONE_WIDE_SHAPE = (2, 997, 4100)  # D no multiple of 8: #1 and #2 one
+#                                  element a thread in bf16
+CONV_TRAIN_SHAPES = {"mamba-1.4b": TRAIN_SHAPE, "mamba-2.8b": TRAIN_SHAPE_28,
+                     "mamba2-370m": MAMBA2_CONV_SHAPE}
 SCAN_RAGGED = (2, 997, 4104)     # and a D that is no multiple of a channel
 #                                  block (16 or 32)
 SCAN_CASES = ((TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE_28, "bfloat16"),
@@ -211,15 +225,24 @@ def timing_iters(shape):
 
 
 def phase_conv_fwd():
+    """Kernel #1 at the serving buckets, the three models' training shapes
+    and a one-element-wide shape, against ``conv1d_pack_plain``; twice,
+    bitwise equal."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
     rows, worst = [], 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in SHAPES:
+        for shape in (*SHAPES, TRAIN_SHAPE_28, MAMBA2_CONV_SHAPE,
+                      ONE_WIDE_SHAPE):
             x, w, b, pos = conv_inputs(shape, dtype, seed=shape[1])
             y = kconv.conv1d_pack(x, w, b, pos)
+            launch = kconv.LAST_LAUNCH
+            again = kconv.conv1d_pack(x, w, b, pos)
             torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"conv1d_pack kernel is not bitwise "
+                                     f"repeatable at {shape} {dtype}")
             want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(),
                                            pos)
             err = (y.float() - want).abs()
@@ -245,6 +268,8 @@ def phase_conv_fwd():
                 "kernel": "conv1d_pack_fwd",
                 "shape": list(shape), "dtype": str(dtype).split(".")[-1],
                 "max_abs_err": err.max().item(), "tolerance": tol,
+                "bitwise_repeat": True,
+                "launch": launch,
                 "kernel_ms": graph_ms(kern, it), "plain_ms":
                 graph_ms(plain, it), "library_ms": graph_ms(lib, it),
                 "bound_ms": bound, "bound_by": by,
@@ -252,19 +277,21 @@ def phase_conv_fwd():
                 "plain_eager_ms": eager_ms(plain),
                 "library_eager_ms": eager_ms(lib)})
             emit("kernels", **rows[-1])
-            del x, y, want, err, xc
+            del x, y, again, want, err, xc
     return rows, worst
 
 
 def phase_conv_dx():
-    """Kernel #2 at the training shape and at a ragged L, against
-    ``conv1d_pack_bwd_dx_plain``; twice, bitwise equal."""
+    """Kernel #2 at the three models' training shapes, a ragged L and a
+    one-element-wide shape, against ``conv1d_pack_bwd_dx_plain``; twice,
+    bitwise equal."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
     rows, worst = [], 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in (TRAIN_SHAPE, RAGGED_SHAPE):
+        for shape in (TRAIN_SHAPE, RAGGED_SHAPE, TRAIN_SHAPE_28,
+                      MAMBA2_CONV_SHAPE, ONE_WIDE_SHAPE):
             B, L, D = shape
             pos = torch.as_tensor(packed_positions(B, L, L), device="cuda")
             g = torch.Generator(device="cuda").manual_seed(L + 1)
@@ -272,6 +299,7 @@ def phase_conv_dx():
             w = torch.randn((4, D), generator=g, device="cuda").mul(
                 0.5).to(dtype)
             dx = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+            launch = kconv.LAST_LAUNCH
             again = kconv.conv1d_pack_bwd_dx(dy, w, pos)
             torch.cuda.synchronize()
             want = kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
@@ -300,6 +328,7 @@ def phase_conv_dx():
                 "dtype": str(dtype).split(".")[-1],
                 "max_abs_err": err.max().item(), "tolerance": tol,
                 "bitwise_repeat": True,
+                "launch": launch,
                 "kernel_ms": graph_ms(kern, 10, 3),
                 "plain_ms": graph_ms(plain, 10, 3),
                 "library_ms": graph_ms(lib, 10, 3), "bound_ms": bound,
@@ -979,11 +1008,24 @@ def kernel_group(name):
     return next((g for key, g in KERNEL_GROUPS if key in low), "other")
 
 
-def profile_step(step_fn, state, batch):
-    """One train step under ``torch.profiler``: device time by kernel group
-    and by kernel (the trace's CUDA events), and the device's busy share —
-    the union of kernel intervals over the step's host-clock wall time,
-    which the profiler's own host overhead lengthens."""
+# a launch of each counted kernel leaves this many device records in a trace,
+# under this group (#6 runs its carry, combine and chunk kernels)
+RECORDS_PER_LAUNCH = {"conv1d_pack_fwd": ("conv fwd #1", 1),
+                      "conv1d_pack_bwd_dx": ("conv dx #2", 1),
+                      "selective_scan_fwd": ("scan fwd #4", 1),
+                      "selective_scan_bwd": ("scan bwd #6", 3),
+                      "selective_scan_fwd_step": ("scan fwd step #3", 1),
+                      "selective_scan_bwd_step": ("scan bwd step #5", 1),
+                      "selective_scan_heads_fwd": ("heads scan fwd #7", 1),
+                      "selective_scan_heads_fwd_dual":
+                          ("heads scan fwd dual #8", 1),
+                      "selective_scan_heads_bwd": ("heads scan bwd #9", 1)}
+PROFILE_TRACES = 3   # traces taken at most until one holds every launch
+
+
+def trace_step(step_fn, state, batch):
+    """One train step under ``torch.profiler``: the step's wall time on the
+    host's clock and its device events (kernels, copies, sets)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -996,9 +1038,46 @@ def profile_step(step_fn, state, batch):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return state, {"measured": False,
-                       "why": "the trace holds no device events"}
+    return state, wall_ms, kernels
+
+
+def profile_step(step_fn, state, batch, launches_per_step):
+    """One train step under ``torch.profiler``: device time by kernel group
+    and by kernel (the trace's CUDA events), and the device's busy share —
+    the union of kernel intervals over the step's host-clock wall time,
+    which the profiler's own host overhead lengthens.
+
+    The launch counters run through the traced step and must equal
+    ``launches_per_step`` (the timed steps' counts). The trace must then
+    name each counted kernel as often as it launched. The profiler can
+    lose a few device records of a step (on an H100 one mamba2-370m step's
+    trace held 18609 to 18629 device events between runs of the same
+    program, and once one #7 launch too few), so a trace that
+    lacks a launch the counters saw is set aside, with what it lacked,
+    and the step traced again, up to ``PROFILE_TRACES`` times; the caller
+    then holds the trace that is reported to its exact counts."""
+    set_aside = []
+    for _ in range(PROFILE_TRACES):
+        zero_launches()
+        state, wall_ms, kernels = trace_step(step_fn, state, batch)
+        launches = read_launches()
+        if launches != launches_per_step:
+            raise AssertionError(f"the profiled step launched {launches}, "
+                                 f"the timed steps {launches_per_step} "
+                                 f"a step")
+        if not kernels:
+            return state, {"measured": False,
+                           "why": "the trace holds no device events"}
+        named = {}
+        for e in kernels:
+            g = kernel_group(e.name)
+            named[g] = named.get(g, 0) + 1
+        lacks = {g: n * launches[k] - named.get(g, 0)
+                 for k, (g, n) in RECORDS_PER_LAUNCH.items()
+                 if launches[k] and named.get(g, 0) != n * launches[k]}
+        if not lacks:
+            break
+        set_aside.append({"kernels": len(kernels), "lacks": lacks})
     by_name, by_group, calls = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -1024,6 +1103,7 @@ def profile_step(step_fn, state, batch):
         "busy_ms": busy / 1e3, "busy_share_of_wall": busy / 1e3 / wall_ms,
         "busy_share_of_kernel_window": busy / max(window, 1e-9),
         "kernels": len(kernels),
+        "traces_set_aside": set_aside,
         "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "by_group_calls": calls,
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
@@ -1075,8 +1155,9 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     step_ms = sum(h["step_ms"] for h in hist)
     real = sum(h["real_tokens"] for h in hist)
     buf = sum(h["buffer_tokens"] for h in hist)
-    state, profiled = profile_step(trainer.step_fn, state,
-                                   trainer.loader.batch(1 + steps))
+    state, profiled = profile_step(
+        trainer.step_fn, state, trainer.loader.batch(1 + steps),
+        {k: v // steps for k, v in launches.items()})
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "remat": cfg.remat, "pallas_schedule": cfg.pallas_schedule,
@@ -1352,6 +1433,21 @@ def main():
                 "at": {"shape": row["shape"], "dtype": row["dtype"]},
                 **extra}
 
+    def conv_resources(kind, rows):
+        """#1's or #2's registers, spills and blocks an SM (both dtypes,
+        both widths), and the run and blocks each timed shape took."""
+        from repro_torch.kernels import conv1d_pack as kconv
+        return {"kernels": {
+            f"{dt}{'_one_wide' if ow else ''}": kconv.conv_resources(
+                kind, getattr(torch, dt), ow)
+            for dt in ("bfloat16", "float32") for ow in (False, True)},
+            "shapes": {f"{r['dtype']} {tuple(r['shape'])}": r["launch"]
+                       for r in rows}}
+
+    def conv_train_ms(rows):
+        return {arch: main_row(rows, shape)["kernel_ms"]
+                for arch, shape in CONV_TRAIN_SHAPES.items()}
+
     def heads_row(name):
         return main_row([r for r in heads_rows if r["kernel"] == name],
                         HEADS_SHAPE)
@@ -1373,11 +1469,18 @@ def main():
               main_row(conv_rows, MAIN_SHAPE), eng["conv1d_pack_launches"],
               conv_worst, launches_per_prefill=cfg.n_layers,
               launches_train=launches["conv1d_pack_fwd"],
-              train_ms=main_row(conv_rows, TRAIN_SHAPE)["kernel_ms"]),
+              launches_train_step=launches3["conv1d_pack_fwd"],
+              launches_train_mamba2=launches2["conv1d_pack_fwd"],
+              resources=conv_resources("fwd", conv_rows),
+              train_ms=conv_train_ms(conv_rows)),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),
-              launches["conv1d_pack_bwd_dx"], dx_worst),
+              launches["conv1d_pack_bwd_dx"], dx_worst,
+              launches_train_step=launches3["conv1d_pack_bwd_dx"],
+              launches_train_mamba2=launches2["conv1d_pack_bwd_dx"],
+              resources=conv_resources("bwd_dx", dx_rows),
+              train_ms=conv_train_ms(dx_rows)),
         entry("selective_scan_fwd_step", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:116", step_fwd_row,
               launches3["selective_scan_fwd_step"],

@@ -66,6 +66,180 @@ def test_conv_dx_kernel_matches_plain_and_repeats(cuda, dtype):
     assert torch.equal(dx, again)
 
 
+def _run_edge_positions(Bz, L, seed):
+    """Row 0: a reset near every 16th row, on it or 1 before, 1 or 2 after
+    (on a run's first row and within W-1 rows of a run edge for runs 1, 4
+    and 16); the other rows: carried rows of a split pack (first position
+    > 0), or constant 7 where L = 1."""
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((Bz, L), np.int32)
+    starts = sorted({0} | {e + (0, 1, -1, 2)[(e // 16) % 4]
+                           for e in range(16, L, 16) if e + 2 < L})
+    for a, b in zip(starts, starts[1:] + [L]):
+        pos[0, a:b] = np.arange(b - a)
+    pos[1:] = 7 if L == 1 else tpk.pack_with_split(
+        [rng.integers(1, 9, size=n) for n in (L + L // 3, L)], L).positions[1]
+    return pos
+
+
+def _conv_case(cuda, tdt, Bz, L, D, W, one_wide, seed):
+    """x, w, b, dy, pos on the card. The 16-byte path: x the strided half
+    of an xz buffer, dy contiguous. The one-element path: x and dy one
+    element past an aligned start."""
+    rng = np.random.default_rng(seed)
+    f = dict(device=cuda, dtype=tdt)
+    w = torch.as_tensor(rng.normal(size=(W, D))).to(**f)
+    b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    if one_wide:
+        x = torch.as_tensor(rng.normal(size=(Bz, L, D + 1))).to(**f)[..., 1:]
+        dy = torch.as_tensor(rng.normal(size=Bz * L * D + 1)).to(**f)[1:]
+        dy = dy.view(Bz, L, D)
+    else:
+        x = torch.as_tensor(rng.normal(size=(Bz, L, 2 * D))).to(**f)
+        x = x.chunk(2, dim=-1)[0]
+        dy = torch.as_tensor(rng.normal(size=(Bz, L, D))).to(**f)
+    pos = torch.as_tensor(_run_edge_positions(Bz, L, seed)).to(cuda)
+    assert kconv.vector_path(x, w, b, strides=x.stride()[:2], D=D) == \
+        (not one_wide)
+    assert kconv.vector_path(dy, w, D=D) == (not one_wide)
+    return x, w, b, dy, pos
+
+
+# (B, L, D, W, one element a thread): L 997, L < run, L = 1; W 1-4; D no
+# multiple of a vector (3, 33, 100, 4100) on the one-element path
+CONV_RUN_CASES = [(2, 997, 104, 4, False), (2, 45, 104, 2, False),
+                  (2, 1, 8, 4, False), (2, 130, 16, 1, False),
+                  (2, 997, 24, 3, False), (2, 997, 33, 4, True),
+                  (2, 45, 3, 3, True), (2, 300, 4100, 4, True),
+                  (2, 130, 100, 2, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bz,L,D,W,one_wide", CONV_RUN_CASES)
+def test_conv_kernels_match_plain_on_every_run(cuda, Bz, L, D, W, one_wide,
+                                               dtype):
+    """#1 and #2 at runs 1, 4, 16, 64 and one longer than L against their
+    plain versions: #1 f32 1e-5, bf16 one rounding of the f32 sum; #2
+    1e-5 · (1 + |ref|); both the same bits at every run (the FMA chain does
+    not depend on the run). Each launch reports the run it was given and
+    the channels a thread of its path."""
+    tdt = getattr(torch, dtype)
+    x, w, b, dy, pos = _conv_case(cuda, tdt, Bz, L, D, W, one_wide, L + D)
+    want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+    want_dx = kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
+    first = None
+    n0 = (kconv.LAUNCHES, kconv.LAUNCHES_DX)
+    width = 1 if one_wide else 16 // x.element_size()
+    for run in (1, 4, 16, 64, L + 5):
+        y = kconv._launch_fwd(x, w, b, pos, run=run)
+        assert kconv.LAST_LAUNCH["run"] == run
+        assert kconv.LAST_LAUNCH["width"] == width
+        dx = kconv._launch_dx(dy, w, pos, run=run)
+        torch.cuda.synchronize()
+        err = (y.float() - want).abs()
+        if dtype == "float32":
+            assert bool((err <= 1e-5).all()), (run, err.max())
+        else:
+            assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6).all()), \
+                (run, err.max())
+        assert bool(((dx - want_dx).abs()
+                     <= 1e-5 * (1 + want_dx.abs())).all()), run
+        if first is None:
+            first = (y, dx)
+        assert torch.equal(y, first[0]) and torch.equal(dx, first[1]), run
+    assert (kconv.LAUNCHES, kconv.LAUNCHES_DX) == (n0[0] + 5, n0[1] + 5)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd_dx"])
+def test_conv_kernels_take_any_length(cuda, kind):
+    """A buffer of 1.1 M rows at the wrappers' own run (16 for #1, 4 for
+    #2) puts more than 65535 runs, so more than 65535 blocks, on grid.x;
+    the output matches the plain version over the whole buffer."""
+    Bz, L, D = 1, 1_100_000, 8
+    rng = np.random.default_rng(4)
+    f = dict(device=cuda, dtype=torch.bfloat16)
+    x = torch.as_tensor(rng.normal(size=(Bz, L, D))).to(**f)
+    w = torch.as_tensor(rng.normal(size=(4, D))).to(**f)
+    b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    # a carried row (first position 7), then a reset every 997 rows
+    pos = torch.as_tensor((np.arange(L) + 7) % 997, dtype=torch.int32)
+    pos = pos[None].to(cuda)
+    if kind == "fwd":
+        got = kconv.conv1d_pack(x, w, b, pos)
+        want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+        tol = 2.0 ** -8 * want.abs() + 1e-6
+    else:
+        got = kconv.conv1d_pack_bwd_dx(x, w, pos)
+        want = kconv.conv1d_pack_bwd_dx_plain(x, w, pos)
+        tol = 1e-5 * (1 + want.abs())
+    torch.cuda.synchronize()
+    grid = kconv.LAST_LAUNCH["grid"]
+    assert kconv.LAST_LAUNCH["kind"] == kind and grid[0] > 65535, grid
+    assert grid[0] * kconv.LAST_LAUNCH["run"] >= L
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("one_wide", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_kernels_keep_masked_nan_and_inf_out(cuda, dtype, one_wide):
+    """NaN and inf in rows of another segment, where every tap that reaches
+    them is masked, leave every output finite: #1 reads back across a reset
+    into the segment before, #2 forward across it into the segment after."""
+    tdt = getattr(torch, dtype)
+    Bz, L, D, W = 2, 200, 40, 4
+    x, w, b, dy, _ = _conv_case(cuda, tdt, Bz, L, D, W, one_wide, 5)
+    pos = torch.as_tensor(np.tile(np.concatenate(
+        [np.arange(70), np.arange(130)]), (Bz, 1)).astype(np.int32)).to(cuda)
+    x[:, 60:70] = float("nan")
+    x[:, 64:66, ::3] = float("inf")
+    dy[:, 70:80] = float("nan")
+    dy[:, 71:73, ::3] = -float("inf")
+    y = kconv.conv1d_pack(x, w, b, pos)
+    dx = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y[:, 70:]).all())
+    assert bool(torch.isfinite(dx[:, :70]).all())
+    want = kconv.conv1d_pack_plain(x[:, 70:].float(), w.float(), b.float(),
+                                   pos[:, 70:])
+    torch.testing.assert_close(y[:, 70:].float(), want.float(),
+                               atol=1e-5, rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_fwd_kernel_repeats_bitwise(cuda, dtype):
+    """#1 twice at mamba-1.4b's width on a packed, ragged L: y bitwise
+    equal."""
+    tdt = getattr(torch, dtype)
+    x, w, b, _, pos = _conv_case(cuda, tdt, 2, 997, 4096, 4, False, 9)
+    y, again = (kconv.conv1d_pack(x, w, b, pos) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("one_wide", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["fwd", "bwd_dx"])
+def test_conv_kernels_do_not_spill(cuda, kind, dtype, one_wide, W):
+    """#1 and #2 keep their taps and row windows in registers (no local
+    memory) at every conv width the wrappers take, both channel widths and
+    both dtypes."""
+    r = kconv.conv_resources(kind, dtype, one_wide, W)
+    assert r["local_bytes"] == 0, r
+    assert 0 < r["registers"] <= 255 and r["blocks_per_sm"] >= 2, r
+
+
+def test_conv_serving_bucket_puts_two_blocks_on_every_sm(cuda):
+    """At (2, 256, 4096) bf16, the largest serving bucket, the run rule's
+    grid has at least two blocks for each SM, and two fit an SM at once."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    lp = kconv.conv_params(2, 256, 4096, torch.bfloat16)
+    assert lp["blocks"] >= 2 * sms, (lp, sms)
+    for kind in ("fwd", "bwd_dx"):
+        assert kconv.conv_resources(kind, torch.bfloat16)[
+            "blocks_per_sm"] >= 2
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("chunk", [16, 64])
 def test_scan_kernels_match_plain_and_repeat(cuda, dtype, chunk):
