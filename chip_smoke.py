@@ -70,6 +70,18 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               step (#1 128, #2 64, #3 128, #5 64, #4 and #6 0) and one
               profiled step, which must name #3 and #5 128 and 64 times;
               pack only.
+10. tune    — the scan autotuner (``repro_torch.tune``) into a cache file in
+              a temporary directory: the sweep of mamba-1.4b's layer shape
+              (2, 4096, d_inner 4096, N 16, bf16, packed, forward +
+              backward) and of mamba2-370m's (8, 4096, 32 heads of 64, N
+              64, bf16, forward), every candidate's µs (the probe µs of
+              those pruned) and the winner; each kernel candidate must be
+              measured. Then ``train`` again with ``scan_tune=<that
+              cache>`` (exact launch counts of the winner's kernels,
+              nothing else; the host µs of the scans' tune resolution and
+              the lookups its memo missed), and the mamba-1.4b engine
+              with ``scan_tune`` on (it sweeps its three prefill buckets),
+              beside the untuned numbers of this run.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -81,6 +93,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -118,6 +131,13 @@ PARITY_TOL = 1e-3                # max |Δ| / max(1, max |ref|), 48 f32 layers
 TRAIN_PARITY_TOL = 1e-3          # max |Δ| / max |ref| per gradient leaf
 BWD_TOL = 1e-3                   # max |Δ| / max(1, max |ref|) per output
 TIMED_STEPS = 4
+# the tune phase's sweeps: mamba-1.4b's training layer and mamba2-370m's
+# layer (forward, where the two heads forms differ; #9 serves both)
+TUNE_SWEEPS = (dict(op="selective_scan", B=2, L=4096, D=4096, N=16,
+                    dtype="bfloat16", objective="fwdbwd"),
+               dict(op="selective_scan_heads", B=8, L=4096, H=32, dh=64,
+                    N=64, dtype="bfloat16", objective="fwd"))
+TUNE_ROUNDS = 3
 
 
 def emit(phase, **kw):
@@ -836,10 +856,23 @@ PATH_KERNELS = {"mamba": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
                            "selective_scan_heads_bwd")}
 
 
-def path_kernels(cfg, schedule=None):
+def path_kernels(cfg, schedule=None, rows=2):
     """The kernels ``cfg``'s training path runs: the Mamba-1 scan's by
-    ``cfg.pallas_schedule``, the Mamba-2 scan's forward by ``schedule``."""
+    ``cfg.pallas_schedule``, the Mamba-2 scan's forward by ``schedule``;
+    with ``cfg.scan_tune`` on, by the cached winner at (``rows``, 4096):
+    a plain winner runs no scan kernel (None in their places)."""
     ks = list(PATH_KERNELS[cfg.unit[0]])
+    if cfg.scan_tune != "off":
+        from repro_torch.tune import config_shape_args, tuned
+        args = config_shape_args(cfg, rows, 4096)
+        kn = tuned(args.pop("op"), objective=cfg.tune_objective,
+                   cache=None if cfg.scan_tune == "auto" else cfg.scan_tune,
+                   **args)
+        if kn.get("backend") != "pallas":
+            return ks[:2] + [None, None]
+        schedule = kn["schedule"]
+        if cfg.unit[0] == "mamba":
+            cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
     if cfg.unit[0] == "mamba":
         ks[2:] = SCAN_KERNELS[cfg.pallas_schedule]
     if schedule == "blocked_heads_dual":
@@ -877,10 +910,10 @@ def plain_path():
     saved = blocks.kops
     blocks.kops = types.SimpleNamespace(
         conv1d_pack=core_conv.conv1d_pack,
-        selective_scan=lambda u, dt, A, B, C, D, positions, schedule: (
+        selective_scan=lambda u, dt, A, B, C, D, positions, **_: (
             core_ssm.selective_scan(u, dt, A, B, C, D, positions=positions,
                                     method="blocked", chunk=64)),
-        selective_scan_heads=lambda u, dt, A, B, C, D, positions: (
+        selective_scan_heads=lambda u, dt, A, B, C, D, positions, **_: (
             core_ssm.selective_scan_heads(u, dt, A, B, C, D,
                                           positions=positions,
                                           method="blocked", chunk=64)))
@@ -1109,12 +1142,45 @@ def profile_step(step_fn, state, batch, launches_per_step):
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
 
 
+@contextlib.contextmanager
+def resolver_clock(on):
+    """While ``on``: the host seconds and calls of the scan wrappers' tune
+    resolution (``kernels/ops.py`` ``_resolve_tune``) and the cache
+    lookups its per-key memo did not answer (``TuneCache._find``)."""
+    got = {"calls": 0, "s": 0.0, "uncached": 0}
+    if not on:
+        yield got
+        return
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tune.cache import TuneCache
+    resolve, find = kops._resolve_tune, TuneCache._find
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return resolve(*a, **k)
+        finally:
+            got["s"] += time.perf_counter() - t
+            got["calls"] += 1
+
+    def counted(self, *a, **k):
+        got["uncached"] += 1
+        return find(self, *a, **k)
+
+    kops._resolve_tune, TuneCache._find = timed, counted
+    try:
+        yield got
+    finally:
+        kops._resolve_tune, TuneCache._find = resolve, find
+
+
 def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
-                pad=True):
+                pad=True, tune=None):
     """The training main path at ``arch``'s full width and depth, ``rows``
     × 4096 packed, the Mamba-1 scan on ``schedule`` (the config's
-    ``pallas_schedule`` when None); with ``pad``, 2 steps in ``pad`` mode
-    after the pack steps."""
+    ``pallas_schedule`` when None), or on the winner of the tuning cache
+    ``tune`` (forward + backward sweeps, as the training launcher sets);
+    with ``pad``, 2 steps in ``pad`` mode after the pack steps."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models.lm import LM
@@ -1124,6 +1190,9 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     cfg = get_config(arch)
     if schedule is not None:
         cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
+    if tune is not None:
+        cfg = dataclasses.replace(cfg, scan_tune=tune,
+                                  tune_objective="fwdbwd")
     model = LM(cfg)
     opt = AdamW(cosine_schedule(3e-4, warmup=1, total=steps + 3))
     trainer = Trainer(model, opt, train_loader(cfg, "pack", rows=rows),
@@ -1134,17 +1203,19 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     trainer.cfg.steps = 1 + steps
-    t0 = time.perf_counter()
-    state, hist = trainer.train(state=state, start_step=1, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with resolver_clock(tune is not None) as resolver:
+        t0 = time.perf_counter()
+        state, hist = trainer.train(state=state, start_step=1, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     L = cfg.n_layers
-    conv, dx, fwd, bwd = path_kernels(cfg)
+    conv, dx, fwd, bwd = path_kernels(cfg, rows=rows)
     want = {k: 0 for k in launches}
     want.update({conv: 2 * L * steps,               # forward + recompute
                  dx: L * steps, fwd: 2 * L * steps, bwd: L * steps})
+    want.pop(None, None)                            # a plain tuned winner
     if launches != want:
         raise AssertionError(f"training launched {launches}, remat='unit' "
                              f"over {L} layers × {steps} steps implies "
@@ -1161,6 +1232,8 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "remat": cfg.remat, "pallas_schedule": cfg.pallas_schedule,
+           "scan_tune": "off" if tune is None else "cache",
+           "scan_kernels": [fwd, bwd],
            "rows": rows, "seq_len": 4096, "mode": "pack",
            "warmup_steps": 1, "timed_steps": steps, "losses": losses,
            "grad_norms": [h["grad_norm"] for h in hist],
@@ -1174,6 +1247,13 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
            "launches_per_step": {k: v // steps for k, v in
                                  launches.items()},
            "profile": profiled}
+    if tune is not None:
+        out["tune_resolver"] = {
+            "resolves_per_step": resolver["calls"] / steps,
+            "host_us_per_step": resolver["s"] * 1e6 / steps,
+            "host_us_per_resolve": resolver["s"] * 1e6 /
+            max(1, resolver["calls"]),
+            "uncached_lookups": resolver["uncached"]}
     if pad:
         # the paper's comparison (a smoke reading): one sequence per row
         padt = Trainer(model, opt, train_loader(cfg, "pad", rows=rows),
@@ -1301,6 +1381,92 @@ def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0):
             "conv1d_pack_launches": launches}
 
 
+def phase_tune_sweep(cache, spec):
+    """One sweep of the tuner (``runner.sweep``, the launchers' timing) at
+    the key ``spec`` on the card, its winner put in ``cache``: every
+    candidate's best µs, and the probe µs of those pruned; every kernel
+    candidate must have been measured."""
+    from repro_torch.tune import runner, space
+    t0 = time.perf_counter()
+    import torch
+    spec = dict(spec)
+    k = space.shape_key(spec.pop("op"), **spec)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    ranked, pruned = runner.sweep(k, rounds=TUNE_ROUNDS, verbose=True)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    ran = [n for n, _, _ in ranked]
+    kernel = [space.candidate_name(c) for c in space.kernel_candidates(k)]
+    if not kernel or any(n not in ran for n in kernel):
+        raise AssertionError(f"the sweep at {k.encode()} measured {ran}; "
+                             f"its kernel candidates are {kernel}")
+    name, knobs, us = ranked[0]
+    cache.put(k, knobs, us, candidates=len(ranked), kernels=True)
+    seen = set(ran) | {n for n, _, _ in pruned}
+    return {"key": k.encode(), "rounds": TUNE_ROUNDS,
+            "candidates_us": {n: t for n, _, t in ranked},
+            "pruned_probe_us": {n: t for n, _, t in pruned},
+            "prune_factor": runner.PRUNE_FACTOR,
+            "dropped": [space.candidate_name(c)
+                        for c in space.space_for(k, include_pallas=True)
+                        if space.candidate_name(c) not in seen],
+            "kernel_candidates": kernel, "winner": name,
+            "winner_knobs": knobs, "winner_us": us,
+            "alloc_retries": retries, "seconds": time.perf_counter() - t0}
+
+
+def phase_tune(tr, eng):
+    """Sweep both models' layer shapes into a cache file in a temporary
+    directory, train mamba-1.4b with ``scan_tune=<that file>``, and serve
+    it with tuning on (the engine sweeps its prefill buckets); ``tr`` and
+    ``eng`` are the untuned ``train`` and ``engine`` results of this run."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.tune import cache as tcache
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "TUNE_CACHE_torch.json")
+        cache = tcache.get_cache(path)
+        sweeps = []
+        for spec in TUNE_SWEEPS:
+            sweeps.append(phase_tune_sweep(cache, spec))
+            emit("tune_sweep", **sweeps[-1])
+        cache.save()
+        win = sweeps[0]["winner_knobs"]
+        want = list(SCAN_KERNELS[win["schedule"]]) \
+            if win["backend"] == "pallas" else [None, None]
+        tt = phase_train(tune=path, pad=False)
+        prof = tt.pop("profile")
+        if tt["scan_kernels"] != want:
+            raise AssertionError(f"the tuned step ran {tt['scan_kernels']}, "
+                                 f"the winner's kernels are {want}")
+        emit("train_tuned", **tt,
+             untuned={"ms_per_step": tr["ms_per_step"],
+                      "real_tok_per_s": tr["real_tok_per_s"],
+                      "pallas_schedule": tr["pallas_schedule"]})
+        emit("train_tuned_profile", **prof)
+        cfg = dataclasses.replace(get_config("mamba-1.4b"), scan_tune=path)
+        model = LM(cfg)
+        model.init(torch.Generator(device=model.device).manual_seed(0))
+        t1 = time.perf_counter()
+        et = phase_engine(model, cfg)
+        serve_keys = sorted(k for k in cache.entries
+                            if k.startswith("selective_scan|") and
+                            not k.endswith("fwdbwd") and "|L4096|" not in k)
+        emit("engine_tuned", arch=cfg.name, dtype=cfg.dtype,
+             layers=cfg.n_layers, **et,
+             seconds_with_sweeps=time.perf_counter() - t1,
+             bucket_winners={k: cache.entries[k] for k in serve_keys},
+             untuned={"ttft_p50_ms": eng["ttft_p50_ms"],
+                      "tok_per_s": eng["tok_per_s"],
+                      "prefill_ms_per_prefill":
+                          eng["prefill_ms_per_prefill"]})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return tt, time.perf_counter() - t0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1416,11 +1582,17 @@ def main():
     emit("train_step", **tr3)
     emit("train_step_profile", **prof3)
 
+    # the tuner: both layer shapes swept, mamba-1.4b trained and served
+    # with the cache, beside the untuned numbers above
+    tt, tune_s = phase_tune(tr, eng)
+    emit("tune", seconds=tune_s)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
 
     def entry(name, src, replaces, row, launches, worst, **extra):
+        extra.setdefault("launches_train_tuned", launches_t[name])
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches,
@@ -1457,7 +1629,7 @@ def main():
                          and r["chunk"] == ops.SCAN_CHUNK], shape)
 
     launches, launches2 = tr["launches"], tr2["launches"]
-    launches3 = tr3["launches"]
+    launches3, launches_t = tr3["launches"], tt["launches"]
     dual_path = tp2["blocked_heads_dual"]["launches_kernel_path"]
     fwd_row = scan_row("selective_scan_fwd", TRAIN_SHAPE)
     bwd_row = scan_row("selective_scan_bwd", TRAIN_SHAPE)

@@ -7,7 +7,8 @@ the device of the tensor picks the kernel (CUDA) or its plain version
 (CPU). ``pallas_schedule`` has the JAX field's name and default and picks
 the Mamba-1 training scan's kernels: ``"blocked"`` (#4/#6) or ``"step"``
 (#3/#5). The Mamba-2 scan runs ``blocked_heads`` (``blocked_heads_dual``
-through ``kernels.ops.selective_scan_heads(schedule=...)``).
+through ``kernels.ops.selective_scan_heads(schedule=...)``). With
+``scan_tune`` on, the tuner's measured winner replaces both choices.
 """
 from __future__ import annotations
 
@@ -44,10 +45,24 @@ class ArchConfig:
     #                                   scan's kernels (#3/#5 | #4/#6)
     scan_chunk: int = 256             # chunk length of the plain blocked
     #                                   scan (serving's state handoff)
-    scan_impl: str = "blocked"        # blocked | sequential
+    scan_impl: str = "blocked"        # blocked | chunked | fused_seq |
+    #                                   sequential | associative (mamba1)
     scan_intra: Optional[str] = None  # blocked in-chunk evaluator: None =
     #                                   "assoc" | "matmul" (mamba1), None =
     #                                   "quad" | "dual" (mamba2)
+    scan_tune: str = "off"            # shape-keyed autotuning
+    #                                   (repro_torch.tune): "off" = the knobs
+    #                                   above stand as they are (the scans
+    #                                   never consult the tuner); "auto" =
+    #                                   resolve measured winners from the
+    #                                   process-default TUNE_CACHE_torch.json;
+    #                                   a path = from that cache file.
+    #                                   launch/train.py and launch/serve.py
+    #                                   warm the cache for their shapes.
+    tune_objective: str = "fwd"       # which sweep's winners scan_tune
+    #                                   resolves: "fwd" (forward only —
+    #                                   serving) | "fwdbwd" (forward +
+    #                                   backward — what launch/train.py sets)
     remat: str = "unit"               # none | unit (checkpoint each layer)
 
     @property

@@ -15,11 +15,24 @@ last token that segment's final state, so the per-segment finals are the
 trajectory sampled at ``collect_ends`` (B, S) (−1 = absent → zeros). The
 blocked schedule samples them from the in-chunk states it already holds.
 
-Methods: ``sequential`` (reference walk over the full (B, L, D, N)
-trajectory) and ``blocked`` (chunks of T, only the (B, D, N) state carried
-across chunks; ``intra`` evaluates a chunk either as a log₂T doubling tree
-of the combine step, ``assoc``, or as the masked decay contraction,
-``matmul``, capped at T = 32).
+Methods (the JAX package's five):
+  * ``sequential``, ``chunked``, ``associative`` — build the full
+    (B, L, D, N) decay and input trajectories and run ``core/scan.py``'s
+    schedule of that name over them (``chunked``: chunks of T, the doubling
+    tree inside each; ``associative``: one tree over L, for short L);
+  * ``fused_seq`` — one walk over time with y = C·h folded in, so the
+    (B, L, D, N) trajectory never exists;
+  * ``blocked`` — chunks of T, only the (B, D, N) state carried across
+    chunks; ``intra`` evaluates a chunk either as a log₂T doubling tree of
+    the combine step, ``assoc``, or as the masked decay contraction,
+    ``matmul``, capped at T = 32. Under autograd each chunk is checkpointed
+    (recomputed in the backward), as the JAX package's ``jax.checkpoint``
+    does, so the backward keeps only the chunk-entry states.
+
+``tune=`` ("auto", a cache path or a ``TuneCache``) resolves (method,
+chunk, intra) from the shape-keyed tuning cache (``repro_torch.tune``);
+a miss, or a winner that is one of the kernels, leaves the explicit
+arguments as they are.
 
 Mamba-2 (``selective_scan_heads``): u (B, L, H, dh), a SCALAR decay per
 head, exp(Δ[b,l,h]·A[h]), and B, C (B, L, N) shared by every head, so the
@@ -33,9 +46,10 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.scan import (associative_pairs, gather_state_ends,
-                                   scan_sequential, scan_step)
+                                   scan_step, segmented_scan)
 
 _MATMUL_CHUNK_CAP = 32    # blocked/matmul intra: bounds the T²·D·N operand
 _HEADS_CHUNK_CAP = 64     # blocked heads (quad): bounds the (T, T, H) decay
@@ -49,33 +63,26 @@ def _dtype(dt: Union[None, str, torch.dtype], like: torch.dtype) -> torch.dtype:
     return getattr(torch, dt) if isinstance(dt, str) else dt
 
 
-def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor,
-                   D: Optional[torch.Tensor] = None,
-                   positions: Optional[torch.Tensor] = None,
-                   h0: Optional[torch.Tensor] = None,
-                   method: str = "blocked", chunk: int = 256,
-                   return_state: bool = False,
-                   compute_dtype=None, intra: Optional[str] = None,
-                   collect_ends: Optional[torch.Tensor] = None):
-    """u, delta: (B, L, D); A: (D, N); B, C: (B, L, N); D: (D,).
+def _tuned_knobs(op, tune, *, B, L, D=0, N=0, H=0, dh=0, dtype, positions,
+                 device, objective="fwd"):
+    """The measured plain-path knobs for one call site, or {} on a miss.
 
-    positions: (B, L) int (reset where == 0); h0: (B, D, N) initial state;
-    compute_dtype: recurrence dtype (default f32); intra: blocked in-chunk
-    evaluator ('assoc', the default, | 'matmul'); collect_ends: (B, S)
-    segment-end indices. Returns y (B, L, D) [, h_last (B, D, N)]
-    [, h_ends (B, S, D, N)].
-    """
-    cdt = _dtype(compute_dtype, u.dtype)
-    if method == "blocked":
-        y, h_last, h_ends = _blocked_ssm(u, delta, A, B, C, D, positions, h0,
-                                         cdt, chunk, intra, collect_ends)
-    elif method == "sequential":
-        y, h_last, h_ends = _sequential_ssm(u, delta, A, B, C, D, positions,
-                                            h0, cdt, collect_ends)
-    else:
-        raise ValueError(f"unknown scan method {method!r}; the port has "
-                         f"'blocked' and 'sequential'")
+    ``tune``: "auto" (the process-default cache), a cache path or a
+    ``TuneCache``; ``objective``: which sweep's winner ("fwd" | "fwdbwd");
+    ``device``: the operands' (entries timed on another device miss).
+    A winner that is one of the kernels (``backend`` "pallas") is ignored at
+    this level: ``kernels/ops.py`` resolves those."""
+    from repro_torch.tune import tuned   # lazy: the tuner imports this module
+    kn = tuned(op, cache=None if tune == "auto" else tune,
+               B=B, L=L, D=D, N=N, H=H, dh=dh, dtype=dtype,
+               reset_density=None if positions is not None else 0.0,
+               objective=objective, device=device)
+    if not kn or kn.get("backend", "xla") != "xla":
+        return {}
+    return kn
+
+
+def _pack_out(y, h_last, h_ends, return_state, collect_ends):
     out = (y,)
     if return_state:
         out += (h_last,)
@@ -84,13 +91,62 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     return out[0] if len(out) == 1 else out
 
 
-def _sequential_ssm(u, delta, A, B, C, D, positions, h0, cdt, collect_ends):
+def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   D: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   h0: Optional[torch.Tensor] = None,
+                   method: str = "blocked", chunk: int = 256,
+                   return_state: bool = False,
+                   compute_dtype=None, intra: Optional[str] = None,
+                   collect_ends: Optional[torch.Tensor] = None,
+                   tune=None, tune_objective: str = "fwd"):
+    """u, delta: (B, L, D); A: (D, N); B, C: (B, L, N); D: (D,).
+
+    positions: (B, L) int (reset where == 0); h0: (B, D, N) initial state;
+    method: 'blocked' | 'chunked' | 'fused_seq' | 'sequential' |
+    'associative' (module docstring); compute_dtype: recurrence dtype
+    (default f32); intra: blocked in-chunk evaluator ('assoc', the default,
+    | 'matmul'); collect_ends: (B, S) segment-end indices; tune: None (off)
+    | "auto" | cache path | TuneCache, the explicit arguments being the
+    miss fallback. Returns y (B, L, D) [, h_last (B, D, N)]
+    [, h_ends (B, S, D, N)].
+    """
+    if tune is not None:
+        kn = _tuned_knobs("selective_scan", tune, B=u.shape[0], L=u.shape[1],
+                          D=u.shape[2], N=A.shape[-1], dtype=u.dtype,
+                          positions=positions, device=u.device,
+                          objective=tune_objective)
+        method = kn.get("method", method)
+        chunk = kn.get("chunk", chunk)
+        intra = kn.get("intra", intra)
+    cdt = _dtype(compute_dtype, u.dtype)
+    if method == "blocked":
+        y, h_last, h_ends = _blocked_ssm(u, delta, A, B, C, D, positions, h0,
+                                         cdt, chunk, intra, collect_ends)
+    elif method == "fused_seq":
+        y, h_last, h_ends = _fused_seq_ssm(u, delta, A, B, C, D, positions,
+                                           h0, cdt, collect_ends)
+    elif method in ("sequential", "chunked", "associative"):
+        y, h_last, h_ends = _trajectory_ssm(u, delta, A, B, C, D, positions,
+                                            h0, cdt, collect_ends, method,
+                                            chunk)
+    else:
+        raise ValueError(f"unknown scan method {method!r}")
+    return _pack_out(y, h_last, h_ends, return_state, collect_ends)
+
+
+def _trajectory_ssm(u, delta, A, B, C, D, positions, h0, cdt, collect_ends,
+                    method, chunk):
+    """The (B, L, D, N) trajectories through ``segmented_scan``'s
+    ``method``, then y = C·h and the segment-end samples."""
     d32 = delta.to(cdt)
     a = torch.exp(d32[..., None] * A.to(cdt))                      # (B,L,D,N)
     bterm = (d32 * u.to(cdt))[..., None] * B.to(cdt)[:, :, None, :]
     reset = (positions == 0) if positions is not None else None
-    h, h_last = scan_sequential(a, bterm, reset=reset,
-                                h0=None if h0 is None else h0.to(cdt))
+    h, h_last = segmented_scan(a, bterm, reset=reset,
+                               h0=None if h0 is None else h0.to(cdt),
+                               method=method, chunk=chunk)
     y = torch.einsum("bldn,bln->bld", h, C.to(cdt))
     if D is not None:
         y = y + D.to(cdt) * u.to(cdt)
@@ -130,12 +186,13 @@ def _blocked_ssm(u, delta, A, B, C, D, positions, h0, cdt, chunk,
         else h0.to(cdt)
     tril = torch.ones((T, T), dtype=torch.bool, device=dev).tril()
     collect = collect_ends is not None
+    acc = None
     if collect:
         acc = torch.zeros((Bsz, collect_ends.shape[1], Dm, N), dtype=cdt,
                           device=dev)
         rows = torch.arange(Bsz, device=dev)[:, None]
-    ys = []
-    for ci in range(nc):
+
+    def chunk_step(h, acc, ci):
         sl = slice(ci * T, (ci + 1) * T)
         d32 = delta[:, sl].to(cdt)
         rc = reset[:, sl]
@@ -161,11 +218,56 @@ def _blocked_ssm(u, delta, A, B, C, D, positions, h0, cdt, chunk,
             ok = (local >= 0) & (local < T)
             sel = hc[rows, local.clamp(0, T - 1)]                  # (B,S,D,N)
             acc = acc + torch.where(ok[..., None, None], sel, 0.0)
-        ys.append(torch.einsum("bidn,bin->bid", hc, C[:, sl].to(cdt)))
-        h = hc[:, -1]
+        return hc[:, -1], acc, torch.einsum("bidn,bin->bid", hc,
+                                            C[:, sl].to(cdt))
+
+    if torch.is_grad_enabled():
+        # the backward recomputes each chunk from its entry state, so it
+        # keeps no (B, T, D, N) intermediate of any chunk
+        step = lambda h, acc, ci: checkpoint(chunk_step, h, acc, ci,
+                                             use_reentrant=False)
+    else:
+        step = chunk_step
+    ys = []
+    for ci in range(nc):
+        h, acc, y = step(h, acc, ci)
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :L]
     if D is not None:
         y = y + D.to(cdt) * u[:, :L].to(cdt)
+    return y.to(u.dtype), h, (acc if collect else None)
+
+
+def _fused_seq_ssm(u, delta, A, B, C, D, positions, h0, cdt,
+                   collect_ends=None):
+    """One walk over time with y = C·h folded in: only the (B, D, N) state
+    is live, the (B, L, D, N) trajectory never exists."""
+    Bsz, L, Dm = u.shape
+    N = A.shape[-1]
+    A32 = A.to(cdt)
+    d32 = delta.to(cdt)
+    du = d32 * u.to(cdt)                                           # (B,L,D)
+    B32, C32 = B.to(cdt), C.to(cdt)
+    h = torch.zeros((Bsz, Dm, N), dtype=cdt, device=u.device) if h0 is None \
+        else h0.to(cdt)
+    collect = collect_ends is not None
+    if collect:
+        acc = torch.zeros((Bsz, collect_ends.shape[1], Dm, N), dtype=cdt,
+                          device=u.device)
+    ys = []
+    for t in range(L):
+        a_t = torch.exp(d32[:, t, :, None] * A32)                  # (B,D,N)
+        if positions is not None:
+            a_t = torch.where((positions[:, t] == 0)[:, None, None], 0.0,
+                              a_t)
+        h = a_t * h + du[:, t, :, None] * B32[:, t, None, :]
+        if collect:
+            acc = acc + torch.where((collect_ends == t)[..., None, None],
+                                    h[:, None], 0.0)
+        ys.append(torch.einsum("bdn,bn->bd", h, C32[:, t]))
+    y = torch.stack(ys, dim=1)
+    if D is not None:
+        y = y + D.to(cdt) * u.to(cdt)
     return y.to(u.dtype), h, (acc if collect else None)
 
 
@@ -200,19 +302,29 @@ def selective_scan_heads(u: torch.Tensor, delta: torch.Tensor,
                          method: str = "blocked", chunk: int = 64,
                          return_state: bool = False,
                          compute_dtype=None, intra: Optional[str] = None,
-                         collect_ends: Optional[torch.Tensor] = None):
+                         collect_ends: Optional[torch.Tensor] = None,
+                         tune=None, tune_objective: str = "fwd"):
     """u: (B, L, H, dh); delta: (B, L, H); A: (H,), the Mamba-2 scalar
     decay per head; B, C: (B, L, N); D: (H,); positions: (B, L) int (reset
     where == 0); h0: (B, H, dh, N); collect_ends: (B, S) segment-end
     indices (−1 = absent). ``method`` 'blocked' (``intra`` 'quad'
-    (default) | 'dual') or 'sequential'. (The JAX function also takes a
-    per-channel A (H, N) with dh == 1; here that is ``selective_scan``.)
+    (default) | 'dual') or 'sequential'; ``tune`` as in
+    ``selective_scan``. (The JAX function also takes a per-channel A (H, N)
+    with dh == 1; here that is ``selective_scan``.)
 
     Returns y (B, L, H, dh) [, h_last (B, H, dh, N)]
     [, h_ends (B, S, H, dh, N)]."""
     if A.dim() != 1:
         raise ValueError(f"selective_scan_heads takes a scalar decay per "
                          f"head, A (H,); got A{tuple(A.shape)}")
+    if tune is not None:
+        kn = _tuned_knobs("selective_scan_heads", tune, B=u.shape[0],
+                          L=u.shape[1], N=B.shape[-1], H=u.shape[2],
+                          dh=u.shape[3], dtype=u.dtype, positions=positions,
+                          device=u.device, objective=tune_objective)
+        method = kn.get("method", method)
+        chunk = kn.get("chunk", chunk)
+        intra = kn.get("intra", intra)
     cdt = _dtype(compute_dtype, u.dtype)
     if method == "blocked":
         y, h_last, h_ends = _blocked_ssm_heads(
@@ -223,12 +335,7 @@ def selective_scan_heads(u: torch.Tensor, delta: torch.Tensor,
             u, delta, A, B, C, D, positions, h0, cdt, collect_ends)
     else:
         raise ValueError(f"unknown scalar-decay scan method {method!r}")
-    out = (y,)
-    if return_state:
-        out += (h_last,)
-    if collect_ends is not None:
-        out += (h_ends,)
-    return out[0] if len(out) == 1 else out
+    return _pack_out(y, h_last, h_ends, return_state, collect_ends)
 
 
 def _heads_decay(d32, A32, rc, tril):

@@ -22,6 +22,16 @@ and D themselves and read the public layouts through their strides.
   (``schedule="blocked_heads"``) or #8 (``"blocked_heads_dual"``),
   backward kernel #9 for both; its per-slice partials of dΔ, dB, dC, dA
   and dD are summed here the same way.
+
+Both scans take ``backend`` as the JAX wrappers do: ``"pallas"`` (the
+default here) is the kernels, ``"xla"`` the plain scans of ``core/ssm.py``
+(``xla_method``, ``xla_chunk``, ``xla_intra``), differentiated by
+autograd. ``tune=`` ("auto", a cache path or a ``TuneCache``) resolves
+every knob, backend included, from the shape-keyed tuning cache
+(``repro_torch.tune``); a kernel winner's schedule and chunk reach the
+``autograd.Function``, so the backward runs the winner's kernel. The JAX
+package resolves once, when it traces; these wrappers resolve at every
+call, which the cache's per-key memo keeps to a dictionary lookup.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import ssm as core_ssm
 from repro_torch.kernels import conv1d_pack as conv_k
 from repro_torch.kernels import selective_scan as scan_k
 from repro_torch.kernels import selective_scan_heads as heads_k
@@ -100,13 +111,70 @@ class _Scan(torch.autograd.Function):
                 None)
 
 
+def _resolve_tune(op, tune, *, B, L, D=0, N=0, H=0, dh=0, dtype, positions,
+                  device, objective="fwd"):
+    """The measured winner for one call site on ``device``, or {} on a miss
+    (the caller's arguments stand). Unlike the plain-only resolver in
+    ``core/ssm.py``, this level owns the backend: a kernel winner carries
+    (schedule, pchunk), a plain one (method, chunk, intra). On the card a
+    plain winner is taken only from a sweep that timed the kernel
+    candidates; any other raises, so the kernels never give way to the
+    plain scans unmeasured."""
+    # lazy: the tuner imports this module
+    from repro_torch.tune import candidate_name, tuned_entry
+    rec = tuned_entry(op, cache=None if tune == "auto" else tune,
+                      B=B, L=L, D=D, N=N, H=H, dh=dh, dtype=dtype,
+                      reset_density=None if positions is not None else 0.0,
+                      objective=objective, device=device)
+    if rec is None:
+        return {}
+    kn = rec["knobs"]
+    if device.type == "cuda" and kn.get("backend") != "pallas" and \
+            not rec.get("kernels"):
+        raise RuntimeError(
+            f"the tuning cache's winner for this {op} call, "
+            f"{candidate_name(kn)}, comes from a sweep without the kernel "
+            f"candidates; re-tune on the card (python -m "
+            f"repro_torch.tune.runner --force)")
+    return kn
+
+
+def _apply_knobs(kn, backend, schedule, chunk, xla_method, xla_chunk,
+                 xla_intra):
+    backend = kn.get("backend", backend)
+    if backend == "pallas":
+        return (backend, kn.get("schedule", schedule),
+                kn.get("pchunk", chunk), xla_method, xla_chunk, xla_intra)
+    return (backend, schedule, chunk, kn.get("method", xla_method),
+            kn.get("chunk", xla_chunk), kn.get("intra", xla_intra))
+
+
 def selective_scan(u, delta, A, B, C, D=None, positions=None, *,
-                   chunk: int = SCAN_CHUNK, schedule: str = "blocked"):
+                   backend: str = "pallas", chunk: int = SCAN_CHUNK,
+                   schedule: str = "blocked", xla_chunk: int = 256,
+                   xla_method: str = "blocked", xla_intra=None, tune=None,
+                   tune_objective: str = "fwd"):
     """Segmented selective scan, y only, differentiable. u, delta
     (B, L, Dm) | A (Dm, N) | B, C (B, L, N), any batch/row strides (the
     kernels read ``split`` views of x_proj's output as they are) |
     D (Dm,) or None | positions (B, L) or None (= one segment per row).
-    ``schedule``: 'blocked' (kernels #4/#6) | 'step' (kernels #3/#5)."""
+    ``schedule``: 'blocked' (kernels #4/#6) | 'step' (kernels #3/#5);
+    ``backend``, ``xla_*`` and ``tune``: the module docstring."""
+    if tune is not None:
+        kn = _resolve_tune("selective_scan", tune, B=u.shape[0],
+                           L=u.shape[1], D=u.shape[2], N=A.shape[-1],
+                           dtype=u.dtype, positions=positions,
+                           device=u.device, objective=tune_objective)
+        backend, schedule, chunk, xla_method, xla_chunk, xla_intra = \
+            _apply_knobs(kn, backend, schedule, chunk, xla_method, xla_chunk,
+                         xla_intra)
+    if backend == "xla":
+        return core_ssm.selective_scan(u, delta, A, B, C, D,
+                                       positions=positions,
+                                       method=xla_method, chunk=xla_chunk,
+                                       intra=xla_intra)
+    if backend != "pallas":
+        raise ValueError(f"unknown backend {backend!r}")
     scan_k.check_schedule(schedule)
     Bz, L, Dm = u.shape
     if D is None:
@@ -144,15 +212,34 @@ class _ScanHeads(torch.autograd.Function):
 
 
 def selective_scan_heads(u, delta, A, B, C, D=None, positions=None, *,
-                         chunk: int = HEADS_CHUNK,
-                         schedule: str = "blocked_heads"):
+                         backend: str = "pallas", chunk: int = HEADS_CHUNK,
+                         schedule: str = "blocked_heads", xla_chunk: int = 64,
+                         xla_method: str = "blocked", xla_intra=None,
+                         tune=None, tune_objective: str = "fwd"):
     """Head-structured segmented selective scan (scalar decay per head),
     y only, differentiable. u (B, L, H, P) | delta (B, L, H) | A (H,) |
     B, C (B, L, N), any batch/row strides (the kernels read ``split``
     views of bc_proj's output as they are) | D (H,) or None | positions
     (B, L) or None (= one segment per row). ``schedule``: 'blocked_heads'
     (kernel #7) | 'blocked_heads_dual' (kernel #8). The chunk is clipped
-    to L, as the JAX wrapper clips it."""
+    to L, as the JAX wrapper clips it. ``backend``, ``xla_*`` and
+    ``tune``: the module docstring."""
+    if tune is not None:
+        kn = _resolve_tune("selective_scan_heads", tune, B=u.shape[0],
+                           L=u.shape[1], N=B.shape[-1], H=u.shape[2],
+                           dh=u.shape[3], dtype=u.dtype, positions=positions,
+                           device=u.device, objective=tune_objective)
+        backend, schedule, chunk, xla_method, xla_chunk, xla_intra = \
+            _apply_knobs(kn, backend, schedule, chunk, xla_method, xla_chunk,
+                         xla_intra)
+    if backend == "xla":
+        return core_ssm.selective_scan_heads(u, delta, A, B, C, D,
+                                             positions=positions,
+                                             method=xla_method,
+                                             chunk=xla_chunk,
+                                             intra=xla_intra)
+    if backend != "pallas":
+        raise ValueError(f"unknown backend {backend!r}")
     if schedule not in heads_k.SCHEDULES:
         raise ValueError(f"unknown heads schedule {schedule!r}")
     Bz, L, H, _ = u.shape

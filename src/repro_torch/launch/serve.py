@@ -19,6 +19,7 @@ snapshot/restore, the prefix state cache, speculative decode and telemetry.
   python -m repro_torch.launch.serve --arch mamba-1.4b
   python -m repro_torch.launch.serve --arch mamba2-370m
   python -m repro_torch.launch.serve --arch mamba-110m --tiny --device cpu
+  python -m repro_torch.launch.serve --arch mamba-1.4b --scan-tune auto
 """
 from __future__ import annotations
 
@@ -113,6 +114,15 @@ class ServeEngine:
         # are free (or nothing is decoding at all).
         self.refill_threshold = max(1, num_slots // 2) \
             if refill_threshold is None else refill_threshold
+        if model.cfg.scan_tune != "off":
+            # warm the scan tuning cache for every prefill shape the engine
+            # runs, as the JAX engine does. Its packed prefill runs the
+            # plain scans, whose resolver serves only plain winners: where
+            # a kernel wins, the config's knobs stand.
+            from repro_torch.tune import warm_for_config
+            warm_for_config(model.cfg, [(prefill_rows, b)
+                                        for b in self.buckets],
+                            device=model.device)
         self.cache = model.init_cache(num_slots)
         self.cache_len = torch.zeros(num_slots, dtype=torch.int32,
                                      device=self.device)
@@ -307,12 +317,18 @@ def main(argv=None):
                     choices=["first_fit", "sequential", "sorted_greedy"])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
+    ap.add_argument("--scan-tune", default="off",
+                    help="off | auto | <cache path>: shape-keyed scan "
+                         "autotuning (the engine warms the cache for its "
+                         "prefill buckets at start-up)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = dataclasses.replace(cfg, d_model=128, n_layers=4, vocab=512,
                                   dtype="float32", scan_chunk=64)
+    if args.scan_tune != "off":
+        cfg = dataclasses.replace(cfg, scan_tune=args.scan_tune)
     model = LM(cfg, args.device)
     model.init(torch.Generator(device=model.device).manual_seed(args.seed))
     engine = ServeEngine(model, args.slots, args.max_len, policy=args.policy)

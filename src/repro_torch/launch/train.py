@@ -6,9 +6,13 @@ packed Mamba-1 or Mamba-2 training with the scan and conv kernels.
   python -m repro_torch.launch.train --tiny --device cpu --steps 3 \\
       --rows 2 --seq-len 256
 
-Runs on ``cuda`` unless ``--device cpu`` is given. Left for later slices
-(ROADMAP): ``--ckpt-dir``/``--ckpt-every``, ``--scan-tune``,
-``--model-axis``, ``--obs-trace``, ``--profile-dir`` and ``--dry-run``.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--scan-tune auto``
+(the process-default ``TUNE_CACHE_torch.json``) or ``--scan-tune <path>``
+sweeps the scan's schedules forward + backward at the run's (rows,
+seq-len) before the first step, unless the cache holds that key, and the
+model then runs the measured winner. Left for later slices (ROADMAP):
+``--ckpt-dir``/``--ckpt-every``, ``--model-axis``, ``--obs-trace``,
+``--profile-dir`` and ``--dry-run``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the corpus")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--scan-tune", default="off",
+                    help="off | auto | <cache path>: shape-keyed scan "
+                         "autotuning (repro_torch.tune); the cache is warmed "
+                         "for the training shape before the first step")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -65,7 +73,17 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, dtype=args.dtype or cfg.dtype,
             param_dtype=args.param_dtype or cfg.param_dtype)
+    if args.scan_tune != "off":
+        # measure or load the scan winners for this run's shape bucket
+        # before the first step; a training launcher times forward +
+        # backward and the step resolves those winners
+        cfg = dataclasses.replace(cfg, scan_tune=args.scan_tune,
+                                  tune_objective="fwdbwd")
     model = LM(cfg, args.device)
+    if args.scan_tune != "off":
+        from repro_torch.tune import warm_for_config
+        warm_for_config(cfg, [(args.rows, args.seq_len)],
+                        objective="fwdbwd", device=model.device)
     # the paper's lengths (57..2048); a buffer shorter than 2048 clips them
     # to its own length, where the JAX launcher would fail to pack
     corpus = SyntheticCorpus(CorpusConfig(

@@ -121,6 +121,14 @@ def _conv_tail_ends(x_in, ends, lens, W):
     return torch.where(ok[..., None], g, torch.zeros_like(g))
 
 
+def _tune_kw(cfg: ArchConfig):
+    """The scans' tuning kwargs: ``tune`` from ``cfg.scan_tune`` (None when
+    "off": the tuner is never consulted) and which sweep objective's
+    winners to resolve (training configs set tune_objective="fwdbwd")."""
+    return {"tune": None if cfg.scan_tune == "off" else cfg.scan_tune,
+            "tune_objective": cfg.tune_objective}
+
+
 def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
                 collect_ends=None):
     """x (B, L, d) → x + block(x) [, state]. The conv is the
@@ -139,7 +147,7 @@ def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
     delta = F.softplus(dt_low @ p["dt_w"].to(h.dtype) + p["dt_b"].to(h.dtype))
     A = -torch.exp(p["A_log"])
     scan_kw = dict(method=cfg.scan_impl, chunk=cfg.scan_chunk,
-                   intra=cfg.scan_intra)
+                   intra=cfg.scan_intra, **_tune_kw(cfg))
     if collect and collect_ends is not None:
         # per-SEGMENT handoff: resets already isolate segments, so the state
         # sampled at each segment end IS its final state
@@ -164,10 +172,14 @@ def apply_mamba(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
                  "ssm": h_last}
         return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype), state
     # training / plain forward: the scan kernels (differentiable) of the
-    # config's schedule, as the JAX package's backend="pallas" path
+    # config's schedule, as the JAX package's backend="pallas" path, or
+    # the tuner's winner with scan_tune on
     y = kops.selective_scan(x_c, delta, A, Bm, Cm, p["D"],
                             positions=ctx.positions,
-                            schedule=cfg.pallas_schedule)
+                            schedule=cfg.pallas_schedule,
+                            xla_chunk=cfg.scan_chunk,
+                            xla_method=cfg.scan_impl,
+                            xla_intra=cfg.scan_intra, **_tune_kw(cfg))
     return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
 
 
@@ -277,7 +289,7 @@ def apply_mamba2(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
     A = -torch.exp(p["A_log"])
     u_h = x_c.reshape(Bz, L, H, P)
     scan_kw = dict(method="blocked", chunk=cfg.scan_chunk,
-                   intra=cfg.scan_intra)
+                   intra=cfg.scan_intra, **_tune_kw(cfg))
     if collect and collect_ends is not None:
         # per-SEGMENT handoff, as apply_mamba: resets isolate segments
         y, h_ends = core_ssm.selective_scan_heads(
@@ -303,7 +315,9 @@ def apply_mamba2(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
         y = _mamba2_gate_out(p, y.reshape(Bz, L, di), z, cfg)
         return x + y @ p["out_proj"].to(x.dtype), state
     y = kops.selective_scan_heads(u_h, delta, A, Bm, Cm, p["D"],
-                                  positions=ctx.positions)
+                                  positions=ctx.positions,
+                                  xla_chunk=cfg.scan_chunk,
+                                  xla_intra=cfg.scan_intra, **_tune_kw(cfg))
     y = _mamba2_gate_out(p, y.reshape(Bz, L, di), z, cfg)
     return x + y @ p["out_proj"].to(x.dtype)
 

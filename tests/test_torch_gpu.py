@@ -908,3 +908,85 @@ def test_step_and_blocked_forwards_agree_on_lane_edges(cuda, dtype):
     y4, ck4 = ksc.selective_scan_fwd(*args, 64, "blocked")
     torch.cuda.synchronize()
     assert torch.equal(y3, y4) and torch.equal(ck3, ck4)
+
+
+# ------------------------------------------------------------- the tuner
+
+TUNE_KEYS = [("selective_scan", dict(B=1, L=256, D=64, N=16), "fwdbwd"),
+             ("selective_scan_heads", dict(B=1, L=256, H=2, dh=64, N=64),
+              "fwd")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op,shape,objective", TUNE_KEYS)
+def test_tune_sweep_measures_every_kernel_candidate(cuda, op, shape,
+                                                    objective, dtype):
+    """On the card the sweep adds the kernel candidates, runs each and drops
+    none; each agrees with the plain blocked scan on the sweep's own
+    operands (forward 1e-4 abs + rel in f32, two bf16 roundings in bf16;
+    loss 1e-3 relative; each gradient within 1e-3 (f32) or 2e-2 (bf16:
+    dy and the outputs rounded to bf16) of its largest magnitude)."""
+    from repro_torch.tune import runner as trunner
+    from repro_torch.tune import space as tspace
+    k = tspace.shape_key(op, dtype=dtype, objective=objective, **shape)
+    kern = tspace.kernel_candidates(k)
+    assert kern
+    ranked, pruned = trunner.sweep(k, rounds=1)
+    names = {n for n, _, _ in ranked}
+    assert {tspace.candidate_name(c) for c in kern} <= names
+    assert all(kn.get("backend") != "pallas" for _, kn, _ in pruned)
+    assert all(us > 0 for _, _, us in ranked)
+    args = trunner.synth_args(k, device=cuda)
+    ref = trunner.make_thunk(k, {"backend": "xla", "method": "blocked",
+                                 "chunk": 16}, args)()
+    for c in kern:
+        got = trunner.make_thunk(k, c, args)()
+        if objective == "fwd":
+            tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                       atol=1e-2 if tol > 1e-4 else 1e-4)
+        else:
+            torch.testing.assert_close(got[0], ref[0], rtol=1e-3, atol=0.0)
+            tol = 2e-2 if dtype == "bfloat16" else 1e-3
+            for a, b in zip(got[1], ref[1]):
+                scale = b.float().abs().max().item()
+                assert (a.float() - b.float()).abs().max().item() <= \
+                    tol * scale, (tspace.candidate_name(c), scale)
+
+
+@pytest.mark.parametrize("op,knobs,counter", [
+    ("selective_scan", {"backend": "pallas", "schedule": "step",
+                        "pchunk": 64}, ("LAUNCHES_FWD_STEP",
+                                        "LAUNCHES_BWD_STEP")),
+    ("selective_scan", {"backend": "pallas", "schedule": "blocked",
+                        "pchunk": 128}, ("LAUNCHES_FWD", "LAUNCHES_BWD")),
+    ("selective_scan_heads", {"backend": "pallas",
+                              "schedule": "blocked_heads_dual",
+                              "pchunk": 128}, ("LAUNCHES_DUAL",
+                                               "LAUNCHES_BWD"))])
+def test_tuned_kernel_winner_launches_its_own_kernels(cuda, op, knobs,
+                                                      counter):
+    """A kernel winner in the cache, resolved by ``kernels/ops.py`` from a
+    call asking for the plain backend, launches exactly the winner's
+    forward and backward kernels."""
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import runner as trunner
+    from repro_torch.tune import space as tspace
+    shape = dict(TUNE_KEYS[0][1] if op == "selective_scan" else
+                 TUNE_KEYS[1][1])
+    k = tspace.shape_key(op, objective="fwdbwd", **shape)
+    c = tcache.TuneCache()
+    c.put(k, knobs, 1.0)
+    u, delta, A, Bm, Cm, Dk, pos = trunner.synth_args(k, device=cuda)
+    mod = kh if op == "selective_scan_heads" else ksc
+    names = ("LAUNCHES_FWD", "LAUNCHES_BWD", "LAUNCHES_FWD_STEP",
+             "LAUNCHES_BWD_STEP", "LAUNCHES_DUAL")
+    before = {n: getattr(mod, n) for n in names if hasattr(mod, n)}
+    leaves = [t.requires_grad_() for t in (u, delta, Bm, Cm)]
+    y = getattr(tops, op)(leaves[0], leaves[1], A, leaves[2], leaves[3],
+                          Dk, pos, backend="xla", tune=c,
+                          tune_objective="fwdbwd")
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    ran = {n: getattr(mod, n) - v for n, v in before.items()}
+    assert ran == {n: int(n in counter) for n in before}

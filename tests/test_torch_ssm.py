@@ -87,7 +87,7 @@ def test_selective_scan_bf16_compute_and_bad_method():
     assert y.dtype == torch.float32
     _close(y, jref(u, delta, A, B, C, D, positions=pos), atol=0.1)
     with pytest.raises(ValueError):
-        tssm.selective_scan(*_t(u, delta, A, B, C, D), method="chunked")
+        tssm.selective_scan(*_t(u, delta, A, B, C, D), method="scanned")
     with pytest.raises(ValueError):
         tssm.selective_scan(*_t(u, delta, A, B, C, D), intra="quad")
 
