@@ -82,6 +82,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the lookups its memo missed), and the mamba-1.4b engine
               with ``scan_tune`` on (it sweeps its three prefill buckets),
               beside the untuned numbers of this run.
+11. checkpoint — kill and resume on the card: mamba-1.4b at full width
+              (d_model 2048, d_inner 4096, N 16, vocab 50280) with 4 layers,
+              bf16 compute, f32 params, random weights from seed 0,
+              ``PackingLoader`` pack 2 × 4096 at seed 0, ``Obs.on()``. Run A
+              takes 6 steps straight. Run B saves every 2 steps (keep 2)
+              and its loader sends this process SIGTERM as step 3's batch
+              is fetched: the trainer's handler sets its flag and the
+              trainer makes its blocking emergency save at step 4 and
+              stops (the process's SIGTERM/SIGINT handlers are put back
+              after). Step 4 was just saved periodically, so the
+              emergency save waits for that write and marks its manifest:
+              two snapshots, one mark, and no longer than that write
+              plus 0.5 s. Run C, a fresh trainer on the same directory,
+              restores step 4 (parameters, m, v and step bitwise those at
+              the emergency save) and takes steps 4 and 5, whose losses
+              must equal run A's bitwise. The trace of the three runs
+              passes ``obs.check`` with ``train.step``/``train.data`` and
+              the ``ckpt.*`` spans required and ``train.steps`` = 12. Printed beside the card's
+              name and power limit: the checkpoint's bytes, the snapshot
+              ms (the loop's device → host stall), the async write, the
+              emergency save and the restore seconds, each run's ms/step.
+              Then ``python -m repro_torch.launch.train --tiny --steps 3
+              --ckpt-dir D --ckpt-every 1 --obs-trace T --profile-dir P``
+              as a subprocess on the card: it must exit 0, D must hold
+              steps 1–3, T pass ``obs.check`` and P hold a trace naming a
+              ``conv1d_pack`` kernel.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -91,6 +117,7 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -138,6 +165,11 @@ TUNE_SWEEPS = (dict(op="selective_scan", B=2, L=4096, D=4096, N=16,
                dict(op="selective_scan_heads", B=8, L=4096, H=32, dh=64,
                     N=64, dtype="bfloat16", objective="fwd"))
 TUNE_ROUNDS = 3
+# the checkpoint phase: 4 layers keep a checkpoint (weights, m and v in
+# f32) at ≈ 3.7 GB, where 48 would write ≈ 17.7 GB twice
+CKPT_LAYERS = 4
+CKPT_STEPS = 6
+CKPT_KILL_AT = 3             # SIGTERM as this step's batch is fetched
 
 
 def emit(phase, **kw):
@@ -1467,6 +1499,198 @@ def phase_tune(tr, eng):
     return tt, time.perf_counter() - t0
 
 
+def phase_checkpoint(smi, arch="mamba-1.4b", layers=CKPT_LAYERS,
+                     seq_len=4096, device="cuda"):
+    """Kill and resume (phase 11 of the module docstring): runs A
+    (straight), B (SIGTERM, emergency save) and C (restore, finish); raises
+    unless the emergency save is marked, the restored state is bitwise the
+    saved one, C's losses are bitwise A's and the trace validates."""
+    import signal
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.obs import Obs
+    from repro_torch.obs.check import check_trace
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    obs = Obs.on()
+
+    def trainer(loader=None, ckpt_dir=None, every=0):
+        opt = AdamW(cosine_schedule(3e-4, warmup=1, total=CKPT_STEPS))
+        return Trainer(LM(cfg, device), opt,
+                       loader or train_loader(cfg, "pack", seq_len),
+                       TrainerConfig(steps=CKPT_STEPS, ckpt_every=every,
+                                     ckpt_dir=ckpt_dir, keep_ckpts=2),
+                       obs=obs)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    class KillAt:
+        """The loader, sending this process SIGTERM as it fetches one
+        step's batch."""
+
+        def __init__(self, loader, step):
+            self.loader, self.step, self.sent = loader, step, False
+
+        def batch(self, step):
+            if step == self.step:
+                self.sent = True
+                os.kill(os.getpid(), signal.SIGTERM)
+            return self.loader.batch(step)
+
+    def ms_per_step(hist):
+        return sum(h["step_ms"] for h in hist) / len(hist)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ta = trainer()
+        n_params = sum(p.numel() for p in ta.model.parameters())
+        _, hist_a = ta.train(gen(0), verbose=False)
+        del ta
+        handlers = {s: signal.getsignal(s)
+                    for s in (signal.SIGTERM, signal.SIGINT)}
+        kill = KillAt(train_loader(cfg, "pack", seq_len), CKPT_KILL_AT)
+        tb = trainer(kill, ckpt_dir, every=2)
+        try:
+            state_b, hist_b = tb.train(gen(0), verbose=False)
+        finally:
+            for s, h in handlers.items():
+                signal.signal(s, h)
+        ckpt = tb.ckpt
+        steps = ckpt.all_steps()
+        meta = ckpt.read_meta(CKPT_KILL_AT + 1)["meta"]
+        if not kill.sent or len(hist_b) != CKPT_KILL_AT + 1 or \
+                steps != [2, CKPT_KILL_AT + 1] or \
+                meta != {"step": CKPT_KILL_AT + 1, "emergency": True}:
+            raise AssertionError(
+                f"SIGTERM at step {CKPT_KILL_AT} (sent: {kill.sent}): run B "
+                f"took {len(hist_b)} steps, published {steps}, the last "
+                f"manifest's meta {meta}")
+        # the ckpt.* gauges hold the last save's, step 4's periodic one
+        met = obs.metrics
+        saves, marks = (met.counter(n).value
+                        for n in ("ckpt.saves", "ckpt.marks"))
+        snapshot_ms, write_s, wait_s, nbytes, emergency_s = (
+            met.gauge(n).value for n in (
+                "ckpt.snapshot_ms", "ckpt.write_s", "ckpt.wait_s",
+                "ckpt.bytes", "train.emergency_save_s"))
+        if saves != 2 or marks != 1 or emergency_s > write_s + 0.5:
+            raise AssertionError(
+                f"run B took {saves} snapshots and {marks} marks (want 2, "
+                f"1); its emergency save took {emergency_s} s against the "
+                f"last write's {write_s} s")
+        tc = trainer(ckpt_dir=ckpt_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_c, step_c = tc.restore_or_init(gen(1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        differ = [f"{part}/{k}" for part, a, b in (
+            ("params", state_c["params"], state_b["params"]),
+            ("m", state_c["opt"].m, state_b["opt"].m),
+            ("v", state_c["opt"].v, state_b["opt"].v))
+            for k in b if not torch.equal(a[k], b[k])]
+        if step_c != CKPT_KILL_AT + 1 or \
+                state_c["opt"].step != state_b["opt"].step or differ or \
+                (state_c["opt"].master is None) != \
+                (state_b["opt"].master is None):
+            raise AssertionError(f"the restore of step {step_c} differs "
+                                 f"from the saved state: {differ[:5]}, "
+                                 f"opt step {state_c['opt'].step} against "
+                                 f"{state_b['opt'].step}")
+        del state_b, tb
+        _, hist_c = tc.train(state=state_c, start_step=step_c, verbose=False)
+        losses_a = [h["loss"] for h in hist_a]
+        losses_c = [h["loss"] for h in hist_c]
+        if losses_c != losses_a[CKPT_KILL_AT + 1:]:
+            raise AssertionError(f"the resumed losses {losses_c} differ "
+                                 f"from the straight run's "
+                                 f"{losses_a[CKPT_KILL_AT + 1:]}")
+        trace = os.path.join(tmp, "trace.json")
+        obs.export(trace)
+        errs = check_trace(trace, require=["train.steps", "ckpt.bytes"],
+                           require_spans=["train.step", "train.data",
+                                          "ckpt.save", "ckpt.snapshot",
+                                          "ckpt.write", "ckpt.mark"])
+        taken = len(hist_a) + len(hist_b) + len(hist_c)
+        if errs or tc.steps != taken:
+            raise AssertionError(f"the trace fails obs.check ({errs}) or "
+                                 f"train.steps {tc.steps} != {taken}")
+        del state_c, tc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+            "d_inner": cfg.d_inner, "d_state": cfg.d_state,
+            "vocab": cfg.vocab, "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "rows": 2, "seq_len": seq_len,
+            "parameters": n_params, "nvidia_smi": smi,
+            "ckpt_bytes": nbytes, "tmp_free_gb_before": free_gb,
+            "published_steps": steps, "emergency_meta": meta,
+            "snapshot_ms": snapshot_ms, "async_write_s": write_s,
+            "periodic_wait_s": wait_s, "emergency_save_s": emergency_s,
+            "snapshots": saves, "marks": marks,
+            "restore_s": restore_s,
+            "ms_per_step": {"A": ms_per_step(hist_a),
+                            "B": ms_per_step(hist_b),
+                            "C": ms_per_step(hist_c)},
+            "step_ms": {"A": [h["step_ms"] for h in hist_a],
+                        "B": [h["step_ms"] for h in hist_b],
+                        "C": [h["step_ms"] for h in hist_c]},
+            "losses_a": losses_a, "losses_c": losses_c,
+            "resumed_losses_bitwise": True,
+            "trace_events": len(obs.tracer.chrome_events()),
+            "train_steps_metric": taken,
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def phase_launcher():
+    """The training launcher with checkpoints, an obs trace and a
+    ``torch.profiler`` capture, as a subprocess: it must exit 0, publish
+    steps 1–3, write a trace that passes ``obs.check`` and a profile that
+    names a ``conv1d_pack`` kernel."""
+    from repro_torch.obs.check import check_trace
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, trace, prof = (os.path.join(tmp, n)
+                             for n in ("ckpt", "trace.json", "prof"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
+               "--steps", "3", "--rows", "2", "--seq-len", "256",
+               "--ckpt-dir", ckpt, "--ckpt-every", "1", "--obs-trace",
+               trace, "--profile-dir", prof]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"the launcher exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        steps = sorted(os.listdir(ckpt))
+        errs = check_trace(trace, require=["train.steps"],
+                           require_spans=["train.step", "train.data"])
+        files = [os.path.join(prof, n) for n in os.listdir(prof)
+                 if n.endswith(".pt.trace.json")]
+        kernels = []
+        for f in files:
+            with open(f) as fh:
+                kernels += [e["name"] for e in json.load(fh)["traceEvents"]
+                            if e.get("cat") == "kernel"]
+        conv = [k for k in kernels if "conv1d_pack" in k]
+        if steps != ["step_1", "step_2", "step_3"] or errs or not conv:
+            raise AssertionError(f"the launcher published {steps}; its "
+                                 f"trace: {errs}; its profile's kernels "
+                                 f"naming conv1d_pack: {len(conv)} of "
+                                 f"{len(kernels)} in {len(files)} file(s)")
+    return {"cmd": " ".join(cmd[1:]), "published_steps": steps,
+            "trace_ok": True, "profile_files": len(files),
+            "profile_kernels": len(kernels),
+            "profile_conv1d_pack_kernels": len(conv),
+            "stdout_tail": out.stdout.strip().splitlines()[-3:],
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1586,6 +1810,11 @@ def main():
     # with the cache, beside the untuned numbers above
     tt, tune_s = phase_tune(tr, eng)
     emit("tune", seconds=tune_s)
+
+    # kill and resume: SIGTERM, the emergency save, the restore; then the
+    # launcher's checkpoint, trace and profile flags
+    emit("checkpoint", **phase_checkpoint(smi))
+    emit("launcher", **phase_launcher())
 
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)

@@ -2,10 +2,14 @@
 
 The port of the JAX package ``repro`` — which stays the reference — module
 by module under the same names. Ported: the serving path (packed prefill
-into decode slots, then greedy decode) and the packed training step
-(loader → ``LM.loss`` → backward → AdamW). Their TPU kernels are CUDA C++
-kernels in ``csrc/``: the ``conv1d_pack`` forward and dx backward, and the
-blocked selective scan forward and backward.
+into decode slots, then greedy decode), the packed training loop (loader →
+``LM.loss`` → backward → AdamW, gradient accumulation in f32 or bf16,
+checkpoint/restart with the SIGTERM emergency save: ``train/``,
+``checkpoint/``, ``data/``, ``optim/``), Mamba-1 and Mamba-2 blocks, the
+scan autotuner (``tune/``) and the telemetry they report through
+(``obs/``). Their TPU kernels are CUDA C++ kernels in ``csrc/``: the
+``conv1d_pack`` forward and dx backward, and the selective scans' forward
+and backward (Mamba-1 ``step`` and ``blocked``, Mamba-2 heads).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``resolve_device``); on the CPU every kernel wrapper takes its plain

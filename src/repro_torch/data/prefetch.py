@@ -1,5 +1,5 @@
 """Background-prefetching wrapper for step-keyed loaders (port of
-``repro.data.prefetch`` without its telemetry hook).
+``repro.data.prefetch``).
 
 Host-side packing costs real milliseconds per step; ``PrefetchLoader``
 overlaps it with the device step by computing the next ``depth`` batches
@@ -7,7 +7,9 @@ on a worker thread while the current one trains.
 
 Determinism: the wrapped loader's ``batch(step)`` must be a pure function
 of ``step`` (``PackingLoader``'s is). The wrapper only memoizes those calls,
-so ``batch(step)`` is bit-identical to the synchronous loader's.
+so ``batch(step)`` is bit-identical to the synchronous loader's, and a
+restart (checkpoint at step k, a new loader, resume at k) replays the
+same stream.
 """
 from __future__ import annotations
 
@@ -16,25 +18,50 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict
 
+from repro_torch.obs import Obs
+
 
 class PrefetchLoader:
-    """Wrap any loader with ``batch(step)``.
-    ``hits``/``misses`` count batches served from the buffer / computed on
-    the caller's thread; ``wait_ms`` is the time ``batch()`` blocked."""
+    """Wrap any loader with ``batch(step)``. Meters through ``obs``
+    (``Obs.off()`` when None; pass the Trainer's to share one registry):
+    ``hits``/``misses`` — batches served from the buffer / computed on the
+    caller's thread — and ``wait_ms`` — the time ``batch()`` blocked — are
+    views over ``data.prefetch_hits``, ``data.prefetch_misses`` and
+    ``data.prefetch_wait_ms``."""
 
-    def __init__(self, loader: Any, depth: int = 2):
+    def __init__(self, loader: Any, depth: int = 2, obs=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.loader = loader
         self.depth = depth
-        self.hits = 0
-        self.misses = 0
-        self.wait_ms = 0.0
         self._lock = threading.Lock()
         self._futures: Dict[int, Future] = {}
         # one worker: the wrapped loader is not assumed thread-safe
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="prefetch")
+        self.obs = obs if obs is not None else Obs.off()
+        m = self.obs.metrics
+        self._c_hits = m.counter(
+            "data.prefetch_hits",
+            help="batches served from the prefetch buffer")
+        self._c_misses = m.counter(
+            "data.prefetch_misses",
+            help="batches computed on the caller's thread")
+        self._g_wait = m.gauge(
+            "data.prefetch_wait_ms",
+            help="cumulative ms the consumer blocked waiting for a batch")
+
+    @property
+    def hits(self) -> int:
+        return self._c_hits.value
+
+    @property
+    def misses(self) -> int:
+        return self._c_misses.value
+
+    @property
+    def wait_ms(self) -> float:
+        return self._g_wait.value
 
     def _schedule(self, step: int) -> None:
         with self._lock:
@@ -49,12 +76,12 @@ class PrefetchLoader:
             self._schedule(k)
         t0 = time.perf_counter()
         if fut is not None:
-            self.hits += 1
+            self._c_hits.inc()
             out = fut.result()
         else:
-            self.misses += 1
+            self._c_misses.inc()
             out = self.loader.batch(step)
-        self.wait_ms += (time.perf_counter() - t0) * 1e3
+        self._g_wait.add((time.perf_counter() - t0) * 1e3)
         # a forward-moving loop never asks for these again
         with self._lock:
             for k in [k for k in self._futures if k <= step]:

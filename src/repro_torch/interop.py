@@ -1,6 +1,9 @@
 """Between the JAX package's parameter tree and the port's named tensors:
 ``params_from_jax`` (JAX tree → state dict) and ``to_jax_tree`` (named
-tensors: parameters, gradients, optimizer moments → the JAX tree layout).
+tensors: parameters, gradients, optimizer moments → the JAX tree layout);
+``opt_state_from_jax`` / ``opt_state_to_jax`` carry the AdamW state
+(``step``, ``m``, ``v``, ``master``) across the same way, so a run that the
+JAX trainer checkpointed can continue in the port and back.
 
 The JAX tree (as numpy arrays, or anything ``np.asarray`` takes) is
 ``{"embed", "units": {"0_<kind>": {leaf: (n_layers, …)}}, "final_norm",
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.optim.adamw import AdamWState
 
 
 def _unit_key(cfg: ArchConfig) -> str:
@@ -58,3 +62,29 @@ def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
              for leaf in leaves}
     return {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
             "head": a(named["head"]), "units": {_unit_key(cfg): units}}
+
+
+def opt_state_from_jax(jstate, cfg: ArchConfig, device) -> AdamWState:
+    """The port's ``AdamWState`` from the JAX one (its NamedTuple, or a
+    dict with the same fields): ``m``, ``v`` and ``master`` (None when the
+    JAX state has none) split along the layer axis as ``params_from_jax``
+    does, ``step`` an int."""
+    get = (jstate.get if isinstance(jstate, dict)
+           else lambda k: getattr(jstate, k))
+    master = get("master")
+    return AdamWState(
+        step=int(np.asarray(get("step"))),
+        m=params_from_jax(get("m"), cfg, device),
+        v=params_from_jax(get("v"), cfg, device),
+        master=None if master is None else params_from_jax(master, cfg,
+                                                           device))
+
+
+def opt_state_to_jax(state: AdamWState, cfg: ArchConfig):
+    """The inverse: a dict with the JAX ``AdamWState``'s fields (``step`` an
+    int32 array, the trees in the JAX layout; ``AdamWState(**d)`` builds
+    the JAX state)."""
+    return {"step": np.asarray(state.step, np.int32),
+            "m": to_jax_tree(state.m, cfg), "v": to_jax_tree(state.v, cfg),
+            "master": None if state.master is None
+            else to_jax_tree(state.master, cfg)}

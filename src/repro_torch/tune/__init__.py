@@ -115,7 +115,7 @@ def tuned_config_overrides(cfg, B: int, L: int, cache=None) -> Dict:
 
 def warm_for_config(cfg, shapes, cache: Optional[TuneCache] = None,
                     rounds: int = 3, save: bool = True, verbose: bool = True,
-                    objective: str = "fwd", device=None):
+                    objective: str = "fwd", device=None, obs=None):
     """Warm the tuning cache for a config's scan shapes at launcher start-up.
 
     ``shapes``: the (rows, seq_len) the launcher will run (the training
@@ -123,7 +123,9 @@ def warm_for_config(cfg, shapes, cache: Optional[TuneCache] = None,
     cached are skipped; new winners are measured on ``device`` (the card
     unless the caller asks for the CPU) and saved to the cache file.
     ``objective="fwdbwd"`` times forward + backward — what
-    launch/train.py warms. Returns the cache (None when tuning is off)."""
+    launch/train.py warms. ``obs`` receives the sweeps' ``tune.*`` spans
+    and counters (``runner.sweep``). Returns the cache (None when tuning
+    is off)."""
     if getattr(cfg, "scan_tune", "off") == "off":
         return None
     from repro_torch.tune import runner
@@ -137,7 +139,7 @@ def warm_for_config(cfg, shapes, cache: Optional[TuneCache] = None,
         op = args.pop("op")
         touched |= runner.ensure(op, cache=c, rounds=rounds,
                                  verbose=verbose, objective=objective,
-                                 device=device, **args)
+                                 device=device, obs=obs, **args)
     if touched and save:
         c.save()
     return c

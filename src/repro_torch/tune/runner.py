@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs import Obs
 from repro_torch.tune.cache import (TuneCache, fingerprint, get_cache,
                                     same_device)
 from repro_torch.tune.space import (ShapeKey, candidate_name, shape_key,
@@ -147,38 +148,49 @@ def make_thunk(key: ShapeKey, knobs: Dict, args: Tuple):
 
 def sweep(key: ShapeKey, rounds: int = 3,
           include_pallas: Optional[bool] = None, verbose: bool = False,
-          device=None
+          device=None, obs=None
           ) -> Tuple[List[Tuple[str, Dict, float]], List[Tuple[str, Dict,
                                                              float]]]:
     """Measure the candidate space at ``key`` on ``device`` (the card
     unless the caller asks for the CPU). Returns (ranked, pruned):
     [(name, knobs, best µs)] fastest first, every candidate timed in the
     rounds, and [(name, knobs, probe µs)] of the pruned ones (module
-    docstring)."""
+    docstring). ``obs`` (repro_torch.obs.Obs) records one ``tune.sweep``
+    span per key with nested ``tune.candidate`` build + first-call probes,
+    plus the ``tune.sweeps`` / ``tune.candidates`` counters."""
+    obs = obs if obs is not None else Obs.off()
+    tr = obs.tracer
     dev = resolve_device(device)
     if include_pallas is None:
         include_pallas = _pallas_usable(dev)
     args = synth_args(key, device=dev)
+    cands = space_for(key, include_pallas=include_pallas)
+    ssid = tr.start("tune.sweep", track="tune", key=key.encode(),
+                    candidates=len(cands))
     cells, by_name = [], {}
-    for c in space_for(key, include_pallas=include_pallas):
+    for c in cands:
         name = candidate_name(c)
-        thunk = make_thunk(key, c, args)
-        if c.get("backend") == "pallas":
-            thunk()           # build + launch probe: a failure is an error
-        else:
-            try:
-                thunk()
-            except (RuntimeError, ValueError) as e:
-                # e.g. torch.cuda.OutOfMemoryError at a large shape
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
-                if verbose:
-                    print(f"#   tune drop {name}: {type(e).__name__}: {e}")
-                continue
+        with tr.span("tune.candidate", track="tune", cand=name):
+            thunk = make_thunk(key, c, args)
+            if c.get("backend") == "pallas":
+                thunk()       # build + launch probe: a failure is an error
+            else:
+                try:
+                    thunk()
+                except (RuntimeError, ValueError) as e:
+                    # e.g. torch.cuda.OutOfMemoryError at a large shape
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                    if verbose:
+                        print(f"#   tune drop {name}: {type(e).__name__}: "
+                              f"{e}")
+                    continue
         cells.append((name, thunk))
         by_name[name] = c
     if not cells:
+        tr.finish(ssid, viable=0)
         raise RuntimeError(f"no viable candidates for {key.encode()}")
+    viable = len(cells)
     pruned = []
     kernel = [n for n, _ in cells if by_name[n].get("backend") == "pallas"]
     if kernel:
@@ -196,6 +208,10 @@ def sweep(key: ShapeKey, rounds: int = 3,
     best_us, _ = interleaved_min_of_rounds(cells, rounds=rounds, warmup=1)
     ranked = sorted(((n, by_name[n], best_us[n]) for n in best_us),
                     key=lambda r: r[2])
+    obs.metrics.counter("tune.sweeps").inc()
+    obs.metrics.counter("tune.candidates").inc(viable)
+    tr.finish(ssid, viable=viable, winner=ranked[0][0],
+              winner_us=ranked[0][2])
     if verbose:
         print(f"# tune {key.encode()}: " +
               "  ".join(f"{n}={us:.0f}us" for n, _, us in ranked[:4]) +
@@ -206,7 +222,7 @@ def sweep(key: ShapeKey, rounds: int = 3,
 
 def tune_key(key: ShapeKey, cache: Optional[TuneCache] = None,
              rounds: int = 3, include_pallas: Optional[bool] = None,
-             verbose: bool = False, device=None) -> Dict:
+             verbose: bool = False, device=None, obs=None) -> Dict:
     """Measure the candidate space at ``key``, cache and return the
     winner. The cache must be fingerprinted for ``device``."""
     dev = resolve_device(device)
@@ -218,7 +234,7 @@ def tune_key(key: ShapeKey, cache: Optional[TuneCache] = None,
     if include_pallas is None:
         include_pallas = _pallas_usable(dev)
     ranked, _ = sweep(key, rounds=rounds, include_pallas=include_pallas,
-                      verbose=verbose, device=dev)
+                      verbose=verbose, device=dev, obs=obs)
     _, knobs, us = ranked[0]
     if cache is not None:
         cache.put(key, knobs, us, candidates=len(ranked),
@@ -230,7 +246,8 @@ def ensure(op: str, *, B: int, L: int, D: int = 0, N: int = 0, H: int = 0,
            dh: int = 0, dtype="float32", reset_density=None,
            objective: str = "fwd", cache: Optional[TuneCache] = None,
            rounds: int = 3, include_pallas: Optional[bool] = None,
-           force: bool = False, verbose: bool = False, device=None) -> bool:
+           force: bool = False, verbose: bool = False, device=None,
+           obs=None) -> bool:
     """Tune ``op`` at this shape unless its exact bucketed key is already
     cached. Returns True iff a new measurement was taken."""
     c = cache if cache is not None else get_cache(device=device)
@@ -239,7 +256,7 @@ def ensure(op: str, *, B: int, L: int, D: int = 0, N: int = 0, H: int = 0,
     if not force and c.get(key) is not None:
         return False
     tune_key(key, cache=c, rounds=rounds, include_pallas=include_pallas,
-             verbose=verbose, device=device)
+             verbose=verbose, device=device, obs=obs)
     return True
 
 
