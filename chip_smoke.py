@@ -109,6 +109,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               steps 1–3, T pass ``obs.check`` and P hold a trace naming a
               ``conv1d_pack`` kernel.
 
+12. serve   — the serving engine's scheduler v2 on the card: #1 at the
+              chunk lane's slab (1, 3 + 256, 4096) bf16 (the carried conv
+              tail at three leading zero positions) against its plain
+              version, twice bitwise, timed; an f32 copy of mamba-1.4b
+              (48 layers) prefills one 700-token prompt whole and in
+              256-token slabs (``prefill_chunk``: end logits and states
+              within ``PARITY_TOL``), and of mamba2-370m the same; then
+              the engine on mamba-1.4b (48 layers, bf16, seed 0), 24
+              slots: 12 greedy and 4 sampled (T 0.8, top-k 40, top-p 0.95)
+              prompts of 16–200 tokens and one of 1500 (6 chunk rounds),
+              16 new tokens each, the TTFT bucket policy; overlap on (two
+              prefills in flight on a side stream) and off, every launch
+              counter set to 0 just before each and read just after (#1
+              exactly n_layers × (prefills + chunk rounds), nothing else),
+              the two runs' streams bitwise equal, every sampled stream
+              equal to its replay through the model's calls; the padded
+              wave (``decode_batch``) against the continuous engine on 8
+              prompts; one profiled decode step (greedy, sampled), one
+              profiled prefill round, an overlapped run's first steps
+              profiled (each stream's kernels, the time two streams ran
+              at once). Then ``python -m repro_torch.launch.serve --tiny
+              --temperature 0.8 --top-k 40 --buckets 16,32 --obs-trace T
+              --profile-dir P`` as a subprocess: exit 0 with chunk rounds,
+              T passes ``obs.check`` with the serve spans, P names a
+              ``conv1d_pack`` kernel.
+
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -170,6 +196,17 @@ TUNE_ROUNDS = 3
 CKPT_LAYERS = 4
 CKPT_STEPS = 6
 CKPT_KILL_AT = 3             # SIGTERM as this step's batch is fetched
+# phase 12 (serve): the scheduler-v2 engine on mamba-1.4b
+SERVE_SLOTS = 24                 # more slots than requests: both runs pack
+#                                  the same rounds (phase_serve's docstring)
+SERVE_NEW = 16                   # new tokens a request
+SERVE_LONG = 1500                # the over-bucket prompt: 6 chunk rounds
+SERVE_CHUNK = 256                # chunk slab = the largest bucket
+SERVE_TTFT_MS = 20000.0          # the TTFT target: above every wait of
+#                                  this mix, so no time rule fires
+SERVE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+CHUNK_PARITY_LEN = 700           # one prompt, whole against 3 slabs
+CHUNK_SLAB_SHAPE = (1, 3 + SERVE_CHUNK, 4096)   # #1 over a slab: W-1 + T
 
 
 def emit(phase, **kw):
@@ -1088,9 +1125,36 @@ RECORDS_PER_LAUNCH = {"conv1d_pack_fwd": ("conv fwd #1", 1),
 PROFILE_TRACES = 3   # traces taken at most until one holds every launch
 
 
-def trace_step(step_fn, state, batch):
-    """One train step under ``torch.profiler``: the step's wall time on the
-    host's clock and its device events (kernels, copies, sets)."""
+def merge_spans(spans):
+    """The union of (start, end) intervals as sorted disjoint ones."""
+    spans = sorted(spans)
+    merged = [list(spans[0])]
+    for a, b in spans[1:]:
+        if a > merged[-1][1]:
+            merged.append([a, b])
+        else:
+            merged[-1][1] = max(merged[-1][1], b)
+    return merged
+
+
+def overlap_us(x, y):
+    """Time two unions of intervals both cover."""
+    i = j = 0
+    tot = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        tot += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def trace_call(fn):
+    """``fn()`` under ``torch.profiler``: its result, its wall time on the
+    host's clock (ending in a device sync) and its device events (kernels,
+    copies, sets)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1098,41 +1162,47 @@ def trace_step(step_fn, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        float(metrics["loss"])
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return state, wall_ms, kernels
+    return out, wall_ms, kernels
 
 
-def profile_step(step_fn, state, batch, launches_per_step):
-    """One train step under ``torch.profiler``: device time by kernel group
-    and by kernel (the trace's CUDA events), and the device's busy share —
-    the union of kernel intervals over the step's host-clock wall time,
-    which the profiler's own host overhead lengthens.
+def profile_call(fn, launches_per_call, setup=None):
+    """``fn()`` under ``torch.profiler``: device time by kernel group and by
+    kernel (the trace's CUDA events), and the device's busy share — the
+    union of kernel intervals over the call's host-clock wall time, which
+    the profiler's own host overhead lengthens. Where the events lie on
+    more than one CUDA stream, each stream's kernels and busy time, and
+    the time kernels of the two busiest streams ran at once.
 
-    The launch counters run through the traced step and must equal
-    ``launches_per_step`` (the timed steps' counts). The trace must then
-    name each counted kernel as often as it launched. The profiler can
-    lose a few device records of a step (on an H100 one mamba2-370m step's
-    trace held 18609 to 18629 device events between runs of the same
-    program, and once one #7 launch too few), so a trace that
-    lacks a launch the counters saw is set aside, with what it lacked,
-    and the step traced again, up to ``PROFILE_TRACES`` times; the caller
-    then holds the trace that is reported to its exact counts."""
+    ``setup()``, where given, runs before each trace, outside it. The
+    launch counters run through the traced call and must equal
+    ``launches_per_call`` (a dict, or a function of ``fn``'s result that
+    gives it). The trace must then name each counted kernel as often as it
+    launched. The profiler can lose a few device records of a call (on an
+    H100 one mamba2-370m step's trace held 18609 to 18629 device events
+    between runs of the same program, and once one #7 launch too few), so
+    a trace that lacks a launch the counters saw is set aside, with what
+    it lacked, and the call traced again, up to ``PROFILE_TRACES`` times;
+    the caller then holds the trace that is reported to its exact counts.
+    Returns (``fn``'s last result, the profile)."""
     set_aside = []
     for _ in range(PROFILE_TRACES):
+        if setup is not None:
+            setup()
         zero_launches()
-        state, wall_ms, kernels = trace_step(step_fn, state, batch)
+        out, wall_ms, kernels = trace_call(fn)
         launches = read_launches()
-        if launches != launches_per_step:
-            raise AssertionError(f"the profiled step launched {launches}, "
-                                 f"the timed steps {launches_per_step} "
-                                 f"a step")
+        want = launches_per_call(out) if callable(launches_per_call) \
+            else launches_per_call
+        if launches != want:
+            raise AssertionError(f"the profiled call launched {launches}, "
+                                 f"where {want} were due")
         if not kernels:
-            return state, {"measured": False,
-                           "why": "the trace holds no device events"}
+            return out, {"measured": False,
+                         "why": "the trace holds no device events"}
         named = {}
         for e in kernels:
             g = kernel_group(e.name)
@@ -1143,7 +1213,7 @@ def profile_step(step_fn, state, batch, launches_per_step):
         if not lacks:
             break
         set_aside.append({"kernels": len(kernels), "lacks": lacks})
-    by_name, by_group, calls = {}, {}, {}
+    by_name, by_group, calls, by_stream = {}, {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         n, c = by_name.get(e.name, (0.0, 0))
@@ -1151,27 +1221,32 @@ def profile_step(step_fn, state, batch, launches_per_step):
         g = kernel_group(e.name)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3
         calls[g] = calls.get(g, 0) + 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+        sid = getattr(e, "device_resource_id", None)
+        by_stream.setdefault(e.thread if sid is None else sid, []).append(
+            (e.time_range.start, e.time_range.end))
+    merged = merge_spans(sum(by_stream.values(), []))
+    busy = sum(b - a for a, b in merged)
+    window = merged[-1][1] - merged[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return state, {
+    prof = {
         "measured": True, "wall_ms": wall_ms,
         "kernel_ms_sum": sum(v[0] for v in by_name.values()) / 1e3,
         "busy_ms": busy / 1e3, "busy_share_of_wall": busy / 1e3 / wall_ms,
         "busy_share_of_kernel_window": busy / max(window, 1e-9),
-        "kernels": len(kernels),
+        "kernels": len(kernels), "launches": launches,
         "traces_set_aside": set_aside,
         "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "by_group_calls": calls,
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
+    if len(by_stream) > 1:
+        streams = sorted(((sid, len(sp), merge_spans(sp))
+                          for sid, sp in by_stream.items()),
+                         key=lambda t: -t[1])
+        prof["streams"] = {str(sid): {"kernels": n, "busy_ms": sum(
+            b - a for a, b in m) / 1e3} for sid, n, m in streams}
+        prof["two_stream_overlap_ms"] = overlap_us(streams[0][2],
+                                                   streams[1][2]) / 1e3
+    return out, prof
 
 
 @contextlib.contextmanager
@@ -1258,9 +1333,15 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     step_ms = sum(h["step_ms"] for h in hist)
     real = sum(h["real_tokens"] for h in hist)
     buf = sum(h["buffer_tokens"] for h in hist)
-    state, profiled = profile_step(
-        trainer.step_fn, state, trainer.loader.batch(1 + steps),
-        {k: v // steps for k, v in launches.items()})
+    batch = trainer.loader.batch(1 + steps)
+
+    def one_step():
+        nonlocal state
+        state, metrics = trainer.step_fn(state, batch)
+        float(metrics["loss"])
+
+    _, profiled = profile_call(one_step, {k: v // steps
+                                          for k, v in launches.items()})
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "remat": cfg.remat, "pallas_schedule": cfg.pallas_schedule,
@@ -1691,6 +1772,456 @@ def phase_launcher():
             "seconds": time.perf_counter() - t0}
 
 
+def serve_mix(cfg, seed=0):
+    """Phase 12's requests, in submit order: 16 prompts of 16–200 tokens
+    (every fourth sampled at ``SERVE_SAMPLED``, the rest greedy) and one
+    greedy prompt of ``SERVE_LONG`` tokens after the eighth."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 201, size=16)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)) for n in lens]
+    long = rng.integers(1, cfg.vocab, size=SERVE_LONG)
+    mix = []
+    for i, p in enumerate(prompts):
+        mix.append((p, dict(SERVE_SAMPLED) if i % 4 == 3 else {}))
+        if i == 7:
+            mix.append((long, {}))
+    return mix
+
+
+def phase_conv_slab():
+    """#1 at the chunk lane's slab (``CHUNK_SLAB_SHAPE``, bf16): the carried
+    conv tail at W-1 leading zero positions, then a mid-prompt slab at
+    global positions 512.. (``blocks._conv_resume``); against the plain
+    version, twice bitwise, timed beside it, cuDNN and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv1d_pack as kconv
+    B, L, D = CHUNK_SLAB_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(L)
+    x = torch.randn((B, L, D), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((4, D), generator=g, device="cuda").mul(0.5).to(
+        torch.bfloat16)
+    b = torch.randn((D,), generator=g, device="cuda").to(torch.bfloat16)
+    pos = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    pos[:, 3:] = torch.arange(512, 512 + L - 3, dtype=torch.int32)
+    y = kconv.conv1d_pack(x, w, b, pos)
+    again = kconv.conv1d_pack(x, w, b, pos)
+    want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+    torch.cuda.synchronize()
+    err = (y.float() - want).abs()
+    if not torch.equal(y, again) or not bool(
+            (err <= 2.0 ** -8 * want.abs() + 1e-6).all()):
+        raise AssertionError(f"conv1d_pack at the chunk slab: bitwise "
+                             f"repeat {torch.equal(y, again)}, max err "
+                             f"{err.max().item()}")
+    xc = x.transpose(1, 2).contiguous()
+    wc = w.t().contiguous()[:, None, :]
+    lib = lambda: F.conv1d(xc, wc, b, padding=3, groups=D)
+    kern = lambda: kconv.conv1d_pack(x, w, b, pos)
+    plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
+    bound, by = conv_bound_ms(x, w, pos)
+    return {"kernel": "conv1d_pack_fwd", "shape": list(CHUNK_SLAB_SHAPE),
+            "dtype": "bfloat16", "max_abs_err": err.max().item(),
+            "tolerance": "2^-8 relative (one bf16 rounding)",
+            "bitwise_repeat": True, "launch": kconv.LAST_LAUNCH,
+            "kernel_ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+            "library_ms": graph_ms(lib), "bound_ms": bound, "bound_by": by,
+            "kernel_eager_ms": eager_ms(kern)}
+
+
+def phase_chunk_parity(model_bf16, cfg):
+    """An f32 copy prefills one ``CHUNK_PARITY_LEN``-token prompt whole
+    (``prefill``) and in ``SERVE_CHUNK``-token slabs (``prefill_chunk``):
+    end logits and conv/SSM states within ``PARITY_TOL``; the slabs
+    launch #1 once a layer each and no other kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.models.lm import LM
+    f32 = LM(dataclasses.replace(cfg, dtype="float32"))
+    f32.load_state_dict(model_bf16.state_dict())
+    n = CHUNK_PARITY_LEN
+    p = np.random.default_rng(2).integers(1, cfg.vocab, size=n).astype(
+        np.int32)
+    lg, whole, _ = f32.prefill(
+        {"tokens": p[None], "positions": np.arange(n, dtype=np.int32)[None],
+         "segment_ids": np.ones((1, n), np.int32)})
+    cache = f32.init_cache(1)
+    clen = torch.zeros(1, dtype=torch.int32, device=f32.device)
+    spans = packing.chunk_spans(n, SERVE_CHUNK)
+    zero_launches()
+    for off, take in spans:
+        batch = packing.suffix_slab({0: (p, off, take)}, 1, SERVE_CHUNK)
+        lg_c, cache, clen = f32.prefill_chunk(cache, batch, clen)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    conv = counts.pop("conv1d_pack_fwd")
+    worst = {}
+    for k, got, ref in (("logits", lg_c[0], lg[0]),
+                        ("conv", cache["conv"], whole["conv"]),
+                        ("ssm", cache["ssm"], whole["ssm"])):
+        worst[k] = ((got - ref).abs().max()
+                    / ref.abs().max().clamp(min=1.0)).item()
+    del f32, cache, whole
+    torch.cuda.empty_cache()
+    if conv != cfg.n_layers * len(spans) or any(counts.values()) or \
+            int(clen[0]) != n or max(worst.values()) > PARITY_TOL:
+        raise AssertionError(f"{cfg.name} chunked prefill: {worst} (bar "
+                             f"{PARITY_TOL}), #1 {conv} launches for "
+                             f"{len(spans)} slabs, others {counts}, "
+                             f"consumed {int(clen[0])}")
+    return {"arch": cfg.name, "dtype": "float32", "tf32": "off",
+            "prompt": n, "slab": SERVE_CHUNK, "slabs": len(spans),
+            "tolerance": PARITY_TOL, "max_rel_err": worst,
+            "conv1d_pack_launches": conv,
+            "conv1d_pack_launches_per_slab": conv // len(spans)}
+
+
+def sampled_reference(model, record, prompt, rid, slot, knobs, n_slots):
+    """A sampled request replayed through the model's own calls: its
+    packed round again (``prefill_packed`` on the recorded batch: the same
+    inputs, so the same logits and states), its first token drawn from its
+    segment's logits with its stream (``sample_tokens``), its state in a
+    fresh cache of ``n_slots`` rows at the slot the engine gave it, and
+    ``SERVE_NEW`` - 1 steps of ``decode_step_sample``. Returns its tokens;
+    None when the recorded round does not hold the prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks as B
+    batch = {k: torch.as_tensor(v).cpu().numpy() for k, v in record[0].items()}
+    ends = torch.as_tensor(record[1]).cpu().numpy()
+    S = ends.shape[1]
+    k = None
+    for r, s in zip(*np.nonzero(ends >= 0)):
+        e = int(ends[r, s])
+        a = e - len(prompt) + 1
+        if a >= 0 and batch["positions"][r, a] == 0 and np.array_equal(
+                batch["tokens"][r, a:e + 1], prompt):
+            k = int(r) * S + int(s)
+    if k is None:
+        return None
+    dev = model.device
+
+    def knob_rows(n, i):
+        arrs = (np.zeros(n, np.int64), np.zeros(n, np.float32),
+                np.zeros(n, np.int64), np.ones(n, np.float32))
+        for a, v in zip(arrs, (B.request_streams(0, [rid])[0],
+                               knobs["temperature"], knobs["top_k"],
+                               knobs["top_p"])):
+            a[i] = v
+        return [torch.as_tensor(a, device=dev) for a in arrs]
+
+    logits, states, _ = model.prefill_packed(batch, ends)
+    K = ends.size
+    stream, temp, topk, topp = knob_rows(K, k)
+    tok, _ = model.sample_tokens(
+        logits.reshape(K, -1), stream,
+        torch.zeros(K, dtype=torch.int64, device=dev), temp, topk, topp)
+    out = [int(tok[k])]
+    cache = model.init_cache(n_slots)
+    model.scatter_into_cache(cache, states, [k], [slot])
+    stream, temp, topk, topp = knob_rows(n_slots, slot)
+    ctr = torch.ones(n_slots, dtype=torch.int64, device=dev)
+    cur = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
+    cur[slot, 0] = tok[k]
+    for _ in range(SERVE_NEW - 1):
+        t, _, cache, ctr = model.decode_step_sample(cache, cur, stream, ctr,
+                                                    temp, topk, topp)
+        out.append(int(t[slot]))
+        cur = t[:, None]
+    return out
+
+
+def phase_serve(model, cfg):
+    """Phase 12: the scheduler-v2 engine on ``cfg`` at full width and depth
+    (bf16): ``serve_mix``'s 17 requests on ``SERVE_SLOTS`` slots, buckets
+    (64, 128, 256), 2 × 4 segments a round, the TTFT bucket policy at
+    ``SERVE_TTFT_MS``, one chunk row of ``SERVE_CHUNK``.
+
+    A warm-up run, then overlap on (two prefills in flight on the side
+    stream) and overlap off (one, synchronous), each with the launch
+    counters set to 0 just before and read just after. A round's numerics
+    depend on its layout (the packed scan's chunks, the matmuls' shapes),
+    so the two runs must pack the same rounds for their streams to be
+    compared bitwise: with more slots than requests every round admits
+    the FIFO prefix that fits whatever the free count, and with the target
+    above every wait no time rule picks a bucket or admits early (asserted:
+    no early admit, no deferred upgrade). Each sampled stream is then
+    replayed (``sampled_reference``) at the slot the engine gave it. Then
+    the padded wave (``decode_batch``) against the continuous engine on 8
+    of the prompts, one profiled decode step (greedy and sampled), one
+    profiled prefill round, and the first steps of an overlapped run
+    profiled for prefill and decode kernels on two streams at once."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    mix = serve_mix(cfg)
+    kw = dict(num_slots=SERVE_SLOTS, max_len=2048, buckets=(64, 128, 256),
+              prefill_rows=2, max_segments=4, bucket_policy="ttft",
+              target_ttft_ms=SERVE_TTFT_MS, chunk_size=SERVE_CHUNK)
+    finite, records, slot_of, landings = [], [], {}, []
+    calls = {n: getattr(model, n) for n in ("prefill_packed", "decode_step",
+                                            "prefill_chunk")}
+
+    def checked(name):
+        def fn(*a, **k):
+            out = calls[name](*a, **k)
+            finite.append(torch.isfinite(out[0]).all())
+            if name == "prefill_packed":
+                records.append((a[0], a[1]))
+            return out
+        return fn
+
+    for n in calls:
+        setattr(model, n, checked(n))
+
+    def engine(**over):
+        """An engine that records each request's slot, and for each packed
+        prefill the decode steps it waited and its host ms from dispatch
+        to landing (where its first tokens are observed)."""
+        eng = ServeEngine(model, **dict(kw, **over))
+        act, refill, land = eng._activate, eng._try_refill, eng._land_one
+        sent = {}
+
+        def activate(slot, req, now, first):
+            slot_of[req.rid] = slot
+            act(slot, req, now, first)
+
+        def try_refill():
+            sent[eng.stats.prefills] = time.perf_counter()
+            return refill()
+
+        def land_one(inf):
+            land(inf)
+            landings.append((inf["steps_waited"], (
+                time.perf_counter() - sent[inf["pidx"]]) * 1e3))
+
+        eng._activate, eng._try_refill = activate, try_refill
+        eng._land_one = land_one
+        return eng
+
+    def timed(overlap, inflight):
+        eng = engine(overlap=overlap, max_inflight_prefills=inflight)
+        for p, knobs in mix:
+            eng.submit(p, SERVE_NEW, **knobs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        finite.clear()
+        records.clear()
+        slot_of.clear()
+        landings.clear()
+        zero_launches()
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        st = eng.stats
+        conv = counts.pop("conv1d_pack_fwd")
+        bad = [r for r in outs if eng.status[r] != "done"
+               or len(outs[r]) != SERVE_NEW]
+        if bad or not bool(torch.stack(finite).all()) or \
+                any(counts.values()) or \
+                conv != cfg.n_layers * (st.prefills + st.chunk_rounds) or \
+                st.chunk_rounds != -(-SERVE_LONG // SERVE_CHUNK) or \
+                st.early_admits or st.deferred_upgrades:
+            raise AssertionError(
+                f"serve (overlap={overlap}): unfinished {bad}, #1 {conv} "
+                f"for {st.prefills} prefills + {st.chunk_rounds} chunk "
+                f"rounds × {cfg.n_layers}, others {counts}; {st!r}")
+        pct, ipct = st.ttft_percentiles(), st.itl_percentiles()
+        return outs, list(records), dict(slot_of), {
+            "overlap": overlap, "max_inflight_prefills": inflight,
+            "wall_s": wall, "generated": st.generated,
+            "tok_per_s": st.generated / wall,
+            "ttft_p50_ms": pct["p50"], "ttft_p95_ms": pct["p95"],
+            "itl_p50_ms": ipct["p50"], "itl_p95_ms": ipct["p95"],
+            "decode_ms_per_step": st.decode_ms / st.decode_steps,
+            "prefill_ms_per_round": st.prefill_ms / st.prefills,
+            "chunk_ms_per_round": st.chunk_ms / st.chunk_rounds,
+            "host_ms": st.host_ms, "prefills": st.prefills,
+            "decode_steps": st.decode_steps,
+            "midflight_refills": st.midflight_refills,
+            "overlapped_prefills": st.overlapped_prefills,
+            "bucket_upgrades": st.bucket_upgrades,
+            "chunk_rounds": st.chunk_rounds,
+            "chunked_prefills": st.chunked_prefills,
+            "buckets": sorted(st.buckets),
+            "prefill_steps_waited": [w for w, _ in landings],
+            "prefill_dispatch_to_land_ms": [ms for _, ms in landings],
+            "conv1d_pack_launches": conv,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    try:
+        timed(True, 2)                            # warm-up
+        on_outs, on_records, on_slots, on = timed(True, 2)
+        off_outs, _, _, off = timed(False, 1)
+        if on["overlapped_prefills"] == 0:
+            raise AssertionError("no prefill stayed in flight across a "
+                                 "decode step")
+        differ = [r for r in on_outs if on_outs[r] != off_outs[r]]
+        if differ:
+            raise AssertionError(f"overlap on and off give different "
+                                 f"streams for requests {differ}")
+        refs = {}
+        for rid, (p, knobs) in enumerate(mix):
+            if not knobs:
+                continue
+            ref = next(filter(None, (
+                sampled_reference(model, rec, p, rid, on_slots[rid], knobs,
+                                  SERVE_SLOTS) for rec in on_records)))
+            refs[rid] = ref == on_outs[rid]
+            if not refs[rid]:
+                raise AssertionError(f"sampled request {rid}: engine "
+                                     f"{on_outs[rid]} != replay {ref}")
+    finally:
+        for n, fn in calls.items():
+            setattr(model, n, fn)
+
+    # the padded wave against the continuous engine, on 8 greedy prompts
+    eight = [p for p, knobs in mix if not knobs and len(p) <= 256][:8]
+    wave_cont = {"wave": [], "continuous": []}
+    for kind in ("continuous", "wave", "wave", "continuous"):
+        eng = ServeEngine(model, num_slots=8, max_len=512)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "wave":
+            outs = eng.decode_batch(eight, SERVE_NEW)
+        else:
+            for p in eight:
+                eng.submit(p, SERVE_NEW)
+            outs = list(eng.run().values())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        assert [len(o) for o in outs] == [SERVE_NEW] * 8
+        wave_cont[kind].append(8 * SERVE_NEW / wall)
+
+    # profiles: one decode step (greedy; sampled), one prefill round, and
+    # an overlapped run's first steps (prefills in flight beside decode);
+    # the counters hold each to the kernels it launched (decode: none)
+    none = {k: 0 for k in read_launches()}
+    held = []
+
+    def fresh(**kw_eng):
+        def setup():
+            while held:
+                held.pop().run()          # drain a set-aside trace's engine
+            held.append(ServeEngine(model, **kw_eng))
+        return setup
+
+    def decode_setup(sampled):
+        def setup():
+            fresh(num_slots=SERVE_SLOTS, max_len=512, overlap=False,
+                  refill_threshold=1)()
+            for p, knobs in mix:
+                if len(p) <= 256:
+                    held[0].submit(p, SERVE_NEW,
+                                   **(knobs if sampled else {}))
+            while held[0].queue:
+                held[0].step()
+        return setup
+
+    profiles = {}
+    for name, sampled in (("decode_step_greedy", False),
+                          ("decode_step_sampled", True)):
+        _, prof_d = profile_call(lambda: held[0]._decode_step(), none,
+                                 setup=decode_setup(sampled))
+        profiles[name] = dict(prof_d, active=len(held[0]._active_slots()),
+                              slots=SERVE_SLOTS)
+
+    def prefill_setup():
+        fresh(num_slots=8, max_len=512, overlap=False)()
+        for p in eight:
+            held[0].submit(p, SERVE_NEW)
+
+    _, prof_p = profile_call(lambda: held[0]._try_refill(),
+                             dict(none, conv1d_pack_fwd=cfg.n_layers),
+                             setup=prefill_setup)
+    profiles["prefill_round"] = dict(
+        prof_p, prompts=held[0].stats.prefill_tokens, rows=2,
+        bucket=sorted(held[0].stats.buckets))
+
+    def overlap_setup():
+        fresh(**dict(kw, overlap=True, max_inflight_prefills=2))()
+        for p, knobs in mix:
+            held[0].submit(p, SERVE_NEW, **knobs)
+
+    def first_steps(n=8):
+        st = held[0].stats
+        before = st.prefills + st.chunk_rounds
+        for _ in range(n):
+            held[0].step()
+        return st.prefills + st.chunk_rounds - before
+
+    _, prof_o = profile_call(
+        first_steps,
+        lambda rounds: dict(none, conv1d_pack_fwd=cfg.n_layers * rounds),
+        setup=overlap_setup)
+    eng = held.pop()
+    profiles["overlapped_steps"] = dict(
+        prof_o, steps=8,
+        side_stream=None if eng._side is None else eng._side.stream_id)
+    eng.run()
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "slots": SERVE_SLOTS,
+            "requests": len(mix),
+            "prompt_lens": [len(p) for p, _ in mix],
+            "sampled": [r for r, (_, k) in enumerate(mix) if k],
+            "target_ttft_ms": SERVE_TTFT_MS, "on": on, "off": off,
+            "streams_bitwise_equal": True, "sampled_replays_equal": refs,
+            "padded_wave_tok_per_s": wave_cont["wave"],
+            "continuous_tok_per_s": wave_cont["continuous"],
+            "profiles": profiles}
+
+
+def phase_serve_launcher():
+    """The serve launcher as a subprocess on the card: ``--tiny``, sampled,
+    buckets (16, 32) so prompts of up to 39 tokens meet the chunk lane,
+    ``--obs-trace`` and ``--profile-dir``. It must exit 0 with chunk rounds,
+    its trace pass ``obs.check`` with the serve spans required and its
+    profile name a ``conv1d_pack`` kernel."""
+    from repro_torch.obs.check import check_trace
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prof = (os.path.join(tmp, n) for n in ("trace.json", "prof"))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
+               "--requests", "12", "--slots", "4", "--max-len", "96",
+               "--buckets", "16,32", "--temperature", "0.8", "--top-k", "40",
+               "--max-inflight-prefills", "2", "--obs-trace", trace,
+               "--profile-dir", prof]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"the serve launcher exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        errs = check_trace(
+            trace, require=["serve.prefills", "serve.decode_steps",
+                            "serve.chunk_rounds", "serve.ttft_ms"],
+            require_spans=["serve.step", "prefill_dispatch", "prefill_land",
+                           "chunk_slab", "decode_step", "queued", "prefill",
+                           "chunk", "decode"])
+        files = [os.path.join(prof, n) for n in os.listdir(prof)
+                 if n.endswith(".pt.trace.json")]
+        kernels = []
+        for f in files:
+            with open(f) as fh:
+                kernels += [e["name"] for e in json.load(fh)["traceEvents"]
+                            if e.get("cat") == "kernel"]
+        conv = [k for k in kernels if "conv1d_pack" in k]
+        if errs or not conv or not last["chunk_rounds"]:
+            raise AssertionError(f"the serve launcher's trace: {errs}; its "
+                                 f"profile's conv1d_pack kernels: "
+                                 f"{len(conv)} of {len(kernels)}; {last}")
+    return {"cmd": " ".join(cmd[1:]), "trace_ok": True,
+            "profile_files": len(files), "profile_kernels": len(kernels),
+            "profile_conv1d_pack_kernels": len(conv), "result": last,
+            "seconds": time.perf_counter() - t0}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1816,6 +2347,31 @@ def main():
     emit("checkpoint", **phase_checkpoint(smi))
     emit("launcher", **phase_launcher())
 
+    # the serving engine's scheduler v2: #1 at the chunk slab, chunked
+    # prefill against whole prefill on both models, the engine (overlap,
+    # the pipeline, the TTFT policy, sampling, the chunk lane) on
+    # mamba-1.4b, the padded wave, profiles; then the serve launcher
+    slab = phase_conv_slab()
+    emit("kernels", **slab)
+    model = LM(cfg)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    chunk_par = phase_chunk_parity(model, cfg)
+    emit("chunk_parity", **chunk_par)
+    sv = phase_serve(model, cfg)
+    for pname, prof_s in sv.pop("profiles").items():
+        emit("serve_profile", name=pname, **prof_s)
+    emit("serve", **sv)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = LM(cfg2)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    emit("chunk_parity_mamba2", **phase_chunk_parity(model, cfg2))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_launcher", **phase_serve_launcher())
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -1864,16 +2420,23 @@ def main():
     bwd_row = scan_row("selective_scan_bwd", TRAIN_SHAPE)
     step_fwd_row = scan_row("selective_scan_fwd_step", TRAIN_SHAPE_28)
     step_bwd_row = scan_row("selective_scan_bwd_step", TRAIN_SHAPE_28)
+    per_prefill = eng["conv1d_pack_launches"] // eng["prefills"]
     print(json.dumps({"kernels": [
         entry("conv1d_pack_fwd", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:36",
               main_row(conv_rows, MAIN_SHAPE), eng["conv1d_pack_launches"],
-              conv_worst, launches_per_prefill=cfg.n_layers,
+              conv_worst, launches_per_prefill=per_prefill,
               launches_train=launches["conv1d_pack_fwd"],
               launches_train_step=launches3["conv1d_pack_fwd"],
               launches_train_mamba2=launches2["conv1d_pack_fwd"],
               resources=conv_resources("fwd", conv_rows),
-              train_ms=conv_train_ms(conv_rows)),
+              train_ms=conv_train_ms(conv_rows),
+              launches_serve=sv["on"]["conv1d_pack_launches"],
+              launches_per_chunk_round=chunk_par[
+                  "conv1d_pack_launches_per_slab"],
+              chunk_slab={k: slab[k] for k in (
+                  "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),

@@ -2,7 +2,9 @@
 
 The port of the JAX package ``repro`` — which stays the reference — module
 by module under the same names. Ported: the serving path (packed prefill
-into decode slots, then greedy decode), the packed training loop (loader →
+into decode slots, overlapped on a side stream, chunked prefill of long
+prompts, greedy and sampled decode: ``launch/serve.py``), the packed
+training loop (loader →
 ``LM.loss`` → backward → AdamW, gradient accumulation in f32 or bf16,
 checkpoint/restart with the SIGTERM emergency save: ``train/``,
 ``checkpoint/``, ``data/``, ``optim/``), Mamba-1 and Mamba-2 blocks, the

@@ -167,6 +167,60 @@ def segment_ends(packed: PackedBatch, max_segments: int) -> np.ndarray:
     return ends
 
 
+# ---------------------------------------------------------------------------
+# chunk-aware planning (serving: chunked prefill of over-bucket prompts)
+# ---------------------------------------------------------------------------
+
+def chunk_spans(length: int, chunk: int) -> List[tuple]:
+    """Fixed-size chunk plan for one long sequence: [(offset, n), …] with
+    n == chunk everywhere but a possibly short final span; each span is one
+    ``LM.prefill_chunk`` resuming from the carried state."""
+    if length <= 0:
+        raise ValueError(f"length must be positive, got {length}")
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return [(off, min(chunk, length - off))
+            for off in range(0, length, chunk)]
+
+
+def needs_chunking(length: int, buckets: Sequence[int]) -> bool:
+    """True when a prompt cannot ride the packed-prefill bucket lane and
+    must be consumed by the chunked-prefill lane instead."""
+    return length > max(buckets)
+
+
+def slab_width(need: int, buckets: Sequence[int], chunk_size: int) -> int:
+    """Width of the next chunked-prefill slab: the smallest candidate ≥
+    ``need`` (tokens the hungriest chunk row wants this round), capped at
+    ``chunk_size``. Candidates are the prefill buckets ≤ chunk_size plus
+    chunk_size itself, so the slab shapes stay bounded by the bucket list."""
+    cands = sorted({b for b in buckets if b <= chunk_size} | {chunk_size})
+    for c in cands:
+        if c >= need:
+            return c
+    return chunk_size
+
+
+def suffix_slab(entries, num_rows: int, width: int):
+    """One fixed-shape (num_rows, width) chunk-lane slab: ``entries`` maps
+    row → (tokens, offset, take), and that row carries
+    ``tokens[offset : offset + take]`` at GLOBAL positions. Unoccupied rows
+    and the tail beyond ``take`` are segment_ids-0 padding (exact state
+    no-ops in ``LM.prefill_chunk``). Returns the tokens/positions/
+    segment_ids batch dict of numpy arrays."""
+    toks = np.zeros((num_rows, width), np.int32)
+    pos = np.zeros((num_rows, width), np.int32)
+    seg = np.zeros((num_rows, width), np.int32)
+    for i, (tokens, off, take) in entries.items():
+        if not 0 <= take <= width:
+            raise ValueError(f"row {i}: take {take} outside slab width "
+                             f"{width}")
+        toks[i, :take] = tokens[off:off + take]
+        pos[i, :take] = np.arange(off, off + take)
+        seg[i, :take] = 1
+    return {"tokens": toks, "positions": pos, "segment_ids": seg}
+
+
 @dataclasses.dataclass
 class SplitPackedBatch(PackedBatch):
     """Packing with boundary splitting (paper §5 future work): a sequence

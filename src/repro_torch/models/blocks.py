@@ -16,12 +16,18 @@ State handoff (serving), selected by ``collect`` and ``collect_ends``:
     several prompts; the reset rule makes the state at each segment's last
     token that segment's final state (``LM.prefill_packed``). State leaves
     gain a (B, S, …) leading pair.
+
+Chunked prefill (``chunk_mamba``/``chunk_mamba2``, ``CHUNK``) resumes a long
+prompt from its carried decode-layout state, one slab at a time
+(``LM.prefill_chunk``); ``sample_from_logits`` is the serving engine's
+batched sampler, on counter-based noise (its section below).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -352,6 +358,96 @@ def step_mamba2(p, x_t, cache, ctx: Ctx, cfg: ArchConfig):
     return x_t + out[:, None], {"conv": conv_state, "ssm": ssm}
 
 
+# ===========================================================================
+# chunk-resume prefill steps
+# ===========================================================================
+# ``chunk_<kind>(p, x, cache, ctx, cfg) -> (x, state)`` consumes a (B, T, d)
+# slab of a LONG prompt and returns the block's output and the DECODE-layout
+# state after it (the caller writes it into the cache). Protocol:
+#   ctx.positions    (B, T) GLOBAL intra-sequence positions (off + t);
+#                    padding slots hold anything (they are neutralised)
+#   ctx.segment_ids  (B, T) 1 = real token, 0 = trailing padding (one
+#                    request per chunk row, never packed)
+# Rows whose slab is all padding are exact state no-ops (Δ=0 ⇒ Ā=1, B̄x=0,
+# the trick of the per-row collect paths).
+
+
+def _conv_resume(x_in, conv_cache, w, b, positions):
+    """Causal conv over a resumed chunk: prepend the cached (W-1)-tail, run
+    ``conv1d_pack`` (kernel #1 on the card) and drop the warm-up outputs.
+    The kernel's taps test ``positions[t] >= k`` on the OUTPUT position
+    only, so W-1 leading zero positions leave every kept output exact.
+    Returns (x_c (B, T, D), the extended input (B, W-1+T, D))."""
+    Bz = x_in.shape[0]
+    W = w.shape[0]
+    ext = torch.cat([conv_cache.to(x_in.dtype), x_in], dim=1)
+    pos_ext = torch.cat([torch.zeros((Bz, W - 1), dtype=positions.dtype,
+                                     device=positions.device), positions],
+                        dim=1)
+    x_c = kops.conv1d_pack(ext, w, b, pos_ext)[:, W - 1:]
+    return x_c, ext
+
+
+def _chunk_gates(ctx: Ctx, x, delta):
+    """Freeze the state across the slab's padding: Δ=0 there, and the
+    padding's positions must not fire the reset. Returns (Δ, positions,
+    valid counts (B,))."""
+    valid = _valid(ctx, x)
+    delta = delta * valid[..., None].to(delta.dtype)
+    return delta, torch.where(valid, ctx.positions, 1), valid.sum(-1)
+
+
+def chunk_mamba(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One Mamba-1 block over a resumed slab; the scan is the plain
+    ``core/ssm.py`` scan from ``h0 = cache["ssm"]``, as the JAX package's
+    ``chunk_mamba`` runs XLA's."""
+    N, dtr, W = cfg.d_state, cfg.dtr, cfg.d_conv
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    xz = h @ p["in_proj"].to(h.dtype)
+    x_in, z = xz.chunk(2, dim=-1)
+    x_c, ext = _conv_resume(x_in, cache["conv"], p["conv_w"].to(h.dtype),
+                            p["conv_b"].to(h.dtype), ctx.positions)
+    x_c = F.silu(x_c)
+    dbl = x_c @ p["x_proj"].to(h.dtype)
+    dt_low, Bm, Cm = dbl.split([dtr, N, N], dim=-1)
+    delta = F.softplus(dt_low @ p["dt_w"].to(h.dtype) + p["dt_b"].to(h.dtype))
+    A = -torch.exp(p["A_log"])
+    delta, pos_nz, nvalid = _chunk_gates(ctx, x, delta)
+    y, h_last = core_ssm.selective_scan(
+        x_c, delta, A, Bm, Cm, p["D"], positions=pos_nz,
+        method=cfg.scan_impl, chunk=cfg.scan_chunk, return_state=True,
+        h0=cache["ssm"], intra=cfg.scan_intra, **_tune_kw(cfg))
+    state = {"conv": _conv_tail(ext, (W - 1) + nvalid, W), "ssm": h_last}
+    return x + (y * F.silu(z)) @ p["out_proj"].to(x.dtype), state
+
+
+def chunk_mamba2(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One Mamba-2 block over a resumed slab; the plain heads scan from
+    ``h0 = cache["ssm"]``, as the JAX package's ``chunk_mamba2``."""
+    Bz, T, _ = x.shape
+    di, H, P, W = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_hd, cfg.d_conv
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    xz = h @ p["in_proj"].to(h.dtype)
+    x_in, z = xz.chunk(2, dim=-1)
+    x_c, ext = _conv_resume(x_in, cache["conv"], p["conv_w"].to(h.dtype),
+                            p["conv_b"].to(h.dtype), ctx.positions)
+    x_c = F.silu(x_c)
+    delta, Bm, Cm = _mamba2_gates(p, x_c, cfg)
+    A = -torch.exp(p["A_log"])
+    delta, pos_nz, nvalid = _chunk_gates(ctx, x, delta)
+    y, h_last = core_ssm.selective_scan_heads(
+        x_c.reshape(Bz, T, H, P), delta, A, Bm, Cm, p["D"],
+        positions=pos_nz, method="blocked", chunk=cfg.scan_chunk,
+        return_state=True, h0=cache["ssm"], intra=cfg.scan_intra,
+        **_tune_kw(cfg))
+    state = {"conv": _conv_tail(ext, (W - 1) + nvalid, W), "ssm": h_last}
+    y = _mamba2_gate_out(p, y.reshape(Bz, T, di), z, cfg)
+    return x + y @ p["out_proj"].to(x.dtype), state
+
+
+CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2}
+
+
 # Per layer kind: (init, parameter shapes, apply, decode cache, decode step)
 KINDS = {
     "mamba": (init_mamba, mamba_param_shapes, apply_mamba, init_mamba_cache,
@@ -375,3 +471,90 @@ def kind_of(cfg: ArchConfig):
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     """Greedy pick: the first maximum along the vocab, as int32."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ===========================================================================
+# batched sampling (serving decode)
+# ===========================================================================
+# The JAX package keys ``jax.random`` by (seed, rid) and splits the key once
+# a token; torch cannot reproduce those bits. The port draws counter-based
+# noise instead: each uniform is an integer hash of (stream, token index,
+# vocab index), where a request's stream is a hash of (seed, rid). The hash
+# is 32-bit integer arithmetic in int64 tensors, masked to 32 bits after
+# every multiply, so the CPU and the card compute the same bits; a slot
+# carries its request's stream and token counter in place of a key, and a
+# request samples identically whatever its slot, its admission round or
+# the engine's schedule. A per-request ``torch.Generator`` would give the
+# same independence but one draw call per slot a step, not one batched
+# fixed-shape step, and a different stream on the CPU than on the card.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x · c) mod 2^32 for x in [0, 2^32) and a 32-bit constant c: two
+    16-bit halves, so no product leaves int64 (or int) range. Works on
+    Python ints, numpy int64 arrays and torch int64 tensors alike."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finaliser (xorshift-multiply, two rounds): a
+    bijection on [0, 2^32) with full avalanche."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def request_streams(seed: int, rids) -> np.ndarray:
+    """Per-request noise streams: a hash of (seed, rid). rids (K,) →
+    (K,) int64 in [0, 2^32)."""
+    r = np.asarray(rids, np.int64) & _M32
+    return _mix32(_mix32(np.int64(seed & _M32)) ^ r)
+
+
+def sample_uniforms(stream: torch.Tensor, ctr: torch.Tensor,
+                    V: int) -> torch.Tensor:
+    """Uniforms in (0, 1) for token index ``ctr`` of ``stream``, one per
+    vocab entry: stream, ctr (B,) int64 → (B, V) f32. The top 24 bits of
+    the hash over 2^24, offset by half a step, are exact in f32."""
+    row = _mix32(stream ^ _mix32(ctr & _M32))
+    col = _mix32(torch.arange(V, dtype=torch.int64, device=stream.device))
+    h = _mix32(row[:, None] ^ col[None, :])
+    return ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def sample_from_logits(logits, stream, ctr, temperature, top_k, top_p):
+    """Fixed-shape batched sampling over decode slots (port of the JAX
+    ``sample_from_logits``, its threshold rules exactly).
+
+    logits (B, V) f32; stream, ctr (B,) int64: each slot's noise stream
+    and the index of the token being drawn; temperature (B,) f32 —
+    ``<= 0`` means GREEDY (argmax; its counter still advances); top_k (B,)
+    int — keep the logits ``>=`` the k-th largest (``<= 0`` disables);
+    top_p (B,) f32 — keep the logits ``>=`` the last of the smallest
+    sorted prefix whose mass before it is < top_p (``>= 1`` disables).
+    Gumbel-max over the kept logits divided by the temperature. Returns
+    (tokens (B,) int32, ctr + 1)."""
+    V = logits.shape[-1]
+    lg = logits.float()
+    greedy_tok = torch.argmax(lg, dim=-1)
+    sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+    k = torch.where(top_k > 0, top_k, V).long()
+    kth = torch.gather(sorted_lg, -1, (k - 1).clamp(0, V - 1)[:, None])
+    masked = torch.where(lg >= kth, lg, -torch.inf)
+    probs = torch.softmax(sorted_lg, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    nkeep = (before < top_p.clamp(0.0, 1.0)[:, None]).sum(-1)
+    pth = torch.gather(sorted_lg, -1, (nkeep - 1).clamp(0, V - 1)[:, None])
+    masked = torch.where(lg >= pth, masked, -torch.inf)
+    u = sample_uniforms(stream, ctr, V)
+    gumbel = -torch.log(-torch.log(u))
+    temp = temperature.clamp(min=1e-6)[:, None]
+    sampled = torch.argmax(masked / temp + gumbel, dim=-1)
+    tok = torch.where(temperature > 0.0, sampled, greedy_tok)
+    return tok.to(torch.int32), ctr + 1

@@ -10,16 +10,19 @@ Training: ``loss`` is the packed next-token cross-entropy; the parameters
 track gradients, ``remat="unit"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``) and the vocab logits exist one L-chunk at a
 time. Serving: ``forward``, ``prefill``, ``prefill_packed``,
-``decode_step`` and ``scatter_into_cache`` run under ``torch.no_grad()``,
-so they build no autograd graph.
+``prefill_chunk`` (resumable prefill of a long prompt, slab by slab),
+``decode_step``, ``decode_step_sample`` / ``sample_tokens`` (batched
+sampling), ``scatter_into_cache`` and ``reset_cache_rows`` run under
+``torch.no_grad()``, so they build no autograd graph.
 
 Caches and harvested states keep the JAX package's stacked layout with the
 layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
 "ssm": (n_layers, slots, di, N)}`` (Mamba-1) or ``"ssm": (n_layers, slots,
 H, P, N)`` (Mamba-2), and a packed prefill's states carry
-``(n_layers, B, S, …)``. ``decode_step`` and ``scatter_into_cache`` update
-the cache in place (JAX's versions return a new one), so the engine holds
-one cache's worth of device memory.
+``(n_layers, B, S, …)``. ``decode_step``, ``prefill_chunk``,
+``reset_cache_rows`` and ``scatter_into_cache`` update the cache in place
+(JAX's versions return a new one), so the engine holds one cache's worth of
+device memory.
 """
 from __future__ import annotations
 
@@ -231,3 +234,78 @@ class LM(nn.Module):
             cache["ssm"][i].copy_(st["ssm"])
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         return self._logits(x[:, 0]), cache
+
+    @torch.no_grad()
+    def decode_step_sample(self, cache, tokens_t, stream, ctr, temperature,
+                           top_k, top_p, reset: Optional[torch.Tensor] = None):
+        """One decode + batched-sampling step over all slots: the sampled
+        token never goes to the host between the forward and the sample.
+        stream, ctr (B,) int64 per-slot noise stream and token counter;
+        temperature/top_k/top_p (B,) per-slot knobs (``blocks.
+        sample_from_logits``). Returns (tokens (B,) int32, logits (B, V)
+        f32, cache, ctr + 1)."""
+        logits, cache = self.decode_step(cache, tokens_t, reset)
+        tok, ctr = B.sample_from_logits(logits, stream, ctr, temperature,
+                                        top_k, top_p)
+        return tok, logits, cache, ctr
+
+    @torch.no_grad()
+    def sample_tokens(self, logits, stream, ctr, temperature, top_k, top_p):
+        """Sample one token per row of already computed logits (a packed
+        prefill's flattened (K, V) segment-end logits, or a chunk round's).
+        Returns (tokens (K,) int32, ctr + 1)."""
+        return B.sample_from_logits(logits, stream, ctr, temperature, top_k,
+                                    top_p)
+
+    # -------------------------------------------------- chunk-resume prefill
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """True when every layer kind has a chunk-resume step
+        (``blocks.CHUNK``): the serve engine's gate for prompts longer
+        than its largest prefill bucket."""
+        return all(kind in B.CHUNK for kind in self.cfg.unit)
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache, batch, cache_len):
+        """Advance a DECODE-layout cache by one (B, T) slab of long prompts,
+        in place: resumable prefill from the carried O(1) state. ``batch``
+        holds the slab's tokens/positions/segment_ids (positions GLOBAL,
+        segment_ids 0 marks trailing padding; an all-padding row is an
+        exact no-op); ``cache_len`` (B,) counts the tokens consumed before.
+        Returns (logits (B, V) f32 at each row's last valid slab token,
+        cache, cache_len + the slab's valid tokens)."""
+        batch = self._batch(batch)
+        x = self._embed(batch["tokens"])
+        ctx = self._ctx(batch)
+        chunk = B.CHUNK[self.cfg.unit[0]]
+        for i, p in enumerate(self.layers):
+            x, st = chunk(p, x, {"conv": cache["conv"][i],
+                                 "ssm": cache["ssm"][i]}, ctx, self.cfg)
+            cache["conv"][i].copy_(st["conv"])
+            cache["ssm"][i].copy_(st["ssm"])
+        x = B._norm(self.final_norm, x, self.cfg.norm_eps)
+        nvalid = (batch["segment_ids"] > 0).sum(-1)
+        xlast = x[torch.arange(x.shape[0], device=x.device),
+                  (nvalid - 1).clamp(min=0)]
+        cache_len = torch.as_tensor(cache_len, device=self.device)
+        return (self._logits(xlast), cache,
+                (cache_len + nvalid).to(torch.int32))
+
+    @torch.no_grad()
+    def reset_cache_rows(self, cache, fresh):
+        """Zero the rows ``fresh`` (B,) bool of a decode-layout cache back
+        to their ``init_cache`` values, in place (the engine claims a chunk
+        row for a new request: no stale conv tail or state leaks across
+        tenants). Returns the cache."""
+        fresh = torch.as_tensor(fresh, device=self.device)
+        for c in cache.values():
+            m = fresh.reshape((1, -1) + (1,) * (c.dim() - 2))
+            c.masked_fill_(m, 0)
+        return cache
+
+    @staticmethod
+    def expand_chunk_states(cache):
+        """View a chunk cache ((n_layers, B, …) leaves) as a one-segment
+        packed harvest ((n_layers, B, 1, …)), so ``scatter_into_cache``
+        lands a finished chunk row in its decode slot unchanged."""
+        return {k: v.unsqueeze(2) for k, v in cache.items()}

@@ -32,7 +32,13 @@ Metric names are dotted; the port's catalogue:
       data.prefetch_wait_ms (gauge) — ``data/prefetch.py``;
   tune.sweeps, tune.candidates (counters) — ``tune/runner.py``; spans
       ``tune.sweep`` (one per key) with nested ``tune.candidate`` on the
-      ``tune`` track.
+      ``tune`` track;
+  serve.* (``ServeStats``'s counters and gauges, histograms
+      serve.ttft_ms and serve.itl_ms) — ``launch/serve.py``; spans
+      ``serve.step``, ``prefill_dispatch``, ``prefill_land``,
+      ``chunk_slab`` and ``decode_step`` on the ``engine`` track, and each
+      request's ``queued`` → ``prefill`` | ``chunk`` → ``decode`` on its
+      ``req<rid>`` track (instants ``first_token`` and ``done``).
 
 obs/metrics.py and obs/trace.py are the pieces; obs/profile.py the
 ``torch.profiler`` bridge; obs/check.py the trace validator

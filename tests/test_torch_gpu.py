@@ -12,16 +12,22 @@ are f32 whatever the input dtype, 1e-3 abs + rel (sums over L). The two
 Mamba-1 schedules against each other: checkpoints 1e-4 · (1 + |ref|), y
 within two bf16 roundings, backward outputs 1e-3 abs + rel.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import selective_scan as ksc  # noqa: E402
 from repro_torch.kernels import selective_scan_heads as kh  # noqa: E402
+from repro_torch.launch.serve import ServeEngine  # noqa: E402
+from repro_torch.models import blocks as B  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -990,3 +996,90 @@ def test_tuned_kernel_winner_launches_its_own_kernels(cuda, op, knobs,
     torch.cuda.synchronize()
     ran = {n: getattr(mod, n) - v for n, v in before.items()}
     assert ran == {n: int(n in counter) for n in before}
+
+
+@pytest.mark.parametrize("off", [0, 512])
+def test_conv_fwd_on_the_chunk_slab(cuda, off):
+    """#1 over a chunk-lane slab as ``blocks._conv_resume`` hands it over:
+    (1, 3 + 256, 4096) bf16, the carried conv tail at three leading zero
+    positions, then the slab at global positions from ``off`` (0: the
+    prompt's first slab, where the tail must not reach) with 40 rows of
+    trailing padding. Against the plain version (one bf16 rounding of the
+    f32 sum), bitwise equal on two runs and to ``_conv_resume``'s kept
+    outputs."""
+    rng = np.random.default_rng(off + 1)
+    D, T, W, pad = 4096, 256, 4, 40
+    f = dict(device=cuda, dtype=torch.bfloat16)
+    x_in = torch.as_tensor(rng.normal(size=(1, T, 2 * D))).to(**f)
+    x_in = x_in.chunk(2, dim=-1)[0]                # a strided view, as xz's
+    tail = torch.as_tensor(rng.normal(size=(1, W - 1, D))).to(**f)
+    w = torch.as_tensor(rng.normal(size=(W, D)) / 2).to(**f)
+    b = torch.as_tensor(rng.normal(size=D) / 4).to(**f)
+    pos = np.zeros((1, T), np.int32)
+    pos[0, :T - pad] = np.arange(off, off + T - pad)
+    pos = torch.as_tensor(pos).to(cuda)
+    ext = torch.cat([tail, x_in], dim=1)
+    pos_ext = torch.cat([torch.zeros((1, W - 1), dtype=torch.int32,
+                                     device=cuda), pos], dim=1)
+    assert tuple(ext.shape) == (1, 259, 4096)
+    want = kconv.conv1d_pack_plain(ext.float(), w.float(), b.float(),
+                                   pos_ext)
+    n0 = kconv.LAUNCHES
+    y, again = (kconv.conv1d_pack(ext, w, b, pos_ext) for _ in range(2))
+    x_c, ext2 = B._conv_resume(x_in, tail, w, b, pos)
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES == n0 + 3
+    err = (y.float() - want).abs()
+    assert bool((err <= 2.0 ** -8 * want.abs() + 1e-6).all()), err.max()
+    assert torch.equal(y, again) and torch.equal(ext2, ext)
+    assert torch.equal(x_c, y[:, W - 1:])
+    if off == 0:         # position 0 resets: the slab ignores the tail
+        alone = kconv.conv1d_pack(x_in.contiguous(), w, b, pos)
+        assert torch.equal(x_c[:, :T - pad], alone[:, :T - pad])
+
+
+def test_sampling_uniforms_on_the_card_equal_the_cpu(cuda):
+    """The counter-based noise is integer arithmetic: the card's uniforms
+    are the CPU's, bit for bit, at mamba-1.4b's vocab."""
+    stream = torch.as_tensor(B.request_streams(7, np.arange(24)))
+    ctr = torch.arange(24, dtype=torch.int64) * 3
+    u_cpu = B.sample_uniforms(stream, ctr, 50280)
+    u_card = B.sample_uniforms(stream.to(cuda), ctr.to(cuda), 50280)
+    assert torch.equal(u_cpu, u_card.cpu())
+
+
+def test_overlap_identity_at_reduced_size(cuda):
+    """The engine with packed prefills on a side stream (two in flight)
+    gives the synchronous engine's streams bit for bit, greedy and sampled,
+    and a long prompt through the chunk lane; #1 launches once a layer for
+    each prefill and chunk round. Slots outnumber requests, so both runs
+    pack the same rounds (their numerics depend on the layout)."""
+    cfg = dataclasses.replace(get_config("mamba-110m").reduced(),
+                              d_model=256, n_layers=4, vocab=512,
+                              dtype="bfloat16")
+    model = LM(cfg, cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(9)
+    lens = [5, 40, 9, 13, 26, 7, 11, 30, 12, 6]
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in lens]
+    temps = [0.0, 0.7, 0.0, 0.9, 0.0, 0.8, 0.0, 0.6, 0.0, 1.0]
+
+    def run(**kw):
+        eng = ServeEngine(model, num_slots=12, max_len=64, buckets=(16, 32),
+                          max_segments=2, sample_seed=3, **kw)
+        for p, tp in zip(prompts, temps):
+            eng.submit(p, 8, temperature=tp, top_k=20, top_p=0.9)
+        n0 = kconv.LAUNCHES
+        outs = eng.run()
+        torch.cuda.synchronize()
+        assert kconv.LAUNCHES - n0 == cfg.n_layers * (
+            eng.stats.prefills + eng.stats.chunk_rounds)
+        return [outs[r] for r in sorted(outs)], eng
+
+    base, beng = run(overlap=False)
+    for _ in range(2):
+        got, eng = run(overlap=True, max_inflight_prefills=2)
+        assert eng._side is not None and beng._side is None
+        assert got == base
+        assert eng.stats.overlapped_prefills > 0
+        assert eng.stats.chunked_prefills == 1

@@ -321,7 +321,7 @@ def test_engine_streams_match_jax(pair):
                for n in rng.integers(4, 30, size=6)]
     outs = []
     for eng in (JEngine(jmodel, jparams, overlap=False, chunk_rows=0, **kw),
-                ServeEngine(model, **kw)):
+                ServeEngine(model, overlap=False, chunk_rows=0, **kw)):
         for p in prompts:
             eng.submit(p, 5)
         outs.append((eng.run(), eng.stats))

@@ -1,7 +1,7 @@
 """Port parity of the serve engine: the port's ServeEngine and the JAX
-ServeEngine(overlap=False, chunk_rows=0) give the same greedy token streams
-— mid-flight refills and EOS included — and the same counts, from the same
-weights (mamba-110m.reduced(), JAX side with use_pallas=True).
+ServeEngine, both with overlap=False, chunk_rows=0, give the same greedy
+token streams — mid-flight refills and EOS included — and the same counts,
+from the same weights (mamba-110m.reduced(), JAX side with use_pallas=True).
 
 A stream may leave the JAX one only where that step's top-2 logit gap is
 below 1e-5 (a tie the two packages may break apart). Also: the port's
@@ -96,8 +96,8 @@ def test_engine_streams_and_counts_match_jax(pair, eos_mode):
         eos = free[0][2]                  # a token greedy decode emits
     j_outs, jst = _run(JEngine(jmodel, jparams, overlap=False, chunk_rows=0,
                                **ENGINE_KW), prompts, budgets, eos)
-    t_outs, tst = _run(ServeEngine(model, **ENGINE_KW), prompts, budgets,
-                       eos)
+    t_outs, tst = _run(ServeEngine(model, overlap=False, chunk_rows=0,
+                                   **ENGINE_KW), prompts, budgets, eos)
     _assert_streams_agree(pair, j_outs, t_outs)
     assert (tst.prefills, tst.decode_steps, tst.midflight_refills) == \
         (jst.prefills, jst.decode_steps, jst.midflight_refills)
@@ -114,16 +114,42 @@ def test_engine_streams_and_counts_match_jax(pair, eos_mode):
 
 
 def test_submit_validation(pair):
+    """The JAX engine's checks: an over-bucket prompt is refused only with
+    the chunk lane off (chunk_rows=0); max_prompt_len bounds the prompt;
+    top_k and top_p are range-checked; bucket_policy is named."""
     _, _, model, prompts, _ = pair
     eng = ServeEngine(model, **ENGINE_KW)
-    with pytest.raises(ValueError):
-        eng.submit(np.arange(1, 40), 2)           # over the largest bucket
+    long_rid = eng.submit(np.arange(1, 40), 2)    # the chunk lane takes it
     with pytest.raises(ValueError):
         eng.submit(prompts[0], 64)                # over the slot capacity
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="non-empty"):
         eng.submit([], 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(prompts[0], 2, temperature=0.7)
+    with pytest.raises(ValueError, match="max_new"):
+        eng.submit(prompts[0], 0)
+    with pytest.raises(ValueError, match="temperature"):
+        eng.submit(prompts[0], 2, temperature=-0.5)
+    with pytest.raises(ValueError, match="top_k"):
+        eng.submit(prompts[0], 2, top_k=-5)
+    for p in (0.0, 1.5):
+        with pytest.raises(ValueError, match="top_p"):
+            eng.submit(prompts[0], 2, top_p=p)
+    with pytest.raises(ValueError, match="duplicate"):
+        eng.submit(prompts[0], 2, rid=long_rid)
+    eng.submit(prompts[0], 2, temperature=0.7, top_k=3, top_p=0.9)
+    with pytest.raises(RuntimeError):             # would clobber slots
+        eng.decode_batch([prompts[0]], 2)
+    outs = eng.run()
+    assert eng.status[long_rid] == "done" and len(outs[long_rid]) == 2
+    assert eng.stats.chunked_prefills == 1
+    unchunked = ServeEngine(model, chunk_rows=0, **ENGINE_KW)
+    with pytest.raises(ValueError, match="chunked prefill is unavailable"):
+        unchunked.submit(np.arange(1, 40), 2)
+    bounded = ServeEngine(model, max_prompt_len=16, **ENGINE_KW)
+    with pytest.raises(ValueError, match="max_prompt_len"):
+        bounded.submit(np.arange(1, 18), 2)
+    bounded.submit(np.arange(1, 17), 2)           # at the bound: fine
+    with pytest.raises(ValueError, match="bucket_policy"):
+        ServeEngine(model, bucket_policy="widest", **ENGINE_KW)
 
 
 def test_lm_device_rule():

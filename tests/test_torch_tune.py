@@ -887,7 +887,9 @@ def test_engine_with_tuning_gives_the_same_greedy_tokens(tmp_path):
         outs.append(eng.run())
     assert outs[0] == outs[1]
     doc = json.load(open(tmp_path / "tc.json"))
+    # the packed prefill's (2, bucket) shapes and the chunk lane's
+    # (1, slab width) ones, slab widths the buckets up to chunk_size (64)
     assert sorted(doc["entries"]) == sorted(
-        tspace.shape_key("selective_scan", B=2, L=b, D=cfg.d_inner,
+        tspace.shape_key("selective_scan", B=rows, L=b, D=cfg.d_inner,
                          N=cfg.d_state, dtype=cfg.dtype).encode()
-        for b in (32, 64))
+        for rows in (1, 2) for b in (32, 64))
