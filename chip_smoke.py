@@ -133,7 +133,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               --temperature 0.8 --top-k 40 --buckets 16,32 --obs-trace T
               --profile-dir P`` as a subprocess: exit 0 with chunk rounds,
               T passes ``obs.check`` with the serve spans, P names a
-              ``conv1d_pack`` kernel.
+              ``conv1d_pack`` kernel; with ``--guard --deadline-ms 60000
+              --max-queue 64`` its lifecycle counters must read 0.
+13. lifecycle — phase 12's engine and mix (mamba-1.4b, 48 layers, bf16, 24
+              slots, overlap on, two prefills in flight): the guard off,
+              on, on, off with an empty ``FaultPlan`` (streams bitwise
+              equal, decode ms/step of each) and one greedy decode step
+              profiled with the guard off, on, on, off (device busy ms,
+              kernels); a plan that poisons one
+              decode slot, one prefill segment and one chunk row and fails
+              one prefill (those requests fail, every other stream is the
+              clean run's bitwise, #1 launched exactly n_layers × the
+              forwards that ran); a kill before decode step 6 with a
+              blocking snapshot every 4 steps, then a fresh engine restoring
+              the last one (the long prompt mid-chunk) finishes every
+              stream, sampled too, bitwise as the clean run (the snapshot's
+              bytes and ms and the restore's ms beside the card's name and
+              power limit); a cancel of a request whose prefill is in flight
+              on the side stream (its slot comes back free).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -205,6 +222,13 @@ SERVE_CHUNK = 256                # chunk slab = the largest bucket
 SERVE_TTFT_MS = 20000.0          # the TTFT target: above every wait of
 #                                  this mix, so no time rule fires
 SERVE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+# phase 13 (lifecycle): phase 12's engine under a fault plan, killed and
+# restored, and a cancel in flight
+LIFE_PLAN = dict(poison_decode={3: [0]}, poison_prefill={1: [(0, 0)]},
+                 poison_chunk={2: [0]}, fail_prefill=2)
+LIFE_KILL_AT = 6                 # decode step; snapshots every 4 steps, so
+#                                  the last one holds the long prompt mid-chunk
+LIFE_SNAP_EVERY = 4
 CHUNK_PARITY_LEN = 700           # one prompt, whole against 3 slabs
 CHUNK_SLAB_SHAPE = (1, 3 + SERVE_CHUNK, 4096)   # #1 over a slab: W-1 + T
 
@@ -2176,6 +2200,226 @@ def phase_serve(model, cfg):
             "profiles": profiles}
 
 
+def phase_lifecycle(model, cfg, smi):
+    """Phase 13: the request lifecycle on phase 12's engine and mix (module
+    docstring). Every run has the launch counters set to 0 just before it
+    and read just after: #1 n_layers × (packed prefills that ran + chunk
+    rounds), nothing else."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.faults import EngineKilled, FaultPlan
+    from repro_torch.launch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    mix = serve_mix(cfg)
+    kw = dict(num_slots=SERVE_SLOTS, max_len=2048, buckets=(64, 128, 256),
+              prefill_rows=2, max_segments=4, bucket_policy="ttft",
+              target_ttft_ms=SERVE_TTFT_MS, chunk_size=SERVE_CHUNK,
+              overlap=True, max_inflight_prefills=2)
+
+    def engine(**over):
+        eng = ServeEngine(model, **dict(kw, **over))
+        for p, knobs in mix:
+            eng.submit(p, SERVE_NEW, **knobs)
+        torch.cuda.synchronize()
+        zero_launches()
+        return eng
+
+    def launches(eng):
+        torch.cuda.synchronize()
+        counts = read_launches()
+        conv = counts.pop("conv1d_pack_fwd")
+        st = eng.stats
+        ran = st.prefills - st.prefill_faults + st.chunk_rounds
+        if any(counts.values()) or conv != cfg.n_layers * ran:
+            raise AssertionError(f"lifecycle: #1 {conv} for {ran} forwards "
+                                 f"× {cfg.n_layers}, others {counts}")
+        return conv
+
+    def timed(**over):
+        eng = engine(**over)
+        t0 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        return eng, outs, {
+            "guard": eng.guard, "wall_s": wall, "tok_per_s":
+            st.generated / wall, "decode_ms_per_step":
+            st.decode_ms / st.decode_steps, "decode_steps": st.decode_steps,
+            "ttft_p50_ms": st.ttft_percentiles()["p50"],
+            "conv1d_pack_launches": launches(eng)}
+
+    # the guard off and on, empty plan: the same streams
+    guard_runs, clean = [], None
+    for guard in (False, True, True, False):
+        eng, outs, row = timed(guard=guard, faults=FaultPlan())
+        if any(eng.status[r] != "done" or len(outs[r]) != SERVE_NEW
+               for r in outs):
+            raise AssertionError(f"lifecycle guard={guard}: {eng.status}")
+        if clean is None:
+            clean = outs
+        elif outs != clean:
+            raise AssertionError(f"lifecycle: guard={guard} changed streams "
+                                 f"{[r for r in outs if outs[r] != clean[r]]}")
+        guard_runs.append(row)
+
+    # one greedy decode step profiled with the guard off and on (16 of 24
+    # slots active, as phase 12's profile): the guard's device cost, which
+    # the host-bound step's wall hides; the counters hold each to no launch
+    # of the nine kernels
+    held, guard_profiles = [], []
+
+    def decode_setup(guard):
+        def setup():
+            while held:
+                held.pop().run()
+            eng = ServeEngine(model, num_slots=SERVE_SLOTS, max_len=512,
+                              overlap=False, refill_threshold=1, guard=guard)
+            for p, _ in mix:
+                if len(p) <= 256:
+                    eng.submit(p, SERVE_NEW)
+            while eng.queue:
+                eng.step()
+            held.append(eng)
+        return setup
+
+    none = {k: 0 for k in read_launches()}
+    for guard in (False, True, True, False):
+        _, prof = profile_call(lambda: held[0]._decode_step(), none,
+                               setup=decode_setup(guard))
+        guard_profiles.append(dict(
+            {k: prof.get(k) for k in ("busy_ms", "kernels", "wall_ms",
+                                      "traces_set_aside")},
+            guard=guard, active=len(held[0]._active_slots())))
+    while held:
+        held.pop().run()
+
+    # one decode slot, one prefill segment and one chunk row poisoned, one
+    # prefill failed: those requests fail, every other stream is clean's
+    eng, outs, fault_row = timed(faults=FaultPlan(**LIFE_PLAN))
+    st = eng.stats
+    kinds = {"non-finite decode logits": 0, "non-finite prefill state": 0,
+             "non-finite chunked-prefill state": 0,
+             "prefill dispatch 2 failed": 0}
+    for r, e in eng.errors.items():
+        kinds[next(k for k in kinds if k in e)] += 1
+    failed = sorted(r for r, s in eng.status.items() if s == "failed")
+    differ = [r for r in outs if r not in failed and outs[r] != clean[r]]
+    if not eng.guard or differ or st.quarantined != 3 or \
+            st.prefill_faults != 1 or min(kinds.values()) < 1 or \
+            len(failed) != sum(kinds.values()) or \
+            any(eng.status[r] != "done" for r in outs if r not in failed):
+        raise AssertionError(f"lifecycle faults: failed {failed}, kinds "
+                             f"{kinds}, streams differ {differ}; {st!r}")
+    fault_row.update(failed=failed, errors=kinds, quarantined=st.quarantined,
+                     prefill_faults=st.prefill_faults,
+                     prefills=st.prefills, chunk_rounds=st.chunk_rounds)
+
+    # kill before decode step LIFE_KILL_AT, snapshots every 4 steps, restore
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+        eng = engine(faults=FaultPlan(kill_at_step=LIFE_KILL_AT))
+        snaps, steps = [], 0
+        try:
+            while True:
+                if steps % LIFE_SNAP_EVERY == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.snapshot(mgr, step=steps, blocking=True)
+                    snaps.append({
+                        "step": steps,
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "device_to_host_ms": mgr._g_snap.value,
+                        "write_s": mgr._g_write.value,
+                        "bytes": mgr._g_bytes.value})
+                steps += 1
+                if not eng.step():
+                    raise AssertionError("lifecycle: the kill never fired")
+        except EngineKilled:
+            pass
+        state_bytes = sum(t.numel() * t.element_size() for t in [
+            v for v in eng._device_state().values() if torch.is_tensor(v)]
+            + list(eng.cache.values()) + list(eng.chunk_cache.values()))
+        del eng
+        meta = mgr.read_meta(mgr.latest_step())["meta"]
+        fresh = ServeEngine(model, **kw)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        restored = fresh.restore(mgr)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        outs = fresh.run()
+        resumed_conv = launches(fresh)
+    mid_chunk = meta["chunks"][0]
+    if outs != clean or mid_chunk is None or \
+            not 0 < mid_chunk["off"] < SERVE_LONG:
+        raise AssertionError(
+            f"lifecycle restore of step {restored}: streams differ for "
+            f"{[r for r in clean if outs.get(r) != clean[r]]}; chunk row "
+            f"{mid_chunk and mid_chunk['off']}")
+    kill = {"kill_at_step": LIFE_KILL_AT, "snapshots": snaps,
+            "restored_step": restored, "restore_ms": restore_ms,
+            "resumed": len(fresh.resumed),
+            "chunk_row_off_at_snapshot": mid_chunk["off"],
+            "device_state_bytes": state_bytes,
+            "conv1d_pack_launches_after_restore": resumed_conv,
+            "streams_bitwise_equal": True}
+
+    # cancel a request whose prefill is in flight on the side stream: at
+    # the first pooled dispatch whose event has not fired yet; a second run
+    # takes the first pooled one if no event was still pending (the host
+    # can take as long to issue a prefill as the card to run it)
+    for pending_only in (True, False):
+        eng = engine()
+        refill, picked = eng._try_refill, {}
+
+        def try_refill():
+            issued = refill()
+            if issued and "rid" not in picked and eng._prefill_pool:
+                inf = eng._prefill_pool[-1]
+                pending = inf["event"] is not None and \
+                    not inf["event"].query()
+                if pending or not pending_only:
+                    picked.update(inf=inf, slot=inf["slot_of"][0][0],
+                                  pending=pending,
+                                  rid=inf["admitted"][0].rid)
+                    eng.cancel(picked["rid"])
+            return issued
+
+        eng._try_refill = try_refill
+        while eng.step():
+            inf = picked.get("inf")
+            if inf is not None and \
+                    all(x is not inf for x in eng._prefill_pool):
+                holder = eng.slot_req[picked["slot"]]
+                if holder is not None and holder.rid == picked["rid"]:
+                    raise AssertionError("lifecycle: a cancelled request "
+                                         "took its slot at landing")
+                picked["inf"] = None
+        if "rid" in picked:
+            break
+    target = (picked["rid"], picked["slot"])
+    event_pending = picked["pending"]
+    launches(eng)
+    rid = target[0]
+    differ = [r for r in clean if r != rid and eng.outputs[r] != clean[r]]
+    if eng.status[rid] != "cancelled" or eng.outputs[rid] or differ or \
+            eng.stats.cancelled != 1:
+        raise AssertionError(f"lifecycle cancel of {rid}: "
+                             f"{eng.status[rid]}, differ {differ}")
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "slots": SERVE_SLOTS, "requests": len(mix), "card": smi,
+            "guard_runs": guard_runs, "guard_streams_bitwise_equal": True,
+            "guard_decode_profiles": guard_profiles,
+            "faults": dict(fault_row, plan=repr(FaultPlan(**LIFE_PLAN))),
+            "kill_restore": kill,
+            "cancel_in_flight": {"rid": rid, "slot": target[1],
+                                 "event_pending_at_cancel": event_pending,
+                                 "others_bitwise_equal": True},
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
 def phase_serve_launcher():
     """The serve launcher as a subprocess on the card: ``--tiny``, sampled,
     buckets (16, 32) so prompts of up to 39 tokens meet the chunk lane,
@@ -2189,7 +2433,8 @@ def phase_serve_launcher():
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
                "--requests", "12", "--slots", "4", "--max-len", "96",
                "--buckets", "16,32", "--temperature", "0.8", "--top-k", "40",
-               "--max-inflight-prefills", "2", "--obs-trace", trace,
+               "--max-inflight-prefills", "2", "--guard", "--deadline-ms",
+               "60000", "--max-queue", "64", "--obs-trace", trace,
                "--profile-dir", prof]
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
         out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
@@ -2212,7 +2457,10 @@ def phase_serve_launcher():
                 kernels += [e["name"] for e in json.load(fh)["traceEvents"]
                             if e.get("cat") == "kernel"]
         conv = [k for k in kernels if "conv1d_pack" in k]
-        if errs or not conv or not last["chunk_rounds"]:
+        lifecycle = [last[k] for k in ("shed", "expired", "cancelled",
+                                       "quarantined", "prefill_faults")]
+        if errs or not conv or not last["chunk_rounds"] or \
+                not last["guard"] or any(lifecycle):
             raise AssertionError(f"the serve launcher's trace: {errs}; its "
                                  f"profile's conv1d_pack kernels: "
                                  f"{len(conv)} of {len(kernels)}; {last}")
@@ -2361,6 +2609,9 @@ def main():
     for pname, prof_s in sv.pop("profiles").items():
         emit("serve_profile", name=pname, **prof_s)
     emit("serve", **sv)
+    # the request lifecycle on the same engine: guard, faults, kill and
+    # restore, a cancel in flight
+    emit("lifecycle", **phase_lifecycle(model, cfg, smi))
     del model
     gc.collect()
     torch.cuda.empty_cache()

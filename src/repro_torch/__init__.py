@@ -3,7 +3,9 @@
 The port of the JAX package ``repro`` — which stays the reference — module
 by module under the same names. Ported: the serving path (packed prefill
 into decode slots, overlapped on a side stream, chunked prefill of long
-prompts, greedy and sampled decode: ``launch/serve.py``), the packed
+prompts, greedy and sampled decode, deadlines, cancel, load shedding,
+guard rails with quarantine, fault injection and snapshot/restore:
+``launch/serve.py``, ``faults.py``), the packed
 training loop (loader →
 ``LM.loss`` → backward → AdamW, gradient accumulation in f32 or bf16,
 checkpoint/restart with the SIGTERM emergency save: ``train/``,

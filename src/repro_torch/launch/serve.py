@@ -50,17 +50,49 @@ budget is released and refilled mid-flight.
   ``serve.step``, ``prefill_dispatch``, ``prefill_land``, ``chunk_slab``
   and ``decode_step`` on the ``engine`` track and each request's
   queued → prefill | chunk → decode track.
+* **Request lifecycle**: ``submit(..., deadline_ms=)`` bounds submit to
+  completion; a request over its budget is expired while queued, at
+  landing, during a chunked prefill or after any decode step (its tokens
+  so far are kept). ``cancel(rid)`` revokes a request wherever it is:
+  queued, reserved by an in-flight prefill (its slot comes back free when
+  the prefill lands), on a chunk row or decoding. ``submit`` sheds a
+  request (``ShedError``) when the queue holds ``max_queue`` requests or
+  its head is older than ``max_queue_age_ms``. ``status[rid]`` goes
+  queued → active → done | failed | expired | cancelled, and
+  ``errors[rid]`` holds the diagnostic.
+* **Guard rails** (``guard=True``, or on by itself for a plan that
+  poisons): a finiteness probe of every decode step's logits
+  (``LM.decode_step_sample_guarded`` / ``decode_step_greedy_guarded``),
+  of each packed prefill's harvest (``LM.prefill_probe``, computed in the
+  dispatch and read at landing) and of each chunk handoff
+  (``LM.chunk_probe``). A non-finite request is quarantined: failed with
+  a diagnostic, its slot left free (a refill overwrites the row); every
+  other slot's stream is bitwise that of an unguarded run. On the card the
+  decode probe comes back to the host in the same copy as the step's
+  tokens.
+* **Fault injection** (``faults=FaultPlan(...)``, ``repro_torch.faults``):
+  fail or delay a packed prefill, fail a chunk round, poison prefill
+  states, chunk rows or decode logits, kill the engine before a decode
+  step. Only these seams fail a request; a real launch or kernel error
+  propagates.
+* **Snapshot and restore**: ``snapshot(manager)`` lands every in-flight
+  prefill, then saves the slots' states and sampling streams and counters
+  (``checkpoint.CheckpointManager``) with the queue, chunk rows, outputs,
+  statuses and deadline budgets left in its manifest; ``restore(manager)``
+  on a fresh engine resumes every request, and each finishes with the
+  tokens, greedy or sampled, of an uninterrupted run.
 * **Padded-wave baseline** (``decode_batch``): the paper's padding regime
   on the serving path, for comparison.
 
-Left out, each a later slice: deadlines, cancel and load shedding, guard
-rails and fault injection, snapshot/restore (slice 5b); the prefix state
-cache and speculative decode (slice 5c).
+Left out, a later slice: the prefix state cache and speculative decode
+(slice 5c).
 
   python -m repro_torch.launch.serve --arch mamba-1.4b
   python -m repro_torch.launch.serve --arch mamba2-370m --temperature 0.8
   python -m repro_torch.launch.serve --arch mamba-110m --tiny --device cpu
   python -m repro_torch.launch.serve --arch mamba-1.4b --scan-tune auto
+  python -m repro_torch.launch.serve --arch mamba-1.4b --guard \
+      --deadline-ms 60000 --max-queue 64
 """
 from __future__ import annotations
 
@@ -76,10 +108,21 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.core import packing
+from repro_torch.faults import (EngineKilled, FaultPlan, poison_cache_rows,
+                                poison_states)
 from repro_torch.models import blocks as B
 from repro_torch.models.lm import LM
 from repro_torch.obs import MetricsRegistry, Obs, percentiles, \
     profiler_session
+
+
+class ShedError(RuntimeError):
+    """A request refused at admission (load shedding). ``reason`` says which
+    bound tripped; the request was never queued and has no rid."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
 
 
 @dataclasses.dataclass
@@ -92,6 +135,7 @@ class Request:
     top_k: int = 0             # 0 = full vocab
     top_p: float = 1.0         # 1 = full mass
     submit_t: float = 0.0      # engine clock at submit()
+    deadline_ms: Optional[float] = None   # budget from submit_t
 
 
 class _HistList(list):
@@ -126,6 +170,11 @@ class ServeStats:
       midflight_refills   prefills issued while slots were decoding
       overlapped_prefills prefills in flight across ≥ 1 decode step
       early_admits        admissions forced by the TTFT target
+      shed                submits refused by load shedding
+      expired             requests ended by their deadline
+      cancelled           requests revoked by cancel()
+      quarantined         requests failed by a finiteness probe
+      prefill_faults      packed prefills and chunk rounds that failed
       chunk_rounds        chunked-prefill forwards issued
       chunk_tokens        prompt tokens consumed by chunk rounds
       chunked_prefills    requests whose prompt landed through chunks
@@ -140,8 +189,9 @@ class ServeStats:
 
     _counters = ("prefills", "prefill_tokens", "decode_steps", "generated",
                  "midflight_refills", "overlapped_prefills", "early_admits",
-                 "chunk_rounds", "chunk_tokens", "chunked_prefills",
-                 "bucket_upgrades", "deferred_upgrades")
+                 "shed", "expired", "cancelled", "quarantined",
+                 "prefill_faults", "chunk_rounds", "chunk_tokens",
+                 "chunked_prefills", "bucket_upgrades", "deferred_upgrades")
     _gauges = ("queue_depth_max", "prefill_ms", "chunk_ms", "decode_ms",
                "host_ms")
 
@@ -202,6 +252,8 @@ class ServeEngine:
     * Decode is one step over ALL slots (idle slots ride along; their
       state is overwritten at refill). A slot is released the moment its
       request emits ``eos`` or spends ``max_new`` (the EOS is kept).
+    * The lifecycle, guard rails, fault seams and snapshot/restore are the
+      module docstring's.
     """
 
     def __init__(self, model: LM, num_slots: int, max_len: int, *,
@@ -212,6 +264,10 @@ class ServeEngine:
                  target_ttft_ms: Optional[float] = None,
                  sample_seed: int = 0,
                  clock: Callable[[], float] = time.monotonic,
+                 max_queue: Optional[int] = None,
+                 max_queue_age_ms: Optional[float] = None,
+                 guard: bool = False,
+                 faults: Optional[FaultPlan] = None,
                  max_inflight_prefills: int = 1,
                  bucket_policy: str = "smallest_fit",
                  chunk_rows: int = 1,
@@ -238,6 +294,12 @@ class ServeEngine:
         self.target_ttft_ms = target_ttft_ms
         self.sample_seed = sample_seed
         self._clock = clock
+        self.max_queue = max_queue
+        self.max_queue_age_ms = max_queue_age_ms
+        self.faults = faults
+        # a poison is seen only through the finiteness probes, so a plan
+        # that injects one turns the guard on by itself
+        self.guard = guard or (faults is not None and faults.needs_guard())
         self.max_inflight_prefills = max(1, int(max_inflight_prefills))
         self.bucket_policy = bucket_policy
         self.max_prompt_len = max_prompt_len
@@ -281,6 +343,8 @@ class ServeEngine:
                                      device=dev)
         self.slot_topk = torch.zeros(num_slots, dtype=torch.int64, device=dev)
         self.slot_topp = torch.ones(num_slots, dtype=torch.float32, device=dev)
+        self._poison0 = torch.zeros(num_slots, dtype=torch.float32,
+                                    device=dev)
         # the chunk lane: a side cache of chunk_rows long prompts; the main
         # cache cannot host a partial prompt (decode would advance it)
         if self.chunk_enabled:
@@ -298,7 +362,10 @@ class ServeEngine:
         self.slot_last_t = [0.0] * num_slots      # last token host-observed
         self._prefill_pool: List[dict] = []       # dispatched, not landed
         self.outputs: Dict[int, List[int]] = {}
-        self.status: Dict[int, str] = {}          # queued → active → done
+        # queued → active → done | failed | expired | cancelled
+        self.status: Dict[int, str] = {}
+        self.errors: Dict[int, str] = {}          # rid → diagnostic
+        self.resumed: set = set()                 # rids restored by restore()
         self.stats = ServeStats(self.obs.metrics)
         self._next_rid = 0
 
@@ -319,12 +386,16 @@ class ServeEngine:
     # ------------------------------------------------------------ admission
     def submit(self, tokens, max_new: int, eos: Optional[int] = None,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, rid: Optional[int] = None) -> int:
+               top_p: float = 1.0, deadline_ms: Optional[float] = None,
+               rid: Optional[int] = None) -> int:
         """Enqueue one request; returns its rid. Prompts longer than the
         largest prefill bucket go to the chunk lane (``max_prompt_len`` is
-        the explicit length bound when set). ``rid`` pins the request's id
-        (its sampling stream is a hash of (``sample_seed``, rid)); a rid
-        already known is refused."""
+        the explicit length bound when set). ``deadline_ms`` bounds submit
+        to completion (status "expired" past it, tokens so far kept).
+        ``rid`` pins the request's id (its sampling stream is a hash of
+        (``sample_seed``, rid)); a rid already known is refused. Raises
+        ``ShedError``, without queueing, when the queue is at ``max_queue``
+        or its head is older than ``max_queue_age_ms``."""
         tokens = np.asarray(tokens, np.int32)
         if tokens.ndim != 1 or len(tokens) == 0:
             raise ValueError(
@@ -357,6 +428,8 @@ class ServeEngine:
                              f"got {top_k}")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         if rid is not None:
             if rid < 0:
                 raise ValueError(f"rid must be >= 0, got {rid}")
@@ -365,13 +438,29 @@ class ServeEngine:
                     f"duplicate request id {rid} (status "
                     f"{self.status.get(rid)!r}) — rids identify output "
                     f"streams and may never be reused")
+        now = self._clock()
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self.stats.shed += 1
+            self._tr.instant("shed", track="engine", reason="max_queue")
+            raise ShedError(f"shed: admission queue depth {len(self.queue)} "
+                            f">= max_queue {self.max_queue}")
+        if self.max_queue_age_ms is not None and self.queue:
+            age_ms = (now - self.queue[0].submit_t) * 1e3
+            if age_ms > self.max_queue_age_ms:
+                self.stats.shed += 1
+                self._tr.instant("shed", track="engine",
+                                 reason="max_queue_age_ms")
+                raise ShedError(
+                    f"shed: head-of-line request has waited {age_ms:.0f}ms "
+                    f"> max_queue_age_ms {self.max_queue_age_ms} — the "
+                    f"engine is not keeping up")
         if rid is None:
             rid = self._next_rid
         self._next_rid = max(self._next_rid, rid + 1)
         self.queue.append(Request(rid, tokens, max_new,
                                   self.eos if eos is None else eos,
-                                  temperature, int(top_k), top_p,
-                                  self._clock()))
+                                  temperature, int(top_k), top_p, now,
+                                  deadline_ms))
         self.outputs[rid] = []
         self.status[rid] = "queued"
         self._span_to(rid, "queued", prompt=len(tokens), max_new=max_new)
@@ -419,6 +508,76 @@ class ServeEngine:
         """Close a request's span and mark its terminal status."""
         self._tr.finish(self._req_spans.pop(rid, None))
         self._tr.instant(status, track=f"req{rid}", rid=rid, **attrs)
+
+    # ------------------------------------------------------------ lifecycle
+    def _terminate(self, rid: int, status: str, reason: str):
+        """Move a request to a terminal status with its diagnostic."""
+        self.status[rid] = status
+        self.errors[rid] = reason
+        if status == "expired":
+            self.stats.expired += 1
+        elif status == "cancelled":
+            self.stats.cancelled += 1
+        self._span_end(rid, status, reason=reason)
+
+    def _quarantine(self, rid: int, reason: str):
+        """Fail a request whose probe found a non-finite value."""
+        self.stats.quarantined += 1
+        self._tr.instant("quarantined", track=f"req{rid}", rid=rid)
+        self._terminate(rid, "failed", reason)
+
+    def _deadline_over(self, req: Request, now: float) -> bool:
+        return req.deadline_ms is not None and \
+            (now - req.submit_t) * 1e3 >= req.deadline_ms
+
+    def _expire(self, req: Request, where: str):
+        self._terminate(req.rid, "expired", f"deadline {req.deadline_ms:.0f}"
+                        f"ms exceeded {where}")
+
+    def _expire_queued(self):
+        """Drop queued requests whose budget has run out: a prefill for
+        them would be a forward nobody waits for."""
+        if not any(r.deadline_ms is not None for r in self.queue):
+            return
+        now = self._clock()
+        kept = collections.deque()
+        for r in self.queue:
+            if self._deadline_over(r, now):
+                self._expire(r, "while queued")
+            else:
+                kept.append(r)
+        self.queue = kept
+
+    def _expire_active(self, now: float):
+        """Per-step deadline enforcement over the decoding slots."""
+        for i in self._active_slots():
+            req = self.slot_req[i]
+            if self._deadline_over(req, now):
+                self.slot_req[i] = None
+                self._expire(req, f"mid-decode (kept "
+                                  f"{len(self.outputs[req.rid])} tokens)")
+
+    def cancel(self, rid: int) -> bool:
+        """Revoke a request wherever it is: queued (dequeued now), reserved
+        by an in-flight prefill (its slot comes back free when the prefill
+        lands), on a chunk row (freed at the next chunk round) or decoding
+        (slot freed now). Tokens so far stay in ``outputs[rid]``. Returns
+        False for unknown rids and requests already terminal."""
+        st = self.status.get(rid)
+        if st == "queued":
+            self.queue = collections.deque(
+                r for r in self.queue if r.rid != rid)
+            self._terminate(rid, "cancelled", "cancelled while queued")
+            return True
+        if st == "active":
+            for i, r in enumerate(self.slot_req):
+                if r is not None and r.rid == rid:
+                    self.slot_req[i] = None
+                    self._terminate(rid, "cancelled", "cancelled mid-decode")
+                    return True
+            self._terminate(rid, "cancelled", "cancelled during prefill")
+            return True
+        return False
 
     def _packable(self) -> List[Request]:
         """Queued requests the packed prefill serves, FIFO; longer prompts
@@ -534,6 +693,18 @@ class ServeEngine:
         dsid = self._tr.start("prefill_dispatch", track="engine", bucket=L,
                               rows=self.prefill_rows, admitted=len(admitted),
                               pidx=pidx)
+        if self.faults is not None and self.faults.fails_prefill(pidx):
+            # the packed forward died (the plan's stand-in for a device OOM
+            # or preemption), before any launch: the round's requests fail,
+            # no slot was reserved, the decoding slots never notice
+            self.stats.prefills += 1
+            self.stats.prefill_faults += 1
+            for req in admitted:
+                self._terminate(req.rid, "failed",
+                                f"prefill dispatch {pidx} failed "
+                                f"(injected fault)")
+            self._tr.finish(dsid, fault=True)
+            return False
         pb = packing.pack([r.tokens for r in admitted], L,
                           policy=self.policy, num_rows=self.prefill_rows)
         ends = packing.segment_ends(pb, self.max_segments)
@@ -555,12 +726,23 @@ class ServeEngine:
                 rids[k], temp[k] = req.rid, req.temperature
                 topk[k], topp[k] = req.top_k, req.top_p
 
+        poison = None if self.faults is None else \
+            self.faults.prefill_poison(pidx)
+
         def dispatch():
             dev = {name: self._h2d(a) for name, a in (
                 ("stream", B.request_streams(self.sample_seed, rids)),
                 ("temp", temp), ("topk", topk), ("topp", topp))}
             logits, states, seg_lens = self.model.prefill_packed(
                 {k: self._h2d(a) for k, a in batch.items()}, self._h2d(ends))
+            if poison:
+                states = poison_states(states, poison,
+                                       self.faults.poison_value)
+            if self.guard:
+                # per-segment finiteness of the harvest and its end logits,
+                # computed with the prefill, read at landing
+                dev["ok"] = self.model.prefill_probe(states,
+                                                     logits).reshape(-1)
             dev["states"], dev["seg_lens"] = states, seg_lens.reshape(-1)
             # the first token, sampled per segment with its request's
             # stream at token index 0 — flat (K, V), one shape per engine
@@ -575,7 +757,8 @@ class ServeEngine:
             self.slot_pending[slot] = True
         self._prefill_pool.append({
             "dev": dev, "event": event, "admitted": admitted,
-            "slot_of": slot_of, "steps_waited": 0, "pidx": pidx})
+            "slot_of": slot_of, "steps_waited": 0, "pidx": pidx,
+            "probes": 0})
         self.stats.prefills += 1
         self.stats.prefill_tokens += sum(lens)
         self.stats.buckets.add((self.prefill_rows, L))
@@ -586,7 +769,12 @@ class ServeEngine:
 
     def _prefill_ready(self, inflight: dict) -> bool:
         """Whether an in-flight prefill has finished on the device (split
-        out so tests can script the overlap window)."""
+        out so tests can script the overlap window). A fault plan can hold
+        it not-ready for its first probes: a slow device, scripted."""
+        if self.faults is not None and self.faults.prefill_not_ready(
+                inflight["pidx"], inflight["probes"]):
+            inflight["probes"] += 1
+            return False
         event = inflight["event"]
         return True if event is None else event.query()
 
@@ -606,10 +794,14 @@ class ServeEngine:
 
     def _land_one(self, inf: dict):
         """Scatter one prefill's states and first tokens into its slots and
-        activate them. On the card the current stream first waits on the
-        prefill's event, and every side-stream tensor it reads is recorded
-        on it (the allocator must not reuse those blocks on the side stream
-        before the current stream has read them)."""
+        activate them, but for requests cancelled in flight (their slots
+        come back free), over their deadline (expired) or whose probe found
+        a non-finite value (quarantined: the state was scattered, the slot
+        stays free and a refill overwrites it). On the card the current
+        stream first waits on the prefill's event, and every side-stream
+        tensor it reads is recorded on it (the allocator must not reuse
+        those blocks on the side stream before the current stream has read
+        them)."""
         lsid = self._tr.start("prefill_land", track="engine",
                               pidx=inf["pidx"],
                               steps_waited=inf["steps_waited"])
@@ -625,15 +817,37 @@ class ServeEngine:
         dst = self._h2d([s for s, _ in pairs])
         self.model.scatter_into_cache(self.cache, dev["states"], src, dst)
         self._land_slots(dst, src, dev["seg_lens"], dev)
-        first = dev["tok"].cpu().numpy()  # host sync: TTFT observed here
+        # host sync: TTFT observed here; the probe in the same copy
+        first, ok = self._to_host(dev["tok"], dev.get("ok"))
         now = self._clock()
         for qi, req in enumerate(inf["admitted"]):
             slot, k = inf["slot_of"][qi]
             self.slot_pending[slot] = False
+            if self.status.get(req.rid) == "cancelled":
+                continue            # revoked while the prefill was in flight
+            if self._deadline_over(req, now):
+                self._expire(req, "during prefill")
+                continue
+            if ok is not None and not ok[k]:
+                r, s = divmod(k, self.max_segments)
+                self._quarantine(req.rid, f"non-finite prefill state for "
+                                 f"request {req.rid} (prefill "
+                                 f"{inf['pidx']}, row {r}, segment {s}) — "
+                                 f"quarantined")
+                continue
             self._activate(slot, req, now, int(first[k]))
         if inf["steps_waited"] > 0:
             self.stats.overlapped_prefills += 1
         self._tr.finish(lsid)
+
+    @staticmethod
+    def _to_host(tok, ok=None):
+        """Tokens, and a probe's flags where there is one, to the host in
+        ONE copy (one sync). Returns (tokens, flags or None) as numpy."""
+        if ok is None:
+            return tok.cpu().numpy(), None
+        both = torch.stack((tok, ok.to(torch.int32))).cpu().numpy()
+        return both[0], both[1].astype(bool)
 
     def _land_slots(self, dst, src, lens, dev):
         """Per-slot state of a landing: cache length, the first token as
@@ -646,6 +860,14 @@ class ServeEngine:
     # ------------------------------------------------------- chunked prefill
     def _chunk_active(self) -> bool:
         return any(r is not None for r in self.chunk_req)
+
+    def _free_chunk_row(self, row: int):
+        """Release a chunk row and the decode slot it reserved."""
+        slot = self.chunk_slot[row]
+        if slot >= 0:
+            self.slot_pending[slot] = False
+        self.chunk_req[row] = None
+        self.chunk_slot[row] = -1
 
     def _chunk_claims(self):
         """Assign queued over-bucket prompts to free chunk rows; each also
@@ -679,16 +901,41 @@ class ServeEngine:
 
     def _chunk_step(self):
         """One chunked-prefill round: claim rows for queued over-bucket
-        prompts, advance every occupied row by one slab from its carried
-        state, and hand finished prompts to their reserved decode slots
-        (first token sampled from the request's own stream)."""
+        prompts, free the rows of cancelled and expired requests, advance
+        every occupied row by one slab from its carried state, and hand
+        finished prompts to their reserved decode slots (first token
+        sampled from the request's own stream; with the guard on, the
+        handoff probe quarantines a non-finite row)."""
         if not self.chunk_enabled:
             return
         self._chunk_claims()
         rows = [i for i, r in enumerate(self.chunk_req) if r is not None]
         if not rows:
             return
+        # lifecycle sweep before a forward is spent on a dead request
+        now = self._clock()
+        for i in rows:
+            req = self.chunk_req[i]
+            if self.status.get(req.rid) == "cancelled":
+                self._free_chunk_row(i)
+            elif self._deadline_over(req, now):
+                self._expire(req, "during chunked prefill")
+                self._free_chunk_row(i)
+        rows = [i for i, r in enumerate(self.chunk_req) if r is not None]
+        if not rows:
+            return
         cidx = self.stats.chunk_rounds
+        if self.faults is not None and self.faults.fails_chunk(cidx):
+            # the slab's forward died (the plan's stand-in for a device OOM),
+            # before any launch: the rows' requests fail, decode goes on
+            self.stats.chunk_rounds += 1
+            self.stats.prefill_faults += 1
+            for i in rows:
+                self._terminate(self.chunk_req[i].rid, "failed",
+                                f"chunked-prefill round {cidx} failed "
+                                f"(injected fault)")
+                self._free_chunk_row(i)
+            return
         # the slab width is bucket-quantised to the round's need
         need = max(min(self.chunk_size,
                        len(self.chunk_req[i].tokens) - self.chunk_off[i])
@@ -707,6 +954,11 @@ class ServeEngine:
         self.stats.chunk_rounds += 1
         self.stats.chunk_tokens += sum(took.values())
         self._tr.finish(csid)
+        if self.faults is not None:
+            prs = self.faults.chunk_poison(cidx)
+            if prs:
+                self.chunk_cache = poison_cache_rows(
+                    self.chunk_cache, prs, self.faults.poison_value)
         finishing = []
         for i in rows:
             self.chunk_off[i] += took[i]
@@ -732,37 +984,68 @@ class ServeEngine:
             logits, dev["stream"],
             torch.zeros(R, dtype=torch.int64, device=self.device),
             dev["temp"], dev["topk"], dev["topp"])
+        ok = self.model.chunk_probe(self.chunk_cache, logits) \
+            if self.guard else None
         src = self._h2d(finishing)
         dst = self._h2d([self.chunk_slot[i] for i in finishing])
         self.model.scatter_into_cache(
             self.cache, self.model.expand_chunk_states(self.chunk_cache),
             src, dst)
         self._land_slots(dst, src, self.chunk_clen, dev)
-        first = dev["tok"].cpu().numpy()  # host sync: TTFT observed here
+        # host sync: TTFT observed here; the probe in the same copy
+        first, ok = self._to_host(dev["tok"], ok)
         now = self._clock()
         for i in finishing:
             req, slot = self.chunk_req[i], self.chunk_slot[i]
-            self.slot_pending[slot] = False
-            self.chunk_req[i] = None
-            self.chunk_slot[i] = -1
+            self._free_chunk_row(i)
+            if self._deadline_over(req, now):
+                self._expire(req, "during chunked prefill")
+                continue
+            if ok is not None and not ok[i]:
+                self._quarantine(req.rid, f"non-finite chunked-prefill state "
+                                 f"for request {req.rid} (chunk round "
+                                 f"{cidx}, row {i}) — quarantined")
+                continue
             self.stats.chunked_prefills += 1
             self._activate(slot, req, now, int(first[i]))
 
     # ----------------------------------------------------------------- decode
     def _decode_step(self):
         """One decode step over every slot — the plain argmax when no active
-        request samples, else the fused decode + sample step — then
-        per-slot termination and inter-token latency accounting."""
+        request samples, else the fused decode + sample step, each in its
+        guarded form with the guard on — then per-slot termination,
+        quarantine, inter-token latency and deadline accounting."""
         active = self._active_slots()
         if not active:
             return
-        dsid = self._tr.start("decode_step", track="engine",
-                              step=self.stats.decode_steps,
+        step_idx = self.stats.decode_steps
+        if self.faults is not None and self.faults.kills(step_idx):
+            # simulated process death at a step boundary: what the last
+            # snapshot() did not persist is gone
+            raise EngineKilled(f"fault plan killed the engine before "
+                               f"decode step {step_idx}")
+        dsid = self._tr.start("decode_step", track="engine", step=step_idx,
                               active=len(active))
         act = np.zeros(self.num_slots, np.int32)
         act[active] = 1
         act = self._h2d(act)
-        if any(self.slot_req[i].temperature > 0.0 for i in active):
+        sampling = any(self.slot_req[i].temperature > 0.0 for i in active)
+        finite = None
+        if self.guard:
+            pv = None if self.faults is None else \
+                self.faults.decode_poison(step_idx, self.num_slots)
+            poison = self._poison0 if pv is None else self._h2d(pv)
+            if sampling:
+                tok, _, self.cache, self.slot_ctr, finite = \
+                    self.model.decode_step_sample_guarded(
+                        self.cache, self.cur_tok, self.slot_stream,
+                        self.slot_ctr, self.slot_temp, self.slot_topk,
+                        self.slot_topp, poison)
+            else:
+                tok, self.cache, finite = \
+                    self.model.decode_step_greedy_guarded(
+                        self.cache, self.cur_tok, poison)
+        elif sampling:
             tok, _, self.cache, self.slot_ctr = \
                 self.model.decode_step_sample(
                     self.cache, self.cur_tok, self.slot_stream,
@@ -777,20 +1060,33 @@ class ServeEngine:
         self.stats.decode_steps += 1
         for inf in self._prefill_pool:
             inf["steps_waited"] += 1
-        toks = tok.cpu().numpy()     # syncs the current stream only
+        # syncs the current stream only; the probe in the same copy
+        toks, fin = self._to_host(tok, finite)
         now = self._clock()
         for i in active:
+            if fin is not None and not fin[i]:
+                # never emit the token; the row rides along until a refill
+                # overwrites it, and no other row reads its values
+                rid = self.slot_req[i].rid
+                self.slot_req[i] = None
+                self._quarantine(rid, f"non-finite decode logits for "
+                                 f"request {rid} at step {step_idx} (slot "
+                                 f"{i}) — quarantined")
+                continue
             self.stats.itl_ms.append((now - self.slot_last_t[i]) * 1e3)
             self.slot_last_t[i] = now
             self._finish_token(i, int(toks[i]))
+        self._expire_active(now)
         self._tr.finish(dsid)
 
     # ----------------------------------------------------------------- loop
     def step(self) -> bool:
-        """One engine iteration: land finished prefills, refill free slots
-        (up to the in-flight bound), one chunk round, one decode step.
-        Returns True while work remains."""
+        """One engine iteration: expire overdue queued requests, land
+        finished prefills, refill free slots (up to the in-flight bound),
+        one chunk round, one decode step. Returns True while work
+        remains."""
         ssid = self._tr.start("serve.step", track="engine")
+        self._expire_queued()
         t1 = time.perf_counter()
         self._land_prefill(block=False)
         while self._try_refill():
@@ -823,6 +1119,130 @@ class ServeEngine:
         st.host_ms += wall - (st.prefill_ms + st.chunk_ms + st.decode_ms
                               - busy)
         return self.outputs
+
+    # ------------------------------------------------------- crash recovery
+    def _device_state(self) -> Dict[str, object]:
+        """The engine's whole device state as one tree: each slot's O(1)
+        conv/SSM state and its cursor, next token, sampling stream, counter
+        and knobs; the chunk lane's rows when it is on."""
+        state = {"cache": self.cache, "cache_len": self.cache_len,
+                 "cur_tok": self.cur_tok, "slot_stream": self.slot_stream,
+                 "slot_ctr": self.slot_ctr, "slot_temp": self.slot_temp,
+                 "slot_topk": self.slot_topk, "slot_topp": self.slot_topp}
+        if self.chunk_enabled:
+            state["chunk_cache"] = self.chunk_cache
+            state["chunk_clen"] = self.chunk_clen
+        return state
+
+    def _engine_meta(self) -> Dict[str, object]:
+        return {"num_slots": self.num_slots, "max_len": self.max_len,
+                "prefill_rows": self.prefill_rows,
+                "buckets": list(self.buckets),
+                "max_segments": self.max_segments,
+                "sample_seed": self.sample_seed,
+                "chunk_rows": self.chunk_rows if self.chunk_enabled else 0,
+                "chunk_size": self.chunk_size}
+
+    @staticmethod
+    def _req_meta(req: Request, now: float) -> Dict[str, object]:
+        left = None if req.deadline_ms is None else \
+            req.deadline_ms - (now - req.submit_t) * 1e3
+        return {"rid": int(req.rid),
+                "tokens": [int(t) for t in req.tokens],
+                "max_new": int(req.max_new), "eos": int(req.eos),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k), "top_p": float(req.top_p),
+                "deadline_left_ms": left}
+
+    @staticmethod
+    def _meta_req(m: Dict, now: float) -> Request:
+        return Request(m["rid"], np.asarray(m["tokens"], np.int32),
+                       m["max_new"], m["eos"], m["temperature"],
+                       m["top_k"], m["top_p"], now, m["deadline_left_ms"])
+
+    def snapshot(self, manager, step: int = 0,
+                 blocking: bool = False) -> int:
+        """Persist the whole engine through a ``CheckpointManager``: the
+        device state (``_device_state``) as its arrays, and the queue, the
+        slots' and chunk rows' requests, outputs, statuses, errors and each
+        deadline's budget LEFT (downtime between a crash and the restore
+        expires nothing) in its manifest. Every in-flight prefill lands
+        first, so the snapshot sits at a step boundary. The host copy is
+        taken now; with ``blocking=False`` the write runs on the manager's
+        thread. Returns the step."""
+        self._land_prefill(block=True)
+        now = self._clock()
+        meta = {
+            "engine": self._engine_meta(),
+            "slots": [None if r is None else
+                      dict(self._req_meta(r, now),
+                           remaining=int(self.slot_remaining[i]))
+                      for i, r in enumerate(self.slot_req)],
+            "chunks": [None if r is None else
+                       dict(self._req_meta(r, now),
+                            off=int(self.chunk_off[i]),
+                            slot=int(self.chunk_slot[i]))
+                       for i, r in enumerate(self.chunk_req)],
+            "queue": [self._req_meta(r, now) for r in self.queue],
+            "outputs": {str(rid): [int(t) for t in toks]
+                        for rid, toks in self.outputs.items()},
+            "status": {str(rid): st for rid, st in self.status.items()},
+            "errors": {str(rid): e for rid, e in self.errors.items()},
+            "next_rid": int(self._next_rid),
+        }
+        manager.save(step, self._device_state(), meta=meta,
+                     blocking=blocking)
+        return step
+
+    def restore(self, manager, step: Optional[int] = None) -> int:
+        """Load a ``snapshot()`` into this freshly built, idle engine: each
+        decoding request resumes from its slot's state, stream and counter
+        and finishes with the tokens an uninterrupted run gives; chunk rows
+        resume at their offset (their decode slot reserved again); queued
+        requests keep their order. Restored rids are in ``resumed``.
+        Returns the step restored."""
+        if self.queue or self._active_slots() or any(self.slot_pending) \
+                or self._prefill_pool or self._chunk_active():
+            raise RuntimeError("restore() requires an idle engine — it "
+                               "overwrites every slot; use a freshly "
+                               "constructed ServeEngine")
+        manager.wait()                 # publish a snapshot still in flight
+        step = step if step is not None else manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no snapshot to restore in "
+                                    f"{manager.dir}")
+        meta = manager.read_meta(step)["meta"]
+        if meta.get("engine") != self._engine_meta():
+            raise ValueError(
+                f"snapshot step {step} was taken by an engine configured "
+                f"as {meta.get('engine')} but this engine is "
+                f"{self._engine_meta()} — slot shapes would not line up")
+        manager.restore(self._device_state(), step=step)   # in place
+        now = self._clock()
+        self.slot_req = [None if m is None else self._meta_req(m, now)
+                         for m in meta["slots"]]
+        self.slot_remaining = [0 if m is None else int(m["remaining"])
+                               for m in meta["slots"]]
+        self.slot_pending = [False] * self.num_slots
+        self.slot_last_t = [now] * self.num_slots
+        for i, m in enumerate(meta["chunks"]):
+            if m is None:
+                continue
+            self.chunk_req[i] = self._meta_req(m, now)
+            self.chunk_off[i] = int(m["off"])
+            self.chunk_slot[i] = int(m["slot"])
+            self.slot_pending[int(m["slot"])] = True
+        self.queue = collections.deque(
+            self._meta_req(m, now) for m in meta["queue"])
+        self.outputs = {int(rid): list(toks)
+                        for rid, toks in meta["outputs"].items()}
+        self.status = {int(rid): st for rid, st in meta["status"].items()}
+        self.errors = {int(rid): e for rid, e in meta["errors"].items()}
+        self._next_rid = int(meta["next_rid"])
+        self.resumed |= {r.rid for r in self.slot_req if r is not None}
+        self.resumed |= {r.rid for r in self.chunk_req if r is not None}
+        self.resumed |= {r.rid for r in self.queue}
+        return step
 
     # ------------------------------------------------- padded-wave baseline
     @torch.no_grad()
@@ -932,6 +1352,14 @@ def main(argv=None):
                          "(0 disables chunked prefill)")
     ap.add_argument("--max-prompt-len", type=int, default=None,
                     help="hard bound on accepted prompt length")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request submit-to-completion deadline; overdue "
+                         "requests are expired, not served late")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="shed submits once this many requests are queued")
+    ap.add_argument("--guard", action="store_true",
+                    help="numerical guard rails: per-step finiteness "
+                         "probes; non-finite requests are quarantined")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature for every request (0=greedy)")
     ap.add_argument("--top-k", type=int, default=0)
@@ -964,7 +1392,8 @@ def main(argv=None):
                          buckets=[int(b) for b in args.buckets.split(",")],
                          policy=args.policy, overlap=not args.no_overlap,
                          target_ttft_ms=args.target_ttft_ms,
-                         sample_seed=args.seed,
+                         sample_seed=args.seed, max_queue=args.max_queue,
+                         guard=args.guard,
                          max_inflight_prefills=args.max_inflight_prefills,
                          bucket_policy=args.bucket_policy,
                          chunk_size=args.chunk_size,
@@ -972,17 +1401,28 @@ def main(argv=None):
                          max_prompt_len=args.max_prompt_len, obs=obs)
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(5, 40, size=args.requests)
+    plen = {}                            # rid → prompt length
     t0 = time.perf_counter()
     with profiler_session(args.profile_dir) as profiling:
         for n in lens:
-            engine.submit(rng.integers(1, cfg.vocab, size=int(n)),
-                          args.new_tokens, temperature=args.temperature,
-                          top_k=args.top_k, top_p=args.top_p)
+            try:
+                rid = engine.submit(
+                    rng.integers(1, cfg.vocab, size=int(n)),
+                    args.new_tokens, temperature=args.temperature,
+                    top_k=args.top_k, top_p=args.top_p,
+                    deadline_ms=args.deadline_ms)
+            except ShedError:
+                continue                 # counted in stats.shed
+            plen[rid] = int(n)
         outs = engine.run()
     dt = time.perf_counter() - t0
     st = engine.stats
     for rid in sorted(outs)[:4]:
-        print(f"req{rid}: prompt[{lens[rid]}] -> {outs[rid][:8]}…")
+        print(f"req{rid}: prompt[{plen[rid]}] -> {outs[rid][:8]}…")
+    print(f"lifecycle: {st.shed} shed, {st.expired} expired, "
+          f"{st.cancelled} cancelled, {st.quarantined} quarantined, "
+          f"{st.prefill_faults} prefill faults (guard "
+          f"{'on' if engine.guard else 'off'})")
     pct, ipct = st.ttft_percentiles(), st.itl_percentiles()
     print(f"{len(outs)} requests, {st.generated} tokens in {dt:.2f}s "
           f"({st.generated / dt:.1f} tok/s incl. kernel build) — "
@@ -1006,7 +1446,10 @@ def main(argv=None):
     print(json.dumps({"device": str(model.device), "arch": cfg.name,
                       "requests": len(outs), "generated": st.generated,
                       "chunk_rounds": st.chunk_rounds,
-                      "seconds": dt}))
+                      **{k: getattr(st, k) for k in (
+                          "shed", "expired", "cancelled", "quarantined",
+                          "prefill_faults")},
+                      "guard": engine.guard, "seconds": dt}))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ track gradients, ``remat="unit"`` recomputes each layer in the backward
 time. Serving: ``forward``, ``prefill``, ``prefill_packed``,
 ``prefill_chunk`` (resumable prefill of a long prompt, slab by slab),
 ``decode_step``, ``decode_step_sample`` / ``sample_tokens`` (batched
-sampling), ``scatter_into_cache`` and ``reset_cache_rows`` run under
-``torch.no_grad()``, so they build no autograd graph.
+sampling), their guarded forms with the finiteness probes
+(``decode_step_sample_guarded``, ``decode_step_greedy_guarded``,
+``prefill_probe``, ``chunk_probe``), ``scatter_into_cache`` and
+``reset_cache_rows`` run under ``torch.no_grad()``, so they build no
+autograd graph.
 
 Caches and harvested states keep the JAX package's stacked layout with the
 layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
@@ -248,6 +251,56 @@ class LM(nn.Module):
         tok, ctr = B.sample_from_logits(logits, stream, ctr, temperature,
                                         top_k, top_p)
         return tok, logits, cache, ctr
+
+    @torch.no_grad()
+    def decode_step_sample_guarded(self, cache, tokens_t, stream, ctr,
+                                   temperature, top_k, top_p, poison,
+                                   reset: Optional[torch.Tensor] = None):
+        """``decode_step_sample`` with the engine's guard rail: a per-slot
+        finiteness probe of the decode logits (one (B, V) ``isfinite`` and
+        an all-reduce a row), so a slot is caught the step it goes bad.
+        ``poison`` (B,) f32 is the fault-injection seam, added to the
+        logits before the probe and the sampler: all zeros in production,
+        a bitwise no-op on every finite logit, so guarded streams equal
+        unguarded ones. Returns (tokens (B,) int32, logits (B, V) f32,
+        cache, ctr + 1, finite (B,) bool)."""
+        logits, cache = self.decode_step(cache, tokens_t, reset)
+        logits = logits + poison[:, None]
+        finite = torch.isfinite(logits).all(-1)
+        tok, ctr = B.sample_from_logits(logits, stream, ctr, temperature,
+                                        top_k, top_p)
+        return tok, logits, cache, ctr, finite
+
+    @torch.no_grad()
+    def decode_step_greedy_guarded(self, cache, tokens_t, poison,
+                                   reset: Optional[torch.Tensor] = None):
+        """The plain argmax step with the same guard rail and poison seam
+        (the JAX engine's ``greedy_step_guarded``). Returns (tokens (B,)
+        int32, cache, finite (B,) bool)."""
+        logits, cache = self.decode_step(cache, tokens_t, reset)
+        logits = logits + poison[:, None]
+        return (B.greedy_tokens(logits), cache,
+                torch.isfinite(logits).all(-1))
+
+    @torch.no_grad()
+    def prefill_probe(self, states, logits):
+        """Per-segment finiteness of a packed prefill's harvest: True at
+        (b, s) iff every state leaf of that segment, in every layer, and
+        its end logits are finite. ``states`` from ``prefill_packed``
+        ((n_layers, B, S, …) leaves), ``logits`` (B, S, V). Absent
+        segments (zero states, zero logits) probe True."""
+        ok = torch.isfinite(logits).all(-1)
+        for a in states.values():
+            if a.is_floating_point():
+                ok = ok & torch.isfinite(a).all(0).flatten(2).all(-1)
+        return ok
+
+    def chunk_probe(self, cache, logits):
+        """The chunk lane's handoff probe: ``prefill_probe`` over a chunk
+        cache viewed as one-segment harvests (``expand_chunk_states``) and
+        its rows' end logits (R, V). Returns (R,) bool."""
+        return self.prefill_probe(self.expand_chunk_states(cache),
+                                  logits[:, None])[:, 0]
 
     @torch.no_grad()
     def sample_tokens(self, logits, stream, ctr, temperature, top_k, top_p):

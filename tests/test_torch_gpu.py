@@ -1083,3 +1083,109 @@ def test_overlap_identity_at_reduced_size(cuda):
         assert got == base
         assert eng.stats.overlapped_prefills > 0
         assert eng.stats.chunked_prefills == 1
+
+
+def _lifecycle_model(dev):
+    cfg = dataclasses.replace(get_config("mamba-110m").reduced(),
+                              d_model=256, n_layers=4, vocab=512,
+                              dtype="bfloat16")
+    model = LM(cfg, dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab, size=n)
+               for n in (5, 14, 9, 12, 7, 11)]
+    knobs = [dict(temperature=t, top_k=20, top_p=0.9)
+             for t in (0.0, 0.8, 0.0, 1.1, 0.0, 0.7)]
+    return model, prompts, knobs
+
+
+def test_guarded_decode_step_copies_to_the_host_once(cuda):
+    """With the guard on, a decode step's tokens and its finiteness flags
+    reach the host in ONE copy, greedy and sampled: the step synchronizes
+    with the card once, as the unguarded step does, and calls
+    ``Tensor.cpu`` once. Three steps are read a configuration; the first
+    may carry a one-time sync of the process (seen once on an unguarded
+    greedy step), so the last two are held."""
+    import warnings
+    from repro_torch.faults import FaultPlan
+    model, prompts, knobs = _lifecycle_model(cuda)
+    calls = {"cpu": 0}
+    cpu = torch.Tensor.cpu
+
+    def counted(self, *a, **k):
+        calls["cpu"] += 1
+        return cpu(self, *a, **k)
+
+    def one_step(eng):
+        torch.cuda.synchronize()
+        calls["cpu"] = 0
+        torch.Tensor.cpu = counted
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    eng._decode_step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        finally:
+            torch.Tensor.cpu = cpu
+        return sum("synchronizing" in str(x.message) for x in w), \
+            calls["cpu"]
+
+    seen = {}
+    for sampled in (False, True):
+        for guard in (False, True):
+            eng = ServeEngine(model, num_slots=8, max_len=64,
+                              buckets=(16, 32), max_segments=4,
+                              guard=guard, faults=FaultPlan())
+            for p, k in zip(prompts, knobs):
+                eng.submit(p, 12, **(k if sampled else {}))
+            while eng.queue or eng._prefill_pool or eng.stats.decode_steps < 2:
+                eng.step()
+            seen[(sampled, guard)] = [one_step(eng) for _ in range(3)]
+            eng.run()
+    assert all(v[1:] == [(1, 1), (1, 1)] for v in seen.values()), seen
+
+
+def test_nan_slot_rides_along_without_touching_other_rows(cuda):
+    """A poisoned prefill segment is quarantined but its NaN state is
+    scattered into its slot, which stays free and rides along in every
+    decode step (all requests land in one round, so no refill overwrites
+    it): after 8 and more steps the slot's state is still non-finite, the
+    others' finite, and every other stream, greedy and sampled, is bitwise
+    the clean run's, guard on or off."""
+    from repro_torch.faults import FaultPlan
+    model, prompts, knobs = _lifecycle_model(cuda)
+
+    def run(**kw):
+        eng = ServeEngine(model, num_slots=8, max_len=64, buckets=(32,),
+                          max_segments=4, sample_seed=3, **kw)
+        rids = [eng.submit(p, 12, **k) for p, k in zip(prompts, knobs)]
+        eng.step()                       # one round admits all six
+        assert eng.stats.prefills == 1 and not eng.queue
+        return eng, rids
+
+    clean = {}
+    for guard in (False, True):
+        eng, rids = run(guard=guard)
+        clean[guard] = eng.run()
+    assert clean[False] == clean[True]
+    eng, rids = run(faults=FaultPlan(poison_prefill={0: [(0, 1)]}))
+    bad = [r for r in rids if eng.status[r] == "failed"]
+    assert len(bad) == 1 and eng.stats.quarantined == 1
+    slot = next(i for i in range(8)
+                if i not in eng._active_slots() and
+                not torch.isfinite(eng.cache["ssm"][:, i]).all())
+    for _ in range(8):
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.stats.decode_steps >= 9 and eng.slot_req[slot] is None
+    for i in range(8):
+        finite = bool(torch.isfinite(eng.cache["ssm"][:, i]).all())
+        assert finite == (i != slot), i
+    out = eng.run()
+    assert eng.stats.quarantined == 1
+    for r in rids:
+        if r not in bad:
+            assert out[r] == clean[False][r], r
