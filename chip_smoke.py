@@ -151,6 +151,29 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               bytes and ms and the restore's ms beside the card's name and
               power limit); a cancel of a request whose prefill is in flight
               on the side stream (its slot comes back free).
+14. prefix_cache / spec_decode — the O(1)-state exploits on phase 12's
+              engine (mamba-1.4b, 48 layers, bf16, 24 slots, overlap on):
+              16 greedy requests share a declared 1024-token system prompt
+              (16–200 token suffixes, 16 new tokens), cold (no cache), warm
+              (an empty ``StateCache``: the first request stores the prefix,
+              the rest restore it and prefill their suffix) and a rerun on
+              the warm cache (whole-prompt hits, no forward); every launch
+              counter around each run: the three runs' streams bitwise
+              equal, the rerun 0 prefills, 0 chunk rounds and 0 #1
+              launches, the warm run #1 48 × its chunk rounds; then, on 4
+              of the requests, a budget of 4 entries (evictions),
+              ``poison_cache_hit=[1]`` (one quarantined) and
+              ``drop_cache``, with streams bitwise the cold ones; TTFT,
+              tok/s, chunk tokens, the ``cache.*``
+              counters, an entry's bytes, an insert's and a hit's ms.
+              Speculative decode: phase 12's greedy prompts and 4 of a
+              repeated block, ``spec_k`` 4 against off (streams bitwise
+              equal; accept rate, verify rounds, tok/s, ITL, peak memory),
+              a verify round beside a plain step, timed and profiled. #1
+              at the suffix rounds' slab widths (1, 3 + 64 and 3 + 128,
+              4096). On mamba2-370m (after its chunk parity), 4 requests
+              cold, warm and rerun. The serve launcher (phase 12) also runs
+              ``--cache-mb 64 --shared-prefix 20 --spec-k 3``.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -231,6 +254,13 @@ LIFE_KILL_AT = 6                 # decode step; snapshots every 4 steps, so
 LIFE_SNAP_EVERY = 4
 CHUNK_PARITY_LEN = 700           # one prompt, whole against 3 slabs
 CHUNK_SLAB_SHAPE = (1, 3 + SERVE_CHUNK, 4096)   # #1 over a slab: W-1 + T
+PREFIX_LEN = 1024                # phase 14's declared system prompt
+PREFIX_REQUESTS = 16             # each with a 16–200 token suffix
+PREFIX_LRU_ENTRIES = 4           # the budget that forces evictions
+PREFIX_MAMBA2_REQUESTS = 4
+SPEC_K = 4
+SUFFIX_SLABS = ((1, 3 + 64, 4096), (1, 3 + 128, 4096))  # #1 at the suffix
+#                                  rounds' narrower slab widths
 
 
 def emit(phase, **kw):
@@ -1813,15 +1843,15 @@ def serve_mix(cfg, seed=0):
     return mix
 
 
-def phase_conv_slab():
-    """#1 at the chunk lane's slab (``CHUNK_SLAB_SHAPE``, bf16): the carried
-    conv tail at W-1 leading zero positions, then a mid-prompt slab at
-    global positions 512.. (``blocks._conv_resume``); against the plain
-    version, twice bitwise, timed beside it, cuDNN and its bound."""
+def phase_conv_slab(shape=CHUNK_SLAB_SHAPE):
+    """#1 at a chunk lane's slab (``shape``, bf16): the carried conv tail
+    at W-1 leading zero positions, then a mid-prompt slab at global
+    positions 512.. (``blocks._conv_resume``); against the plain version,
+    twice bitwise, timed beside it, cuDNN and its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
-    B, L, D = CHUNK_SLAB_SHAPE
+    B, L, D = shape
     g = torch.Generator(device="cuda").manual_seed(L)
     x = torch.randn((B, L, D), generator=g, device="cuda").to(torch.bfloat16)
     w = torch.randn((4, D), generator=g, device="cuda").mul(0.5).to(
@@ -1845,7 +1875,7 @@ def phase_conv_slab():
     kern = lambda: kconv.conv1d_pack(x, w, b, pos)
     plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
     bound, by = conv_bound_ms(x, w, pos)
-    return {"kernel": "conv1d_pack_fwd", "shape": list(CHUNK_SLAB_SHAPE),
+    return {"kernel": "conv1d_pack_fwd", "shape": list(shape),
             "dtype": "bfloat16", "max_abs_err": err.max().item(),
             "tolerance": "2^-8 relative (one bf16 rounding)",
             "bitwise_repeat": True, "launch": kconv.LAST_LAUNCH,
@@ -2200,6 +2230,14 @@ def phase_serve(model, cfg):
             "profiles": profiles}
 
 
+def engine_kw():
+    """Phase 12's engine settings (overlap on, two prefills in flight)."""
+    return dict(num_slots=SERVE_SLOTS, max_len=2048, buckets=(64, 128, 256),
+                prefill_rows=2, max_segments=4, bucket_policy="ttft",
+                target_ttft_ms=SERVE_TTFT_MS, chunk_size=SERVE_CHUNK,
+                overlap=True, max_inflight_prefills=2)
+
+
 def phase_lifecycle(model, cfg, smi):
     """Phase 13: the request lifecycle on phase 12's engine and mix (module
     docstring). Every run has the launch counters set to 0 just before it
@@ -2211,10 +2249,7 @@ def phase_lifecycle(model, cfg, smi):
     from repro_torch.launch.serve import ServeEngine
     t_phase = time.perf_counter()
     mix = serve_mix(cfg)
-    kw = dict(num_slots=SERVE_SLOTS, max_len=2048, buckets=(64, 128, 256),
-              prefill_rows=2, max_segments=4, bucket_policy="ttft",
-              target_ttft_ms=SERVE_TTFT_MS, chunk_size=SERVE_CHUNK,
-              overlap=True, max_inflight_prefills=2)
+    kw = engine_kw()
 
     def engine(**over):
         eng = ServeEngine(model, **dict(kw, **over))
@@ -2420,6 +2455,267 @@ def phase_lifecycle(model, cfg, smi):
             "phase_wall_s": time.perf_counter() - t_phase}
 
 
+def prefix_mix(cfg, n=PREFIX_REQUESTS, seed=1):
+    """Phase 14's requests: one ``PREFIX_LEN``-token system prompt, then a
+    16–200 token suffix each (greedy)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab, size=PREFIX_LEN)
+    return [np.concatenate([shared, rng.integers(1, cfg.vocab, size=int(k))])
+            for k in rng.integers(16, 201, size=n)]
+
+
+def timed_engine(model, cfg, eng, submit):
+    """``submit(eng)``, then ``eng.run()`` with every launch counter set to
+    0 just before and read just after: #1 exactly n_layers × the forwards
+    that ran (packed prefills and chunk rounds), nothing else. Returns
+    (outputs, the run's numbers)."""
+    import torch
+    submit(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    conv = counts.pop("conv1d_pack_fwd")
+    st = eng.stats
+    ran = st.prefills - st.prefill_faults + st.chunk_rounds
+    if any(counts.values()) or conv != cfg.n_layers * ran:
+        raise AssertionError(f"{cfg.name}: #1 {conv} for {ran} forwards × "
+                             f"{cfg.n_layers}, others {counts}; {st!r}")
+    pct, ipct = st.ttft_percentiles(), st.itl_percentiles()
+    return outs, {
+        "wall_s": wall, "generated": st.generated,
+        "tok_per_s": st.generated / wall, "ttft_p50_ms": pct.get("p50"),
+        "ttft_p95_ms": pct.get("p95"), "itl_p50_ms": ipct.get("p50"),
+        "prefills": st.prefills, "chunk_rounds": st.chunk_rounds,
+        "chunk_tokens": st.chunk_tokens, "decode_steps": st.decode_steps,
+        "quarantined": st.quarantined, "conv1d_pack_launches": conv,
+        "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_prefix_cache(model, cfg, smi, n=PREFIX_REQUESTS, full=True):
+    """Phase 14a: the prefix cache on phase 12's engine. ``n`` greedy
+    requests share a declared ``PREFIX_LEN``-token system prompt
+    (``prefix_mix``), ``SERVE_NEW`` new tokens each. Cold (no cache),
+    warm (an empty cache: the first request stores the prefix, the others
+    restore it and prefill their suffix), then a rerun on the warm cache
+    (every prompt a whole-prompt hit). Prompts and the prefix are
+    multiples of the 256-token slab apart, so the three runs cut the same
+    slabs and their streams must be bitwise equal; the rerun runs no
+    forward (0 prefills, 0 chunk rounds, 0 #1 launches) and the warm run
+    #1 48 × its chunk rounds. With ``full``, on the first quarter of the
+    requests: an LRU budget of ``PREFIX_LRU_ENTRIES`` entries (evictions,
+    streams bitwise),
+    ``poison_cache_hit=[1]`` (one request quarantined, the rest bitwise),
+    ``drop_cache`` (streams bitwise), and the host cost of an insert and
+    of a hit, timed alone."""
+    import torch
+    from repro_torch.faults import FaultPlan
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.launch.state_cache import (StateCache, cache_row,
+                                                host_row, load_cache_row,
+                                                row_finite)
+    t_phase = time.perf_counter()
+    prompts = prefix_mix(cfg, n)
+    one = model.init_cache(1)
+    entry_bytes = sum(t.numel() * t.element_size() for t in one.values()) \
+        + cfg.vocab * 4
+    del one
+
+    def run(sc, ps=prompts, **over):
+        def submit(eng):
+            for p in ps:
+                eng.submit(p, SERVE_NEW, prefix_len=PREFIX_LEN)
+
+        eng = ServeEngine(model, state_cache=sc, **dict(engine_kw(), **over))
+        c0 = {} if sc is None else {k: getattr(sc, k) for k in (
+            "hits", "misses", "inserts", "evictions")}
+        outs, row = timed_engine(model, cfg, eng, submit)
+        if sc is not None:
+            row["cache"] = dict({k: getattr(sc, k) - v
+                                 for k, v in c0.items()},
+                                entries=len(sc), bytes=sc.nbytes)
+        return eng, outs, row
+
+    def same(name, outs, skip=()):
+        differ = [r for r in outs if r not in skip and outs[r] != cold[r]]
+        if differ:
+            raise AssertionError(f"prefix cache {name}: streams differ from "
+                                 f"the cold run for {differ}")
+
+    _, cold, cold_row = run(None)
+    if any(len(o) != SERVE_NEW for o in cold.values()):
+        raise AssertionError(f"prefix cache cold: {cold}")
+    sc = StateCache(64 * entry_bytes)
+    weng, warm, warm_row = run(sc)
+    same("warm", warm)
+    _, rerun, rerun_row = run(sc)
+    same("rerun", rerun)
+    if warm_row["prefills"] or warm_row["cache"]["hits"] < n - 1 or \
+            warm_row["conv1d_pack_launches"] != \
+            cfg.n_layers * warm_row["chunk_rounds"] or \
+            rerun_row["prefills"] or rerun_row["chunk_rounds"] or \
+            rerun_row["conv1d_pack_launches"] or \
+            rerun_row["cache"]["hits"] != n:
+        raise AssertionError(f"prefix cache: warm {warm_row}, rerun "
+                             f"{rerun_row}")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "slots": SERVE_SLOTS, "requests": n, "prefix_len": PREFIX_LEN,
+           "prompt_lens": [len(p) for p in prompts], "card": smi,
+           "entry_bytes": entry_bytes, "cold": cold_row, "warm": warm_row,
+           "rerun": rerun_row, "streams_bitwise_equal": True}
+    if full:
+        # the LRU and fault runs on the first quarter of the requests (rids
+        # 0..n/4-1, the same prompts, so the same streams as cold's)
+        few = prompts[:n // 4]
+        eng, outs, lru = run(StateCache(PREFIX_LRU_ENTRIES * entry_bytes),
+                             few)
+        same("LRU", outs)
+        if not lru["cache"]["evictions"]:
+            raise AssertionError(f"prefix cache LRU: no eviction {lru}")
+        eng, outs, pois = run(StateCache(64 * entry_bytes), few,
+                              faults=FaultPlan(poison_cache_hit=[1]))
+        failed = [r for r, st in eng.status.items() if st == "failed"]
+        same("poisoned", outs, skip=failed)
+        if len(failed) != 1 or pois["quarantined"] != 1 or \
+                "quarantined" not in eng.errors[failed[0]]:
+            raise AssertionError(f"prefix cache poison: {eng.errors}")
+        pois["failed"] = failed
+        eng, outs, drop = run(StateCache(64 * entry_bytes), few,
+                              faults=FaultPlan(drop_cache=2))
+        same("drop_cache", outs)
+        if not drop["cache"]["evictions"]:
+            raise AssertionError(f"prefix cache drop: {drop}")
+
+        # the host cost of one insert (copy to pinned memory, the sync,
+        # the finiteness guard) and of one hit (copy to the card into a
+        # slot), each the median of 5 timed alone
+        entry = next(iter(sc._entries.values()))
+        row = cache_row(weng.cache, 0)
+
+        def ms(fn, reps=5):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[reps // 2]
+
+        def insert():
+            h = host_row(row)
+            torch.cuda.current_stream().synchronize()
+            if not row_finite(h, entry.logits):
+                raise AssertionError("prefix cache: a stored row is not "
+                                     "finite")
+
+        def copy_only():
+            host_row(row)
+
+        out.update(
+            lru=dict(lru, budget_entries=PREFIX_LRU_ENTRIES,
+                     requests=len(few)),
+            poison_cache_hit=pois, drop_cache=drop,
+            insert_ms=ms(insert), insert_copy_ms=ms(copy_only),
+            hit_ms=ms(lambda: load_cache_row(
+                weng.cache, StateCache.device_state(entry, "cuda"), 0)))
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_spec_decode(model, cfg, smi):
+    """Phase 14b: speculative decode on phase 12's engine: its greedy
+    prompts and 4 made of a repeated block (8–32 tokens, 4 times), 16 new
+    tokens each, ``spec_k`` = ``SPEC_K`` against off, launch counters
+    around each run (#1 only); streams bitwise equal. Then a verify round
+    and a plain step on the same 24-slot batch, timed alone (median of 3)
+    and profiled (device ms, kernels; none of the nine kernels)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2)
+    prompts = [p for p, knobs in serve_mix(cfg) if not knobs] + [
+        np.tile(rng.integers(1, cfg.vocab, size=n), 4) for n in (8, 16, 24,
+                                                                32)]
+
+    def submit(eng):
+        for p in prompts:
+            eng.submit(p, SERVE_NEW)
+
+    rows, streams = {}, {}
+    for k in (0, SPEC_K):
+        eng = ServeEngine(model, spec_k=k, **engine_kw())
+        streams[k], rows[k] = timed_engine(model, cfg, eng, submit)
+        rows[k].update(spec_k=k, rounds=eng._spec_rounds.value,
+                       proposed=eng._spec_proposed.value,
+                       accepted=eng._spec_accepted.value,
+                       accept_rate=eng.spec_accept_rate)
+    differ = [r for r in streams[0] if streams[0][r] != streams[SPEC_K][r]]
+    if differ or not rows[SPEC_K]["rounds"]:
+        raise AssertionError(f"spec decode: streams differ for {differ}; "
+                             f"{rows[SPEC_K]}")
+
+    # verify rounds beside plain steps, on the same batch: the short
+    # prompts admitted (16 of 24 slots), then 2 steps; 3 steps timed, the
+    # next profiled. A slot's draft is forced where none is found (the
+    # verify's cost does not depend on the draft)
+    def batch(k):
+        eng = ServeEngine(model, num_slots=SERVE_SLOTS, max_len=512,
+                          overlap=False, refill_threshold=1, spec_k=k)
+        for p in prompts:
+            if len(p) <= 256:
+                eng.submit(p, SERVE_NEW)
+        while eng.queue or eng.stats.decode_steps < 2:
+            eng.step()
+        if k:
+            draft = eng._spec_draft
+
+            def forced():
+                d, have = draft()
+                have[eng._active_slots()[0]] = True
+                return d, have
+
+            eng._spec_draft = forced
+        return eng
+
+    none = {name: 0 for name in read_launches()}
+    step_rows = {}
+    for k in (0, SPEC_K):
+        eng, walls = batch(k), []
+        active = len(eng._active_slots())
+        for _ in range(3):
+            r0 = eng._spec_rounds.value
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._decode_step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if k and eng._spec_rounds.value != r0 + 1:
+                raise AssertionError("spec decode: no verify round ran")
+        # the next step of the same batch (a retrace takes the one after)
+        _, prof = profile_call(eng._decode_step, none)
+        step_rows[k] = {"wall_ms_alone": sorted(walls)[1], "active": active,
+                        **{key: prof.get(key) for key in (
+                            "wall_ms", "busy_ms", "kernels",
+                            "busy_share_of_wall", "traces_set_aside")}}
+        del eng
+        gc.collect()
+    return {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+            "slots": SERVE_SLOTS, "requests": len(prompts), "card": smi,
+            "prompt_lens": [len(p) for p in prompts], "spec_k": SPEC_K,
+            "off": rows[0], "on": rows[SPEC_K],
+            "streams_bitwise_equal": True,
+            "plain_step": step_rows[0], "verify_round": step_rows[SPEC_K],
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
 def phase_serve_launcher():
     """The serve launcher as a subprocess on the card: ``--tiny``, sampled,
     buckets (16, 32) so prompts of up to 39 tokens meet the chunk lane,
@@ -2464,9 +2760,28 @@ def phase_serve_launcher():
             raise AssertionError(f"the serve launcher's trace: {errs}; its "
                                  f"profile's conv1d_pack kernels: "
                                  f"{len(conv)} of {len(kernels)}; {last}")
+    # slice 5c's flags: a shared 20-token prefix through the cache, greedy
+    # requests speculated 3 tokens a round
+    cmd2 = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
+            "--requests", "12", "--slots", "4", "--max-len", "128",
+            "--buckets", "16,32", "--cache-mb", "64", "--shared-prefix",
+            "20", "--spec-k", "3"]
+    out2 = subprocess.run(cmd2, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if out2.returncode != 0:
+        raise AssertionError(f"the serve launcher with the cache and spec "
+                             f"flags exited {out2.returncode}: "
+                             f"{out2.stderr[-2000:]}")
+    last2 = json.loads(out2.stdout.strip().splitlines()[-1])
+    if last2["cache"]["hits"] < 11 or not last2["spec"]["rounds"] or \
+            last2["generated"] != 12 * 16 or \
+            "prefix cache: StateCache(" not in out2.stdout:
+        raise AssertionError(f"the serve launcher's cache and spec flags: "
+                             f"{last2}")
     return {"cmd": " ".join(cmd[1:]), "trace_ok": True,
             "profile_files": len(files), "profile_kernels": len(kernels),
             "profile_conv1d_pack_kernels": len(conv), "result": last,
+            "cmd_cache_spec": " ".join(cmd2[1:]), "result_cache_spec": last2,
             "seconds": time.perf_counter() - t0}
 
 
@@ -2612,12 +2927,22 @@ def main():
     # the request lifecycle on the same engine: guard, faults, kill and
     # restore, a cancel in flight
     emit("lifecycle", **phase_lifecycle(model, cfg, smi))
+    # the O(1)-state exploits on the same engine: the prefix cache, then
+    # speculative decode; #1 at the suffix rounds' slab widths
+    pc = phase_prefix_cache(model, cfg, smi)
+    emit("prefix_cache", **pc)
+    emit("spec_decode", **phase_spec_decode(model, cfg, smi))
+    suffix_slabs = [phase_conv_slab(shape) for shape in SUFFIX_SLABS]
+    for row in suffix_slabs:
+        emit("kernels", **row)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     model = LM(cfg2)
     model.init(torch.Generator(device=model.device).manual_seed(0))
     emit("chunk_parity_mamba2", **phase_chunk_parity(model, cfg2))
+    emit("prefix_cache_mamba2", **phase_prefix_cache(
+        model, cfg2, smi, n=PREFIX_MAMBA2_REQUESTS, full=False))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2685,9 +3010,16 @@ def main():
               launches_serve=sv["on"]["conv1d_pack_launches"],
               launches_per_chunk_round=chunk_par[
                   "conv1d_pack_launches_per_slab"],
+              launches_prefix_cache=pc["warm"]["conv1d_pack_launches"],
+              launches_prefix_cache_rerun=pc["rerun"][
+                  "conv1d_pack_launches"],
               chunk_slab={k: slab[k] for k in (
                   "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
-                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")},
+              suffix_slabs=[{k: r[k] for k in (
+                  "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                  for r in suffix_slabs]),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),

@@ -8,17 +8,16 @@ weight load, an overflowed accumulator), the process is killed mid-flight.
 ``ServeEngine`` consults the plan at its seams — the packed prefill
 (``fails_prefill``, ``prefill_poison``), the in-flight readiness probe
 (``prefill_not_ready``), the chunk lane (``fails_chunk``,
-``chunk_poison``) and the decode step (``decode_poison``, ``kills``).
+``chunk_poison``), the prefix cache's admission (``drops_cache``: the
+cache is cleared before the indexed lookup; ``cache_hit_poison``: the
+indexed hit's restored state is poisoned, ``poison_cache_rows``) and the
+decode step (``decode_poison``, ``kills``).
 
 The plan is pure: every query is a function of (plan, index), never of
 call order, so an engine that replays the same admission trace meets the
 same faults, which is what makes kill-and-restore provable.
 ``FaultPlan.random(seed)`` draws a seeded plan for the chaos tests: the
 same seed gives the same plan, the reference's plan for that seed too.
-
-The cache seams (``drop_cache``, ``poison_cache_hit``) belong to the
-prefix state cache, which the port's engine does not have yet; the plan
-keeps them so ``random`` draws the reference's plans field for field.
 
 Poison values are NaN or ±Inf: both are non-finite, and the engine's
 guard rails (``torch.isfinite``) catch either.
@@ -211,7 +210,8 @@ def poison_cache_rows(cache, rows, value: float = float("nan")):
     """A non-finite value in whole rows of a decode-layout cache
     (``LM.init_cache``'s dict: leaves of shape (n_layers, B, …)), in every
     layer: the chunk lane's counterpart of ``poison_states``, a corrupted
-    chunk forward. Returns a new dict."""
+    chunk forward, and a restored prefix-cache row's (one row). Returns a
+    new dict."""
     out = {}
     for k, leaf in cache.items():
         m = torch.ones(leaf.shape[1], dtype=torch.float32,

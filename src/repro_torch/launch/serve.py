@@ -81,11 +81,28 @@ budget is released and refilled mid-flight.
   statuses and deadline budgets left in its manifest; ``restore(manager)``
   on a fresh engine resumes every request, and each finishes with the
   tokens, greedy or sampled, of an uninterrupted run.
+* **Prefix cache** (``state_cache=`` / ``cache_bytes=``,
+  ``launch/state_cache.py``): every landed prompt's state (one cache row
+  and its end logits) goes into a host LRU keyed by a hash of the prefix;
+  ``submit(..., prefix_len=N)`` declares a shared system prompt, so the
+  chunk lane cuts its slab stream at N and stores the state there. A later
+  request restores its longest stored prefix into a chunk row and
+  prefills only the suffix, or, on a whole-prompt hit, starts decoding
+  with no forward (its first token drawn from the stored logits at counter
+  0 of its own stream). An insert copies the row to pinned memory without
+  a host sync; the entry joins the cache after the next sync. A hit's copy
+  to the card is non-blocking, and the engine holds the entry's tensors
+  until its stream has been synchronized.
+* **Speculative decode** (``spec_k=``): n-gram prompt-copy drafts of
+  ``spec_k`` tokens, verified for every slot by K+1 chained greedy steps
+  (``LM.decode_verify``) and rolled back by a per-row select of the
+  verify's trajectory (``LM.spec_rollback``): greedy streams are the plain
+  ones bit for bit. It runs only when no active request samples and some
+  slot has a draft.
 * **Padded-wave baseline** (``decode_batch``): the paper's padding regime
   on the serving path, for comparison.
 
-Left out, a later slice: the prefix state cache and speculative decode
-(slice 5c).
+Every part of the JAX engine is ported.
 
   python -m repro_torch.launch.serve --arch mamba-1.4b
   python -m repro_torch.launch.serve --arch mamba2-370m --temperature 0.8
@@ -93,6 +110,8 @@ Left out, a later slice: the prefix state cache and speculative decode
   python -m repro_torch.launch.serve --arch mamba-1.4b --scan-tune auto
   python -m repro_torch.launch.serve --arch mamba-1.4b --guard \
       --deadline-ms 60000 --max-queue 64
+  python -m repro_torch.launch.serve --arch mamba-1.4b --cache-mb 512 \
+      --shared-prefix 1024 --max-len 2048 --spec-k 4
 """
 from __future__ import annotations
 
@@ -110,6 +129,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import packing
 from repro_torch.faults import (EngineKilled, FaultPlan, poison_cache_rows,
                                 poison_states)
+from repro_torch.launch.state_cache import (StateCache, cache_row, host_row,
+                                            load_cache_row, row_finite,
+                                            state_row)
 from repro_torch.models import blocks as B
 from repro_torch.models.lm import LM
 from repro_torch.obs import MetricsRegistry, Obs, percentiles, \
@@ -136,6 +158,7 @@ class Request:
     top_p: float = 1.0         # 1 = full mass
     submit_t: float = 0.0      # engine clock at submit()
     deadline_ms: Optional[float] = None   # budget from submit_t
+    prefix_len: Optional[int] = None      # declared shared-prefix boundary
 
 
 class _HistList(list):
@@ -273,7 +296,10 @@ class ServeEngine:
                  chunk_rows: int = 1,
                  chunk_size: Optional[int] = None,
                  max_prompt_len: Optional[int] = None,
-                 obs: Optional[Obs] = None):
+                 obs: Optional[Obs] = None,
+                 state_cache: Optional[StateCache] = None,
+                 cache_bytes: Optional[int] = None,
+                 spec_k: int = 0, spec_ngram: int = 3):
         if bucket_policy not in ("smallest_fit", "ttft"):
             raise ValueError(f"bucket_policy must be 'smallest_fit' or "
                              f"'ttft', got {bucket_policy!r}")
@@ -303,6 +329,27 @@ class ServeEngine:
         self.max_inflight_prefills = max(1, int(max_inflight_prefills))
         self.bucket_policy = bucket_policy
         self.max_prompt_len = max_prompt_len
+        # the prefix cache: pass a StateCache to share one across engines
+        # (it outlives a crash and restore), or a byte budget to have the
+        # engine build its own on its registry
+        if state_cache is None and cache_bytes is not None:
+            state_cache = StateCache(cache_bytes, registry=self.obs.metrics)
+        self.state_cache = state_cache
+        self._cache_memo: Dict[int, int] = {}   # rid → miss generation
+        self._pending_inserts: List[tuple] = []  # staged, not yet synced
+        self._held: list = []          # entries with copies still queued
+        # speculative decode: greedy slots only
+        self.spec_k = max(0, int(spec_k))
+        self.spec_ngram = max(1, int(spec_ngram))
+        m = self.obs.metrics
+        self._spec_rounds = m.counter(
+            "spec.rounds", help="speculative verify rounds issued")
+        self._spec_proposed = m.counter(
+            "spec.proposed", help="draft tokens proposed")
+        self._spec_accepted = m.counter(
+            "spec.accepted", help="draft tokens accepted by verify")
+        self._spec_rate = m.gauge(
+            "spec.accept_rate", help="accepted/proposed, cumulative")
         self.chunk_rows = max(1, int(chunk_rows))
         self.chunk_size = int(chunk_size) if chunk_size is not None \
             else self.buckets[-1]
@@ -354,6 +401,7 @@ class ServeEngine:
         self.chunk_req: List[Optional[Request]] = [None] * self.chunk_rows
         self.chunk_off = [0] * self.chunk_rows    # prompt tokens consumed
         self.chunk_slot = [-1] * self.chunk_rows  # reserved decode slot
+        self.chunk_capture = [-1] * self.chunk_rows  # prefix to store at
 
         self.queue: collections.deque = collections.deque()
         self.slot_req: List[Optional[Request]] = [None] * num_slots
@@ -379,6 +427,13 @@ class ServeEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     @property
+    def spec_accept_rate(self) -> float:
+        """Accepted over proposed draft tokens, cumulative (0.0 before any
+        speculative round); also the ``spec.accept_rate`` gauge."""
+        p = self._spec_proposed.value
+        return self._spec_accepted.value / p if p else 0.0
+
+    @property
     def _inflight(self) -> Optional[dict]:
         """Oldest pending prefill (None when the pool is empty)."""
         return self._prefill_pool[0] if self._prefill_pool else None
@@ -387,13 +442,16 @@ class ServeEngine:
     def submit(self, tokens, max_new: int, eos: Optional[int] = None,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, deadline_ms: Optional[float] = None,
-               rid: Optional[int] = None) -> int:
+               rid: Optional[int] = None,
+               prefix_len: Optional[int] = None) -> int:
         """Enqueue one request; returns its rid. Prompts longer than the
         largest prefill bucket go to the chunk lane (``max_prompt_len`` is
         the explicit length bound when set). ``deadline_ms`` bounds submit
         to completion (status "expired" past it, tokens so far kept).
         ``rid`` pins the request's id (its sampling stream is a hash of
-        (``sample_seed``, rid)); a rid already known is refused. Raises
+        (``sample_seed``, rid)); a rid already known is refused.
+        ``prefix_len`` declares the shared prefix the prefix cache stores
+        and restores (the first ``prefix_len`` tokens). Raises
         ``ShedError``, without queueing, when the queue is at ``max_queue``
         or its head is older than ``max_queue_age_ms``."""
         tokens = np.asarray(tokens, np.int32)
@@ -430,6 +488,12 @@ class ServeEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if deadline_ms is not None and deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
+        if prefix_len is not None and not 1 <= prefix_len <= len(tokens):
+            raise ValueError(
+                f"prefix_len {prefix_len} outside [1, {len(tokens)}] — it "
+                f"marks how many LEADING prompt tokens form the shareable "
+                f"prefix, so it must cover at least one token and at most "
+                f"the whole prompt")
         if rid is not None:
             if rid < 0:
                 raise ValueError(f"rid must be >= 0, got {rid}")
@@ -460,7 +524,7 @@ class ServeEngine:
         self.queue.append(Request(rid, tokens, max_new,
                                   self.eos if eos is None else eos,
                                   temperature, int(top_k), top_p, now,
-                                  deadline_ms))
+                                  deadline_ms, prefix_len))
         self.outputs[rid] = []
         self.status[rid] = "queued"
         self._span_to(rid, "queued", prompt=len(tokens), max_new=max_new)
@@ -581,9 +645,14 @@ class ServeEngine:
 
     def _packable(self) -> List[Request]:
         """Queued requests the packed prefill serves, FIFO; longer prompts
-        stay queued for the chunk lane and never block these."""
+        stay queued for the chunk lane and never block these. With a prefix
+        cache and the chunk lane both on, a declared-prefix request belongs
+        to the cached lane (only the chunk lane can cut its slab stream at
+        the prefix)."""
+        cached_lane = self.state_cache is not None and self.chunk_enabled
         return [r for r in self.queue
-                if not packing.needs_chunking(len(r.tokens), self.buckets)]
+                if not packing.needs_chunking(len(r.tokens), self.buckets)
+                and not (cached_lane and r.prefix_len)]
 
     def _admission_due(self, free: List[int],
                        head: Optional[Request]) -> bool:
@@ -745,9 +814,11 @@ class ServeEngine:
                                                      logits).reshape(-1)
             dev["states"], dev["seg_lens"] = states, seg_lens.reshape(-1)
             # the first token, sampled per segment with its request's
-            # stream at token index 0 — flat (K, V), one shape per engine
+            # stream at token index 0 — flat (K, V), one shape per engine;
+            # the logits stay for the prefix cache's inserts
+            dev["logits"] = logits.reshape(K, -1)
             dev["tok"], dev["ctr"] = self.model.sample_tokens(
-                logits.reshape(K, -1), dev["stream"],
+                dev["logits"], dev["stream"],
                 torch.zeros(K, dtype=torch.int64, device=self.device),
                 dev["temp"], dev["topk"], dev["topp"])
             return dev
@@ -817,8 +888,20 @@ class ServeEngine:
         dst = self._h2d([s for s, _ in pairs])
         self.model.scatter_into_cache(self.cache, dev["states"], src, dst)
         self._land_slots(dst, src, dev["seg_lens"], dev)
+        # every landed prompt is a cached prefix: its row goes to pinned
+        # memory before the sync below, and into the cache after it
+        staged = {}
+        if self.state_cache is not None:
+            for qi, req in enumerate(inf["admitted"]):
+                if self.status.get(req.rid) != "cancelled":
+                    k = inf["slot_of"][qi][1]
+                    staged[qi] = self._stage_insert(
+                        req.tokens, len(req.tokens),
+                        state_row(dev["states"], *divmod(
+                            k, self.max_segments)), dev["logits"][k])
         # host sync: TTFT observed here; the probe in the same copy
         first, ok = self._to_host(dev["tok"], dev.get("ok"))
+        self._synced()
         now = self._clock()
         for qi, req in enumerate(inf["admitted"]):
             slot, k = inf["slot_of"][qi]
@@ -835,6 +918,8 @@ class ServeEngine:
                                  f"{inf['pidx']}, row {r}, segment {s}) — "
                                  f"quarantined")
                 continue
+            if qi in staged:
+                self._insert_cache(*staged[qi])
             self._activate(slot, req, now, int(first[k]))
         if inf["steps_waited"] > 0:
             self.stats.overlapped_prefills += 1
@@ -868,16 +953,20 @@ class ServeEngine:
             self.slot_pending[slot] = False
         self.chunk_req[row] = None
         self.chunk_slot[row] = -1
+        self.chunk_capture[row] = -1
 
     def _chunk_claims(self):
         """Assign queued over-bucket prompts to free chunk rows; each also
-        reserves the decode slot it will land in."""
+        reserves the decode slot it will land in. Declared-prefix prompts
+        are the cached lane's (``_cache_admit`` claims them)."""
         claimed = np.zeros(self.chunk_rows, bool)
+        cached_lane = self.state_cache is not None
         for row in range(self.chunk_rows):
             if self.chunk_req[row] is not None:
                 continue
             nxt = next((r for r in self.queue if packing.needs_chunking(
-                len(r.tokens), self.buckets)), None)
+                len(r.tokens), self.buckets)
+                and not (cached_lane and r.prefix_len)), None)
             if nxt is None:
                 break
             free = self._free_slots()
@@ -898,6 +987,163 @@ class ServeEngine:
             claimed = self._h2d(claimed)
             self.model.reset_cache_rows(self.chunk_cache, claimed)
             self.chunk_clen.masked_fill_(claimed, 0)
+
+    # ---------------------------------------------------------- prefix cache
+    @staticmethod
+    def _stage_insert(tokens, prefix_len: int, row, logits):
+        """Begin storing ``tokens[:prefix_len]``: the row and its logits are
+        copied to the host without a host sync (pinned, non-blocking, on the
+        current stream), to be inserted once that stream has been
+        synchronized (``_insert_cache``). Returns the staged insert."""
+        return (tokens, prefix_len, host_row(row),
+                host_row({"logits": logits})["logits"])
+
+    def _insert_cache(self, tokens, prefix_len: int, row, logits):
+        """Store a staged row in the prefix cache (after a sync of the
+        stream that copied it). The guard: a non-finite state is never
+        stored, since a poisoned entry would fail every request that shares
+        the prefix."""
+        if not row_finite(row, logits):
+            return
+        e = self.state_cache.insert(tokens, prefix_len, row, logits)
+        if e is not None:
+            self._tr.instant("cache_insert", track="engine",
+                             prefix=int(prefix_len), bytes=e.nbytes)
+
+    def _synced(self):
+        """The current stream has just been synchronized: the hits' copies
+        to the card have completed (their pinned sources may go) and the
+        staged inserts' rows are on the host."""
+        self._held.clear()
+        pending, self._pending_inserts = self._pending_inserts, []
+        for ins in pending:
+            self._insert_cache(*ins)
+
+    def _claim_row(self, req: Request, row: int, slot: int, off: int,
+                   capture: int = -1, state=None):
+        """Claim a chunk row and its decode slot for ``req`` at prompt
+        offset ``off``: cold (``state`` None: the row back to init_cache
+        values) or from a restored cache row (the carried length starts at
+        ``off``, the prefix's length). ``capture > off`` marks a declared
+        prefix: ``_chunk_step`` cuts the slab stream there and stores the
+        state."""
+        self.queue = collections.deque(
+            r for r in self.queue if r.rid != req.rid)
+        self.status[req.rid] = "active"
+        self.slot_pending[slot] = True
+        self.chunk_req[row] = req
+        self.chunk_off[row] = off
+        self.chunk_slot[row] = slot
+        self.chunk_capture[row] = capture if capture > off else -1
+        if state is None:
+            mask = np.zeros(self.chunk_rows, bool)
+            mask[row] = True
+            self.model.reset_cache_rows(self.chunk_cache, self._h2d(mask))
+            self.chunk_clen[row] = 0
+        else:
+            load_cache_row(self.chunk_cache, state, row)
+            self.chunk_clen[row] = off
+        self._span_to(req.rid, "chunk", row=row, slot=slot,
+                      prompt=len(req.tokens), cached_prefix=off)
+
+    def _activate_full_hit(self, req: Request, slot: int, state, entry):
+        """Admission with no forward on a whole-prompt hit: the stored state
+        goes into a free decode slot and the first token is drawn from the
+        stored end-of-prompt logits at counter 0 of the request's stream,
+        the token a cold prefill of the prompt draws."""
+        self.queue = collections.deque(
+            r for r in self.queue if r.rid != req.rid)
+        now = self._clock()
+        if self._deadline_over(req, now):
+            self._expire(req, "while queued")
+            return
+        load_cache_row(self.cache, state, slot)
+        dev = {name: self._h2d(a) for name, a in (
+            ("stream", B.request_streams(self.sample_seed, [req.rid])),
+            ("temp", np.asarray([req.temperature], np.float32)),
+            ("topk", np.asarray([req.top_k], np.int64)),
+            ("topp", np.asarray([req.top_p], np.float32)),
+            ("len", np.asarray([entry.prefix_len], np.int32)))}
+        dev["tok"], dev["ctr"] = self.model.sample_tokens(
+            self._h2d(entry.logits)[None], dev["stream"],
+            torch.zeros(1, dtype=torch.int64, device=self.device),
+            dev["temp"], dev["topk"], dev["topp"])
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._land_slots(self._h2d(np.asarray([slot], np.int64)), zero,
+                         dev["len"], dev)
+        # host sync: the first token (the hit's copies complete with it)
+        first, _ = self._to_host(dev["tok"])
+        self._synced()
+        self.status[req.rid] = "active"
+        self._activate(slot, req, now, int(first[0]))
+
+    def _cache_admit(self):
+        """The cached lane's admission, before the packed refill each step.
+        For each queued request, FIFO, the longest stored prefix of its
+        prompt:
+
+        * a whole-prompt hit starts decoding with no forward
+          (``_activate_full_hit``);
+        * a partial hit claims a chunk row seeded with the stored state at
+          offset P: only the suffix is prefilled;
+        * a declared-prefix miss claims a chunk row cold with the capture
+          boundary set: the first request with a new system prompt stores
+          it for everyone behind it;
+        * an undeclared miss is memoised against the cache's generation (no
+          hashing again until the cache changes) and left to the packed
+          and chunk lanes.
+
+        The fault seams: ``drop_cache`` clears the cache before the indexed
+        lookup, ``poison_cache_hit`` poisons the indexed hit's restored
+        state (the guard rails must quarantine it)."""
+        sc = self.state_cache
+        if sc is None or not self.queue:
+            return
+        for req in list(self.queue):
+            free = self._free_slots()
+            if not free:
+                return
+            rows = []
+            if self.chunk_enabled:
+                rows = [i for i in range(self.chunk_rows)
+                        if self.chunk_req[i] is None]
+                if not rows:
+                    return
+            declared = int(req.prefix_len or 0)
+            if not declared and \
+                    self._cache_memo.get(req.rid) == sc.generation:
+                continue               # a known miss, the cache unchanged
+            if self.faults is not None and \
+                    self.faults.drops_cache(sc.lookups):
+                sc.clear()
+            entry = sc.lookup(req.tokens)
+            if entry is None:
+                self._cache_memo[req.rid] = sc.generation
+                if not declared or not self.chunk_enabled:
+                    continue           # the packed or chunk lane, cold
+                self._claim_row(req, rows[0], free[0], off=0,
+                                capture=declared)
+                continue
+            hidx = sc.hits - 1         # the lookup above counted this hit
+            self._held.append(entry)   # until its copies have run
+            state = sc.device_state(entry, self.device)
+            if self.faults is not None and self.faults.cache_hit_poison(hidx):
+                state = poison_cache_rows(state, [0],
+                                          self.faults.poison_value)
+            P = entry.prefix_len
+            self._tr.instant("cache_hit", track=f"req{req.rid}",
+                             rid=req.rid, prefix=P)
+            if P == len(req.tokens):
+                self._activate_full_hit(req, free[0], state, entry)
+                continue
+            if not self.chunk_enabled:
+                # a suffix prefill needs the chunk lane's carried state;
+                # without it the packed lane serves the request cold
+                self._cache_memo[req.rid] = sc.generation
+                continue
+            self._claim_row(req, rows[0], free[0], off=P,
+                            capture=declared if declared > P else -1,
+                            state=state)
 
     def _chunk_step(self):
         """One chunked-prefill round: claim rows for queued over-bucket
@@ -936,13 +1182,19 @@ class ServeEngine:
                                 f"(injected fault)")
                 self._free_chunk_row(i)
             return
+        # a row stops at its capture boundary: the slab stream is cut there,
+        # so the carried state and the end logits at the cut are the
+        # prefix's, what the cache stores
+        stops = {}
+        for i in rows:
+            cap = self.chunk_capture[i]
+            stops[i] = cap if cap > self.chunk_off[i] \
+                else len(self.chunk_req[i].tokens)
         # the slab width is bucket-quantised to the round's need
-        need = max(min(self.chunk_size,
-                       len(self.chunk_req[i].tokens) - self.chunk_off[i])
+        need = max(min(self.chunk_size, stops[i] - self.chunk_off[i])
                    for i in rows)
         T = packing.slab_width(need, self.buckets, self.chunk_size)
-        took = {i: min(T, len(self.chunk_req[i].tokens) - self.chunk_off[i])
-                for i in rows}
+        took = {i: min(T, stops[i] - self.chunk_off[i]) for i in rows}
         batch = packing.suffix_slab(
             {i: (self.chunk_req[i].tokens, self.chunk_off[i], took[i])
              for i in rows}, self.chunk_rows, T)
@@ -959,6 +1211,17 @@ class ServeEngine:
             if prs:
                 self.chunk_cache = poison_cache_rows(
                     self.chunk_cache, prs, self.faults.poison_value)
+        if self.state_cache is not None:
+            for i in rows:
+                cap = self.chunk_capture[i]
+                if cap >= 0 and self.chunk_off[i] + took[i] >= cap:
+                    # row i's carried state is the state after the prefix
+                    # and logits[i] its end logits: stored after the next
+                    # sync of the current stream
+                    self._pending_inserts.append(self._stage_insert(
+                        self.chunk_req[i].tokens, cap,
+                        cache_row(self.chunk_cache, i), logits[i]))
+                    self.chunk_capture[i] = -1
         finishing = []
         for i in rows:
             self.chunk_off[i] += took[i]
@@ -992,8 +1255,18 @@ class ServeEngine:
             self.cache, self.model.expand_chunk_states(self.chunk_cache),
             src, dst)
         self._land_slots(dst, src, self.chunk_clen, dev)
+        # a finished prompt is itself a cached prefix (a later identical
+        # prompt is a whole-prompt hit): staged before the sync below
+        staged = {}
+        if self.state_cache is not None:
+            for i in finishing:
+                req = self.chunk_req[i]
+                staged[i] = self._stage_insert(
+                    req.tokens, len(req.tokens),
+                    cache_row(self.chunk_cache, i), logits[i])
         # host sync: TTFT observed here; the probe in the same copy
         first, ok = self._to_host(dev["tok"], ok)
+        self._synced()
         now = self._clock()
         for i in finishing:
             req, slot = self.chunk_req[i], self.chunk_slot[i]
@@ -1006,15 +1279,140 @@ class ServeEngine:
                                  f"for request {req.rid} (chunk round "
                                  f"{cidx}, row {i}) — quarantined")
                 continue
+            if i in staged:
+                self._insert_cache(*staged[i])
             self.stats.chunked_prefills += 1
             self._activate(slot, req, now, int(first[i]))
 
+    # ----------------------------------------------------- speculative decode
+    def _spec_draft(self):
+        """Up to ``spec_k`` draft tokens a slot by n-gram prompt copy: the
+        latest earlier occurrence of the context's last g tokens (g from
+        ``spec_ngram`` down to 1, searched over the last 512 context
+        tokens) and the tokens that followed it. No model call; strong
+        where prompts quote, template or repeat. Returns ((num_slots,
+        spec_k) int32 drafts, (num_slots,) bool has-a-draft)."""
+        K = self.spec_k
+        draft = np.zeros((self.num_slots, K), np.int32)
+        have = np.zeros(self.num_slots, bool)
+        for i in self._active_slots():
+            req = self.slot_req[i]
+            ctx = np.concatenate([np.asarray(req.tokens, np.int64),
+                                  np.asarray(self.outputs[req.rid],
+                                             np.int64)])
+            n = len(ctx)
+            for g in range(min(self.spec_ngram, n - 1), 0, -1):
+                # the candidate ends e: n-2 down to max(g-1, n-513)
+                lo = max(g - 1, n - 513)
+                if lo > n - 2:
+                    continue
+                win = np.lib.stride_tricks.sliding_window_view(
+                    ctx[lo - g + 1:n - 1], g)
+                match = np.flatnonzero((win == ctx[n - g:]).all(1))
+                if len(match):
+                    hit = lo + int(match[-1])   # ≤ n-2: a token follows
+                    cont = ctx[hit + 1:hit + 1 + K]
+                    draft[i, :len(cont)] = cont
+                    have[i] = True
+                    break
+        return draft, have
+
+    def _spec_round(self, active: List[int], step_idx: int) -> bool:
+        """One speculative round: draft ``spec_k`` tokens a slot, verify
+        every slot with K+1 chained greedy steps (``LM.decode_verify``: the
+        plain step's computation, so streams are the plain ones bit for
+        bit), commit each slot's accepted draft prefix and the verify's own
+        next token (cut at EOS, at the slot's budget and, with the guard
+        on, at the first non-finite step), and roll each row back to its
+        entry of the verify's trajectory (``LM.spec_rollback``). Returns
+        False, having run nothing, when no slot has a draft."""
+        draft, have = self._spec_draft()
+        if not have.any():
+            return False
+        K = self.spec_k
+        rsid = self._tr.start("spec_round", track="engine", step=step_idx,
+                              active=len(active), k=K)
+        toks, fins, traj = self.model.decode_verify(
+            self.cache, self.cur_tok, self._h2d(draft))
+        # syncs the current stream only; the probe in the same copy
+        toks_np, fin_np = self._to_host(toks, fins if self.guard else None)
+        self._synced()
+        idx = np.zeros(self.num_slots, np.int64)
+        adv = np.zeros(self.num_slots, np.int32)
+        commits: Dict[int, List[int]] = {}
+        bad: Dict[int, bool] = {}
+        proposed = accepted = 0
+        for i in active:
+            req = self.slot_req[i]
+            a = 0
+            while a < K and draft[i, a] == toks_np[i, a]:
+                a += 1
+            if have[i]:
+                proposed += K
+                accepted += a
+            # commit t_1..t_{a+1}: the a accepted draft tokens and the
+            # verify's own next one, cut at EOS, the budget or (guard on)
+            # the first non-finite step
+            emit: List[int] = []
+            bad[i] = False
+            for t in toks_np[i, :a + 1]:
+                if fin_np is not None and not fin_np[i, len(emit)]:
+                    bad[i] = True
+                    break
+                emit.append(int(t))
+                if int(t) == req.eos or len(emit) >= self.slot_remaining[i]:
+                    break
+            commits[i] = emit
+            if emit:
+                idx[i] = len(emit) - 1
+                adv[i] = len(emit)
+        # rollback: each row takes its post-commit entry of the trajectory,
+        # written into the live cache; the next input is the last commit
+        idx_t = self._h2d(idx)
+        self.model.spec_rollback(self.cache, traj, idx_t)
+        del traj
+        self.cache_len += self._h2d(adv)
+        self.cur_tok = torch.where(self._h2d(adv > 0)[:, None],
+                                   toks.gather(1, idx_t[:, None]),
+                                   self.cur_tok)
+        self.stats.decode_steps += 1
+        for inf in self._prefill_pool:
+            inf["steps_waited"] += 1
+        self._spec_rounds.inc()
+        self._spec_proposed.inc(proposed)
+        self._spec_accepted.inc(accepted)
+        if self._spec_proposed.value:
+            self._spec_rate.set(self._spec_accepted.value
+                                / self._spec_proposed.value)
+        now = self._clock()
+        for i in active:
+            emit = commits[i]
+            if emit:
+                # one ITL sample a slot a round: the latency a client sees
+                self.stats.itl_ms.append((now - self.slot_last_t[i]) * 1e3)
+                self.slot_last_t[i] = now
+                for t in emit:
+                    if self.slot_req[i] is None:
+                        break
+                    self._finish_token(i, t)
+            if bad[i] and self.slot_req[i] is not None:
+                rid = self.slot_req[i].rid
+                self.slot_req[i] = None
+                self._quarantine(rid, f"non-finite verify logits for "
+                                 f"request {rid} at spec round {step_idx} "
+                                 f"(slot {i}) — quarantined")
+        self._expire_active(now)
+        self._tr.finish(rsid)
+        return True
+
     # ----------------------------------------------------------------- decode
     def _decode_step(self):
-        """One decode step over every slot — the plain argmax when no active
-        request samples, else the fused decode + sample step, each in its
-        guarded form with the guard on — then per-slot termination,
-        quarantine, inter-token latency and deadline accounting."""
+        """One decode step over every slot — a speculative round when
+        ``spec_k`` is set, no active request samples and some slot has a
+        draft; else the plain argmax when no active request samples, else
+        the fused decode + sample step, each in its guarded form with the
+        guard on — then per-slot termination, quarantine, inter-token
+        latency and deadline accounting."""
         active = self._active_slots()
         if not active:
             return
@@ -1024,12 +1422,15 @@ class ServeEngine:
             # snapshot() did not persist is gone
             raise EngineKilled(f"fault plan killed the engine before "
                                f"decode step {step_idx}")
+        sampling = any(self.slot_req[i].temperature > 0.0 for i in active)
+        if self.spec_k and not sampling and \
+                self._spec_round(active, step_idx):
+            return
         dsid = self._tr.start("decode_step", track="engine", step=step_idx,
                               active=len(active))
         act = np.zeros(self.num_slots, np.int32)
         act[active] = 1
         act = self._h2d(act)
-        sampling = any(self.slot_req[i].temperature > 0.0 for i in active)
         finite = None
         if self.guard:
             pv = None if self.faults is None else \
@@ -1062,6 +1463,7 @@ class ServeEngine:
             inf["steps_waited"] += 1
         # syncs the current stream only; the probe in the same copy
         toks, fin = self._to_host(tok, finite)
+        self._synced()
         now = self._clock()
         for i in active:
             if fin is not None and not fin[i]:
@@ -1082,14 +1484,15 @@ class ServeEngine:
     # ----------------------------------------------------------------- loop
     def step(self) -> bool:
         """One engine iteration: expire overdue queued requests, land
-        finished prefills, refill free slots (up to the in-flight bound),
-        one chunk round, one decode step. Returns True while work
-        remains."""
+        finished prefills, admit the prefix cache's hits and declared
+        prefixes, refill free slots (up to the in-flight bound), one chunk
+        round, one decode step. Returns True while work remains."""
         ssid = self._tr.start("serve.step", track="engine")
         self._expire_queued()
         t1 = time.perf_counter()
         self._land_prefill(block=False)
-        while self._try_refill():
+        self._cache_admit()           # the cached lane first: hits skip
+        while self._try_refill():     # the prefill
             pass
         if self._prefill_pool and not self._active_slots() \
                 and not self._chunk_active():
@@ -1098,6 +1501,12 @@ class ServeEngine:
         self._chunk_step()
         t3 = time.perf_counter()
         self._decode_step()
+        if self._pending_inserts or self._held:
+            # no decode step synced the stream: the staged inserts must
+            # join the cache before the next step's lookups
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self._synced()
         t4 = time.perf_counter()
         st = self.stats
         st.prefill_ms += (t2 - t1) * 1e3
@@ -1152,13 +1561,16 @@ class ServeEngine:
                 "max_new": int(req.max_new), "eos": int(req.eos),
                 "temperature": float(req.temperature),
                 "top_k": int(req.top_k), "top_p": float(req.top_p),
-                "deadline_left_ms": left}
+                "deadline_left_ms": left,
+                "prefix_len": None if req.prefix_len is None
+                else int(req.prefix_len)}
 
     @staticmethod
     def _meta_req(m: Dict, now: float) -> Request:
         return Request(m["rid"], np.asarray(m["tokens"], np.int32),
                        m["max_new"], m["eos"], m["temperature"],
-                       m["top_k"], m["top_p"], now, m["deadline_left_ms"])
+                       m["top_k"], m["top_p"], now, m["deadline_left_ms"],
+                       m.get("prefix_len"))
 
     def snapshot(self, manager, step: int = 0,
                  blocking: bool = False) -> int:
@@ -1181,7 +1593,8 @@ class ServeEngine:
             "chunks": [None if r is None else
                        dict(self._req_meta(r, now),
                             off=int(self.chunk_off[i]),
-                            slot=int(self.chunk_slot[i]))
+                            slot=int(self.chunk_slot[i]),
+                            capture=int(self.chunk_capture[i]))
                        for i, r in enumerate(self.chunk_req)],
             "queue": [self._req_meta(r, now) for r in self.queue],
             "outputs": {str(rid): [int(t) for t in toks]
@@ -1199,8 +1612,9 @@ class ServeEngine:
         decoding request resumes from its slot's state, stream and counter
         and finishes with the tokens an uninterrupted run gives; chunk rows
         resume at their offset (their decode slot reserved again); queued
-        requests keep their order. Restored rids are in ``resumed``.
-        Returns the step restored."""
+        requests keep their order. Restored rids are in ``resumed``. The
+        prefix cache is not part of the snapshot: a ``StateCache`` passed to
+        the fresh engine keeps hitting. Returns the step restored."""
         if self.queue or self._active_slots() or any(self.slot_pending) \
                 or self._prefill_pool or self._chunk_active():
             raise RuntimeError("restore() requires an idle engine — it "
@@ -1231,6 +1645,7 @@ class ServeEngine:
             self.chunk_req[i] = self._meta_req(m, now)
             self.chunk_off[i] = int(m["off"])
             self.chunk_slot[i] = int(m["slot"])
+            self.chunk_capture[i] = int(m.get("capture", -1))
             self.slot_pending[int(m["slot"])] = True
         self.queue = collections.deque(
             self._meta_req(m, now) for m in meta["queue"])
@@ -1352,6 +1767,17 @@ def main(argv=None):
                          "(0 disables chunked prefill)")
     ap.add_argument("--max-prompt-len", type=int, default=None,
                     help="hard bound on accepted prompt length")
+    ap.add_argument("--cache-mb", type=float, default=None,
+                    help="turn the prefix state cache on with this budget "
+                         "(MB): a repeated prefix restores its O(1) state "
+                         "instead of being prefilled again")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="give every request the same N-token system "
+                         "prompt, declared through submit(prefix_len=N)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decode: draft k tokens a round by "
+                         "n-gram prompt copy and verify them in one round "
+                         "(greedy requests only; 0 = off)")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request submit-to-completion deadline; overdue "
                          "requests are expired, not served late")
@@ -1398,22 +1824,30 @@ def main(argv=None):
                          bucket_policy=args.bucket_policy,
                          chunk_size=args.chunk_size,
                          chunk_rows=args.chunk_rows,
-                         max_prompt_len=args.max_prompt_len, obs=obs)
+                         max_prompt_len=args.max_prompt_len, obs=obs,
+                         cache_bytes=None if args.cache_mb is None
+                         else int(args.cache_mb * 2 ** 20),
+                         spec_k=args.spec_k)
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(5, 40, size=args.requests)
+    shared = rng.integers(1, cfg.vocab, size=args.shared_prefix) \
+        if args.shared_prefix else None
     plen = {}                            # rid → prompt length
     t0 = time.perf_counter()
     with profiler_session(args.profile_dir) as profiling:
         for n in lens:
+            toks = rng.integers(1, cfg.vocab, size=int(n))
+            if shared is not None:
+                toks = np.concatenate([shared, toks])
             try:
                 rid = engine.submit(
-                    rng.integers(1, cfg.vocab, size=int(n)),
-                    args.new_tokens, temperature=args.temperature,
+                    toks, args.new_tokens, temperature=args.temperature,
                     top_k=args.top_k, top_p=args.top_p,
-                    deadline_ms=args.deadline_ms)
+                    deadline_ms=args.deadline_ms,
+                    prefix_len=args.shared_prefix or None)
             except ShedError:
                 continue                 # counted in stats.shed
-            plen[rid] = int(n)
+            plen[rid] = len(toks)
         outs = engine.run()
     dt = time.perf_counter() - t0
     st = engine.stats
@@ -1433,6 +1867,13 @@ def main(argv=None):
     if st.chunk_rounds:
         print(f"chunked prefill: {st.chunked_prefills} request(s) over "
               f"{st.chunk_rounds} rounds ({st.chunk_tokens} tokens)")
+    sc = engine.state_cache
+    if sc is not None:
+        print(f"prefix cache: {sc!r}")
+    if args.spec_k:
+        print(f"speculative decode: accept rate "
+              f"{engine.spec_accept_rate:.2f} over "
+              f"{engine._spec_rounds.value} verify rounds")
     print(f"time split: prefill {st.prefill_ms:.0f}ms, chunk "
           f"{st.chunk_ms:.0f}ms, decode {st.decode_ms:.0f}ms, host "
           f"{st.host_ms:.0f}ms; TTFT p50 {pct.get('p50', 0):.1f}ms p95 "
@@ -1449,7 +1890,15 @@ def main(argv=None):
                       **{k: getattr(st, k) for k in (
                           "shed", "expired", "cancelled", "quarantined",
                           "prefill_faults")},
-                      "guard": engine.guard, "seconds": dt}))
+                      "guard": engine.guard,
+                      "cache": None if sc is None else {
+                          "hits": sc.hits, "misses": sc.misses,
+                          "inserts": sc.inserts,
+                          "evictions": sc.evictions, "bytes": sc.nbytes},
+                      "spec": {"rounds": engine._spec_rounds.value,
+                               "proposed": engine._spec_proposed.value,
+                               "accepted": engine._spec_accepted.value},
+                      "seconds": dt}))
 
 
 if __name__ == "__main__":

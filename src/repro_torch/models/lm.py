@@ -14,7 +14,8 @@ time. Serving: ``forward``, ``prefill``, ``prefill_packed``,
 ``decode_step``, ``decode_step_sample`` / ``sample_tokens`` (batched
 sampling), their guarded forms with the finiteness probes
 (``decode_step_sample_guarded``, ``decode_step_greedy_guarded``,
-``prefill_probe``, ``chunk_probe``), ``scatter_into_cache`` and
+``prefill_probe``, ``chunk_probe``), speculative decode's
+``decode_verify`` and ``spec_rollback``, ``scatter_into_cache`` and
 ``reset_cache_rows`` run under ``torch.no_grad()``, so they build no
 autograd graph.
 
@@ -23,9 +24,9 @@ layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
 "ssm": (n_layers, slots, di, N)}`` (Mamba-1) or ``"ssm": (n_layers, slots,
 H, P, N)`` (Mamba-2), and a packed prefill's states carry
 ``(n_layers, B, S, …)``. ``decode_step``, ``prefill_chunk``,
-``reset_cache_rows`` and ``scatter_into_cache`` update the cache in place
-(JAX's versions return a new one), so the engine holds one cache's worth of
-device memory.
+``reset_cache_rows``, ``scatter_into_cache`` and ``spec_rollback`` update
+the cache in place (JAX's versions return a new one), so the engine holds
+one cache's worth of device memory.
 """
 from __future__ import annotations
 
@@ -281,6 +282,53 @@ class LM(nn.Module):
         logits = logits + poison[:, None]
         return (B.greedy_tokens(logits), cache,
                 torch.isfinite(logits).all(-1))
+
+    # ------------------------------------------------- speculative decode
+    @torch.no_grad()
+    def decode_verify(self, cache, tokens_t, draft):
+        """Score K draft tokens with K+1 chained greedy decode steps,
+        keeping the cache after each step for rollback.
+
+        ``tokens_t`` (B, 1) is each slot's last committed token, ``draft``
+        (B, K) the proposed continuation. Step j feeds input j of
+        [tokens_t, draft] and takes the argmax: exactly what K+1 sequential
+        ``decode_step`` + ``greedy_tokens`` compute, so a draft token is
+        accepted iff it equals the argmax before it and the committed
+        stream is the plain greedy one bit for bit. ``cache`` is read, not
+        advanced: the steps run on the trajectory's own buffers.
+
+        Returns (tokens (B, K+1) int32, finite (B, K+1) bool: the guard's
+        per-step probe of the logits, traj: the cache's leaves with a
+        leading (K+1,) axis, entry j the cache after j+1 inputs)."""
+        inputs = torch.cat([torch.as_tensor(tokens_t, device=self.device),
+                            torch.as_tensor(draft, device=self.device)
+                            .to(torch.int32)], dim=1)        # (B, K+1)
+        steps = inputs.shape[1]
+        traj = {k: torch.empty((steps,) + tuple(v.shape), dtype=v.dtype,
+                               device=v.device) for k, v in cache.items()}
+        toks, fins = [], []
+        for j in range(steps):
+            for k, v in traj.items():
+                v[j].copy_(cache[k] if j == 0 else v[j - 1])
+            logits, _ = self.decode_step({k: v[j] for k, v in traj.items()},
+                                         inputs[:, j:j + 1])
+            toks.append(B.greedy_tokens(logits))
+            fins.append(torch.isfinite(logits).all(-1))
+        return torch.stack(toks, 1), torch.stack(fins, 1), traj
+
+    @torch.no_grad()
+    def spec_rollback(self, cache, traj, idx):
+        """Per-row rollback over a verify trajectory, in place: row ``b`` of
+        ``cache`` becomes row ``b`` of ``traj`` entry ``idx[b]`` (idx (B,)
+        in [0, K]). The O(1) state makes rejecting draft tokens a select,
+        not a replay; writing INTO ``cache`` keeps every holder of its
+        tensors (an in-flight prefill's landing, a snapshot) current.
+        Returns the cache."""
+        idx = torch.as_tensor(idx, device=self.device).long()
+        rows = torch.arange(idx.shape[0], device=self.device)
+        for k, c in cache.items():
+            c.copy_(traj[k][idx, :, rows].movedim(0, 1))
+        return cache
 
     @torch.no_grad()
     def prefill_probe(self, states, logits):

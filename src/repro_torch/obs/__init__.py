@@ -38,7 +38,14 @@ Metric names are dotted; the port's catalogue:
       ``serve.step``, ``prefill_dispatch``, ``prefill_land``,
       ``chunk_slab`` and ``decode_step`` on the ``engine`` track, and each
       request's ``queued`` → ``prefill`` | ``chunk`` → ``decode`` on its
-      ``req<rid>`` track (instants ``first_token`` and ``done``).
+      ``req<rid>`` track (instants ``first_token`` and ``done``);
+  cache.hits, cache.misses, cache.inserts, cache.evictions (counters),
+      cache.bytes, cache.entries (gauges) — ``launch/state_cache.py``;
+      instants ``cache_insert`` (``engine`` track) and ``cache_hit`` (the
+      request's track);
+  spec.rounds, spec.proposed, spec.accepted (counters),
+      spec.accept_rate (gauge) — ``launch/serve.py``; span ``spec_round``
+      on the ``engine`` track.
 
 obs/metrics.py and obs/trace.py are the pieces; obs/profile.py the
 ``torch.profiler`` bridge; obs/check.py the trace validator

@@ -1189,3 +1189,207 @@ def test_nan_slot_rides_along_without_touching_other_rows(cuda):
     for r in rids:
         if r not in bad:
             assert out[r] == clean[False][r], r
+
+
+def _cache_model(dev, dtype="bfloat16"):
+    cfg = dataclasses.replace(get_config("mamba-110m").reduced(),
+                              d_model=256, n_layers=4, vocab=512,
+                              dtype=dtype)
+    model = LM(cfg, dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    return model
+
+
+PREFIX_KW = dict(num_slots=8, max_len=160, buckets=(16, 32), chunk_size=32,
+                 max_segments=2, overlap=True, max_inflight_prefills=2)
+
+
+def _prefix_prompts(vocab, n=5, prefix=64, seed=13):
+    """A 64-token system prompt (two 32-token slabs) and 5–20 token
+    suffixes: cold and warm runs cut the same slabs."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, size=prefix)
+    return [np.concatenate([shared, rng.integers(1, vocab, size=k)])
+            for k in (5, 20, 9, 14, 17)[:n]]
+
+
+def _prefix_run(model, prompts, sc=None, **kw):
+    eng = ServeEngine(model, state_cache=sc, **dict(PREFIX_KW, **kw))
+    for p in prompts:
+        eng.submit(p, 8, prefix_len=64)
+    n0 = kconv.LAUNCHES
+    outs = eng.run()
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES - n0 == model.cfg.n_layers * (
+        eng.stats.prefills + eng.stats.chunk_rounds)
+    return outs, eng
+
+
+def test_prefix_hit_is_the_cold_prefill_bitwise(cuda):
+    """On the card, bf16: a warm run (the prefix stored by the first
+    request, restored by the others through pinned memory) and a rerun
+    (whole-prompt hits, no forward) give the cold run's streams bit for
+    bit; the rerun launches no #1."""
+    from repro_torch.launch.state_cache import StateCache
+    model = _cache_model(cuda)
+    prompts = _prefix_prompts(model.cfg.vocab)
+    cold, _ = _prefix_run(model, prompts)
+    sc = StateCache(1 << 26)
+    warm, weng = _prefix_run(model, prompts, sc)
+    assert warm == cold and weng.stats.prefills == 0
+    assert sc.hits == len(prompts) - 1
+    entry = sc.lookup(prompts[0][:64])
+    assert all(t.is_pinned() for t in entry.state.values())
+    assert entry.logits.is_pinned()
+    rerun, reng = _prefix_run(model, prompts, sc)
+    assert rerun == cold
+    assert reng.stats.prefills == reng.stats.chunk_rounds == 0
+
+
+def test_packed_harvest_seeds_a_chunk_row_on_the_card(cuda):
+    """Cross-lane on the card (f32): a prompt that lands through the packed
+    lane is stored whole and seeds the chunk row of a longer prompt that
+    extends it; its stored conv tail matches the chunk lane's carried tail
+    for the same prompt, and the longer prompt's stream is the cold one.
+    A 2-token declared prefix stores zeros in front of its tail."""
+    from repro_torch.launch.state_cache import StateCache
+    model = _cache_model(cuda, "float32")
+    rng = np.random.default_rng(17)
+    a = rng.integers(1, 512, size=9)
+    b = np.concatenate([a, rng.integers(1, 512, size=30)])
+    sc = StateCache(1 << 24)
+    eng = ServeEngine(model, state_cache=sc, **PREFIX_KW)
+    eng.submit(a, 6)
+    eng.run()
+    rb = eng.submit(b, 6)
+    out = eng.run()
+    assert sc.hits == 1 and eng.stats.chunk_tokens == 30
+    cold = ServeEngine(model, **PREFIX_KW)
+    cb = cold.submit(b, 6)
+    assert out[rb] == cold.run()[cb]
+    chunk = model.init_cache(1)
+    model.prefill_chunk(chunk, {"tokens": a[None].astype(np.int32),
+                                "positions": np.arange(9)[None],
+                                "segment_ids": np.ones((1, 9), np.int32)},
+                        np.zeros(1, np.int32))
+    stored = sc.lookup(a).state
+    for k in ("conv", "ssm"):
+        torch.testing.assert_close(stored[k], chunk[k].cpu(), atol=1e-4,
+                                   rtol=1e-4)
+    short = [np.concatenate([a[:2], rng.integers(1, 512, size=n)])
+             for n in (6, 11)]
+    sc2 = StateCache(1 << 24)
+    eng = ServeEngine(model, state_cache=sc2, **PREFIX_KW)
+    for p in short:
+        eng.submit(p, 6, prefix_len=2)
+    got = eng.run()
+    ref = ServeEngine(model, **PREFIX_KW)
+    for p in short:
+        ref.submit(p, 6)
+    assert got == ref.run()
+    conv = sc2.lookup(a[:2]).state["conv"]
+    W = model.cfg.d_conv
+    assert conv[:, :, :W - 3].abs().max() == 0
+    assert conv[:, :, W - 3:].abs().min() > 0
+
+
+def test_eviction_right_behind_a_hit(cuda):
+    """A partial hit's copy to the card reads the entry's pinned memory
+    while it is still queued behind other work (a ~0.1 s spin on the
+    stream). Right behind it, before the stream syncs, the cache is
+    cleared and new pinned buffers of the entry's sizes are filled with
+    NaN (what a reused block would hold). The engine holds the entry until
+    its stream syncs: every stream is still the cold run's."""
+    import gc
+    from repro_torch.launch.state_cache import StateCache
+    model = _cache_model(cuda)
+    sc = StateCache(1 << 26)
+    _prefix_run(model, _prefix_prompts(model.cfg.vocab), sc)  # stores it
+    prompts = _prefix_prompts(model.cfg.vocab, seed=14)
+    prompts = [np.concatenate([_prefix_prompts(model.cfg.vocab)[0][:64],
+                               p[64:]]) for p in prompts]
+    cold, _ = _prefix_run(model, prompts)
+    real = StateCache.device_state
+    queued, junk = [], []
+
+    def behind(entry, device):
+        if not queued:
+            torch.cuda._sleep(200_000_000)
+            queued.append([(t.shape, t.dtype) for t in
+                           list(entry.state.values()) + [entry.logits]])
+        return real(entry, device)
+
+    eng = ServeEngine(model, state_cache=sc, **PREFIX_KW)
+    refill = eng._try_refill
+
+    def try_refill():
+        if queued and not junk:
+            sc.clear()
+            gc.collect()
+            for shape, dtype in queued[0] * 4:
+                junk.append(torch.full(shape, float("nan"), dtype=dtype,
+                                       pin_memory=True))
+        return refill()
+
+    eng._try_refill = try_refill
+    for p in prompts:
+        eng.submit(p, 8, prefix_len=64)
+    StateCache.device_state = staticmethod(behind)
+    try:
+        got = eng.run()
+    finally:
+        StateCache.device_state = staticmethod(real)
+    assert queued and junk and sc.evictions >= 1
+    assert got == cold and eng.stats.quarantined == 0
+
+
+def test_spec_is_plain_bitwise_with_overlap_and_a_prefill_in_flight(cuda):
+    """Speculative decode (K 3) on the card, overlap on with prefills in
+    flight on the side stream while verify rounds run: every stream is the
+    plain engine's bit for bit, with the n-gram drafts and with drafts
+    taken from the plain run's streams (every odd request's second draft
+    token changed), so rounds accept whole drafts, accept a prefix and roll
+    back, and reject. Slots outnumber requests, so both runs pack the same
+    rounds."""
+    model = _cache_model(cuda)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, 512, size=n) for n in (6, 13, 9, 25)]
+    prompts += [np.tile(rng.integers(1, 512, size=n), 3) for n in (4, 7, 9)]
+
+    def run(k, oracle=None):
+        eng = ServeEngine(model, num_slots=12, max_len=96, buckets=(16, 32),
+                          max_segments=2, overlap=True,
+                          max_inflight_prefills=2, spec_k=k)
+        in_flight = []
+        verify = eng._spec_round
+
+        def spec_round(active, step_idx):
+            in_flight.append(bool(eng._prefill_pool))
+            return verify(active, step_idx)
+
+        def drafts():
+            d = np.zeros((eng.num_slots, k), np.int32)
+            for i in eng._active_slots():
+                rid = eng.slot_req[i].rid
+                nxt = oracle[rid][len(eng.outputs[rid]):][:k]
+                d[i, :len(nxt)] = nxt
+                if rid % 2 and k > 1:
+                    d[i, 1] = (d[i, 1] + 1) % 512
+            return d, np.ones(eng.num_slots, bool)
+
+        eng._spec_round = spec_round
+        if oracle is not None:
+            eng._spec_draft = drafts
+        for p in prompts:
+            eng.submit(p, 20)
+        outs = eng.run()
+        return outs, eng, in_flight
+
+    plain, _, _ = run(0)
+    for oracle in (None, plain):
+        got, eng, in_flight = run(3, oracle)
+        assert got == plain
+        assert eng._spec_rounds.value > 0 and any(in_flight)
+        assert eng.stats.overlapped_prefills > 0
+    rate = eng.spec_accept_rate
+    assert 0.3 < rate < 1.0, rate
