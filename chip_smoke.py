@@ -5,8 +5,10 @@
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
-1. device   — the card's name; ``nvidia-smi``'s name and power limit on a
-              line of their own. No CUDA device: exit 1, no result.
+1. device   — the card's name and its peaks (``roofline.analysis.peaks_for``:
+              an unknown card fails here, before any bound is read);
+              ``nvidia-smi``'s name and power limit on a line of their
+              own. No CUDA device: exit 1, no result.
 2. build    — every CUDA source in ``src/repro_torch/csrc`` with ``nvcc``
               (one process per source, started together).
 3. kernels  — each kernel against its plain PyTorch version at the main
@@ -56,7 +58,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               repeat the timed steps' counts, and its trace must name each
               counted kernel as often as it launched: a trace that lost a
               device record is set aside and the step traced again (at
-              most 3 traces).
+              most 3 traces). Then one more pack step counted by the
+              port's step counter (``repro_torch.roofline.counter``: FLOPs
+              by unit, bytes, the kernel tally) with the launch counters
+              set to 0 just before and read just after; phase 10b holds it
+              to the meta dry run. Every training path below does the same.
 8. Mamba-2 — serving parity and the engine on mamba2-370m (48 layers,
               bf16), then its training main path: 48 layers, 8 × 4096
               packed (``train_mamba2``), launch counts asserted exactly,
@@ -82,6 +88,22 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the lookups its memo missed), and the mamba-1.4b engine
               with ``scan_tune`` on (it sweeps its three prefill buckets),
               beside the untuned numbers of this run.
+10b. roofline — the port's roofline (``repro_torch.roofline``) of the
+              training paths above, from what they measured (no training
+              again): the card's name, power limit and peaks; for
+              mamba-1.4b on ``blocked`` and on the tuned winner,
+              mamba-2.8b on ``step`` and mamba2-370m, the meta dry run of
+              the same cell (``launch/dryrun.py``'s ``count_step``, with
+              the tuning winner's knobs on the tuned path), whose FLOPs by unit
+              and bytes must equal the counted card step's and whose kernel
+              tally must equal the launch counters' per-step counts; model
+              FLOPs, MFU (model FLOPs over ms/step × the bf16 peak),
+              ``t_compute``, ``t_memory``, the bound, ms/step over it, and
+              the dry run's temp + argument bytes beside
+              ``max_memory_allocated``. Meanwhile ``python -m
+              repro_torch.launch.dryrun --paper`` over the four shapes
+              into a temporary directory (a subprocess that sees no card)
+              and ``report.baseline`` / ``report.kernel`` of its records.
 11. checkpoint — kill and resume on the card: mamba-1.4b at full width
               (d_model 2048, d_inner 4096, N 16, vocab 50280) with 4 layers,
               bf16 compute, f32 params, random weights from seed 0,
@@ -193,9 +215,15 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
-TF32_FLOPS = 494.7e12            # H100 SXM dense TF32 on the tensor cores
+# the kernels by their launch counters' names, and their bounds (PERF.md
+# §6's column) from the port's roofline
+from repro_torch.kernels.ops import (  # noqa: E402
+    CONV_KERNELS, HEADS_KERNELS, SCAN_KERNELS, read_launches, zero_launches)
+from repro_torch.roofline.analysis import peaks_for  # noqa: E402
+from repro_torch.roofline.kernel_model import (  # noqa: E402
+    conv_bound_ms, conv_dx_bound_ms, exp_floor_ms, heads_bounds,
+    scan_bounds)
+
 SFU_PER_SM_CLOCK = 16            # exp2 results per clock per SM (sm_90)
 SHAPES = [(2, 64, 4096), (2, 128, 4096), (2, 256, 4096), (2, 4096, 4096)]
 MAIN_SHAPE = (2, 256, 4096)      # the largest prefill bucket (serving)
@@ -215,8 +243,6 @@ SCAN_CASES = ((TRAIN_SHAPE, "bfloat16"), (TRAIN_SHAPE_28, "bfloat16"),
 SCAN_OTHER_CHUNKS = (128, 48)     # #4 off the main path's chunk 64, at
 #                                  SCAN_RAGGED (its any-chunk kernel): chunk
 #                                  starts on tile edges and inside tiles
-SCAN_KERNELS = {"blocked": ("selective_scan_fwd", "selective_scan_bwd"),
-                "step": ("selective_scan_fwd_step", "selective_scan_bwd_step")}
 HEADS_SHAPE = (8, 4096, 32, 64)  # (rows, L, H, P): mamba2-370m training
 HEADS_RAGGED = (8, 997, 32, 64)
 HEADS_N = 64                     # mamba2-370m's d_state
@@ -344,30 +370,13 @@ def conv_inputs(shape, dtype, seed):
     return x_in, w, b, torch.as_tensor(pos, device="cuda")
 
 
-def bound_ms(nbytes, flops, peak=F32_FLOPS):
-    """The least time for the work: bytes over the memory rate or
-    operations over ``peak`` (the f32 rate unless given), whichever is
-    larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
-
-
-def conv_bound_ms(x, w, positions):
-    B, L, D = x.shape
-    es = x.element_size()
-    return bound_ms(2 * B * L * D * es + positions.numel() * 4
-                    + (w.numel() + D) * es, 2 * w.shape[0] * B * L * D)
-
-
 def timing_iters(shape):
     """Graph-captured calls per replay: fewer at training size, where each
     call's outputs are hundreds of MB of the graph's private pool."""
     return 50 if shape[1] <= 256 else 10
 
 
-def phase_conv_fwd():
+def phase_conv_fwd(peaks):
     """Kernel #1 at the serving buckets, the three models' training shapes
     and a one-element-wide shape, against ``conv1d_pack_plain``; twice,
     bitwise equal."""
@@ -403,7 +412,7 @@ def phase_conv_fwd():
             xc = x.transpose(1, 2).contiguous()
             wc = w.t().contiguous()[:, None, :]
             lib = lambda: F.conv1d(xc, wc, b, padding=3, groups=shape[2])
-            bound, by = conv_bound_ms(x, w, pos)
+            bound, by = conv_bound_ms(x, w, peaks)
             kern = lambda: kconv.conv1d_pack(x, w, b, pos)
             plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
             it = timing_iters(shape)
@@ -424,7 +433,7 @@ def phase_conv_fwd():
     return rows, worst
 
 
-def phase_conv_dx():
+def phase_conv_dx(peaks):
     """Kernel #2 at the three models' training shapes, a ragged L and a
     one-element-wide shape, against ``conv1d_pack_bwd_dx_plain``; twice,
     bitwise equal."""
@@ -461,9 +470,7 @@ def phase_conv_dx():
             dyc = dy.transpose(1, 2).contiguous()
             wf = w.flip(0).t().contiguous()[:, None, :]
             lib = lambda: F.conv1d(dyc, wf, padding=3, groups=D)
-            es = dy.element_size()
-            bound, by = bound_ms(B * L * D * (es + 4) + B * L * 4
-                                 + 4 * D * es, 2 * 4 * B * L * D)
+            bound, by = conv_dx_bound_ms(dy, w, peaks)
             kern = lambda: kconv.conv1d_pack_bwd_dx(dy, w, pos)
             plain = lambda: kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
             rows.append({
@@ -481,12 +488,6 @@ def phase_conv_dx():
             emit("kernels", **rows[-1])
             del dy, dx, again, want, err, dyc
     return rows, worst
-
-
-def exp_floor_ms(n_exp, sfu_rate):
-    """What ``n_exp`` exponentials cost at the special-function unit's
-    rate alone."""
-    return n_exp / sfu_rate * 1e3
 
 
 def scan_inputs(shape, dtype, seed):
@@ -526,24 +527,6 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def scan_bounds(shape, es, n_chunk):
-    """Least times of the Mamba-1 scan's forward and backward (the same
-    for both schedules): bytes of each input read once and each output
-    written once — du, dΔ (B, L, D) f32, dB and dC as the function's
-    (B, L, N) f32, dA (N, D) and dD (D,) f32; the kernels' per-block and
-    per-row partials are their own overhead and not counted — and f32
-    operations per state and step, forward 6, backward 17."""
-    B, L, D = shape
-    N = 16
-    io = 2 * B * L * N * es + B * L * 4 + N * D * 4 + D * 4
-    ck = B * n_chunk * N * D * 4
-    fwd = bound_ms(3 * B * L * D * es + io + ck, 6 * B * L * D * N)
-    bwd = bound_ms(3 * B * L * D * es + io + ck + 2 * B * L * D * 4
-                   + 2 * B * L * N * 4 + N * D * 4 + D * 4,
-                   17 * B * L * D * N)
-    return fwd, bwd
-
-
 def blocked_bwd_exps(L, chunk):
     """Exponentials per (b, d, n) of #6 on a row of L steps: the carry pass
     and the tile recompute take every step, the walk to the tile entries
@@ -581,7 +564,7 @@ def scan_resources(kind, dtype, shape, sms, chunk=64):
             "waves": blocks / (sms * max(1, r["blocks_per_sm"]))}
 
 
-def phase_scan(sfu_rate, sms):
+def phase_scan(sfu_rate, sms, peaks):
     """The Mamba-1 scan's two schedules at each shape of ``SCAN_CASES``,
     timed in one call: #4/#6 (``blocked``) and #3/#5 (``step``), each
     against the plain versions (one forward and one backward per case,
@@ -647,7 +630,7 @@ def phase_scan(sfu_rate, sms):
             worst[kf] = max(worst[kf], e_fwd)
             del y, y32, err_y, err_ck
             (bnd_f, by_f), (bnd_b, by_b) = scan_bounds(shape, es,
-                                                       ck.shape[1])
+                                                       ck.shape[1], peaks)
             kern_f = graph_ms(fwd, 10, 3)
             rows.append({
                 "kernel": kf, "schedule": sched, "shape": list(shape),
@@ -725,11 +708,11 @@ def phase_scan(sfu_rate, sms):
         del outs, e_ck
         gc.collect()
         torch.cuda.empty_cache()
-    rows += phase_scan_chunks(sfu_rate, sms, worst)
+    rows += phase_scan_chunks(sfu_rate, sms, worst, peaks)
     return rows, worst
 
 
-def phase_scan_chunks(sfu_rate, sms, worst):
+def phase_scan_chunks(sfu_rate, sms, worst, peaks):
     """#4 at each chunk of ``SCAN_OTHER_CHUNKS`` at ``SCAN_RAGGED`` bf16:
     against the plain version (the forward tolerances of ``phase_scan``),
     twice, bitwise equal, timed beside #4 at chunk 64 in the same call."""
@@ -767,7 +750,7 @@ def phase_scan_chunks(sfu_rate, sms, worst):
                 f"{err_ck.max().item()}")
         e = max(err_y.max().item(), err_ck.max().item())
         worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], e)
-        bnd, by = scan_bounds(shape, es, ck.shape[1])[0]
+        bnd, by = scan_bounds(shape, es, ck.shape[1], peaks)[0]
         rows.append({
             "kernel": "selective_scan_fwd", "schedule": "blocked",
             "shape": list(shape), "dtype": "bfloat16", "chunk": chunk,
@@ -809,43 +792,7 @@ def heads_inputs(shape, dtype, seed):
     return u, delta, A, Bm, Cm, Dp, pos, dy
 
 
-def heads_bounds(shape, es, chunk):
-    """Least times of the heads scan's forward (#7 and #8 share it) and
-    backward (#9): the larger of the bytes over the memory rate (each input
-    read once, each output written once; dB and dC as the function's
-    (B, L, N), dA and dD (H,); the kernel's per-head partials are its own
-    overhead and not counted) and the products of the chunked (SSD) form
-    over the dense TF32 peak: the form #9 runs on the tensor cores and #8
-    writes out. Per (b, head) and sub-chunk of n ≤ Q = ``BWD_SUB_T`` steps
-    inside each chunk: forward C·Bᵀ, (dec∘CBᵀ)·X, C·h_inᵀ and the exit
-    state, 2n²(N + P) + 4nPN; backward S = C·Bᵀ, R = dY·Xᵀ, dX, dC and dB
-    (two products each) and dh, 2n²(3N + 2P) + 8nPN, and the exit state of
-    every sub-chunk but a chunk's last (pass 1), 2nPN. At mamba2-370m's
-    training shape both are bound by bytes."""
-    from repro_torch.kernels import selective_scan_heads as kh
-    B, L, H, P = shape
-    N = HEADS_N
-    f_ops = b_ops = 0
-    for c0 in range(0, L, chunk):
-        t1 = min(L, c0 + chunk)
-        ns = [min(kh.BWD_SUB_T, t1 - t) for t in range(c0, t1,
-                                                        kh.BWD_SUB_T)]
-        for n in ns:
-            f_ops += 2 * n * n * (N + P) + 4 * n * P * N
-            b_ops += 2 * n * n * (3 * N + 2 * P) + 8 * n * P * N
-        b_ops += sum(2 * n * P * N for n in ns[:-1])
-    n_chunk = -(-L // chunk)
-    io = 2 * B * L * N * es + B * L * 4 + 2 * H * 4 + B * L * H * es
-    ck = B * H * n_chunk * P * N * 4
-    fwd = bound_ms(2 * B * L * H * P * es + io + ck, B * H * f_ops,
-                   TF32_FLOPS)
-    bwd = bound_ms(2 * B * L * H * P * es + io + ck + B * L * H * P * 4
-                   + B * L * H * 4 + 2 * B * L * N * 4 + 2 * H * 4,
-                   B * H * b_ops, TF32_FLOPS)
-    return fwd, bwd
-
-
-def phase_heads():
+def phase_heads(peaks):
     """Kernels #7, #8 and #9 at mamba2-370m's training shape and at a
     ragged L, in bf16 and f32, against their plain versions; #7 and #9
     twice, bitwise equal; #7's resources (blocks an SM, registers, spills,
@@ -867,7 +814,7 @@ def phase_heads():
             es = torch.tensor([], dtype=dtype).element_size()
             *fa, dy = heads_inputs(shape, dtype, seed=L + 1)
             T = min(ops.HEADS_CHUNK, L)
-            (bnd_f, by_f), (bnd_b, by_b) = heads_bounds(shape, es, T)
+            (bnd_f, by_f), (bnd_b, by_b) = heads_bounds(shape, es, T, peaks)
             dtn = str(dtype).split(".")[-1]
             for name, sched, plain in forms:
                 fwd = functools.partial(kh.selective_scan_heads_fwd, *fa, T,
@@ -956,35 +903,12 @@ def phase_heads():
     return rows, worst
 
 
-LAUNCH_COUNTERS = (("conv1d_pack_fwd", "conv1d_pack", "LAUNCHES"),
-                   ("conv1d_pack_bwd_dx", "conv1d_pack", "LAUNCHES_DX"),
-                   ("selective_scan_fwd", "selective_scan", "LAUNCHES_FWD"),
-                   ("selective_scan_bwd", "selective_scan", "LAUNCHES_BWD"),
-                   ("selective_scan_fwd_step", "selective_scan",
-                    "LAUNCHES_FWD_STEP"),
-                   ("selective_scan_bwd_step", "selective_scan",
-                    "LAUNCHES_BWD_STEP"),
-                   ("selective_scan_heads_fwd", "selective_scan_heads",
-                    "LAUNCHES_FWD"),
-                   ("selective_scan_heads_fwd_dual", "selective_scan_heads",
-                    "LAUNCHES_DUAL"),
-                   ("selective_scan_heads_bwd", "selective_scan_heads",
-                    "LAUNCHES_BWD"))
-# the kernels of each layer kind's training path: conv forward, conv dx,
-# scan forward, scan backward
-PATH_KERNELS = {"mamba": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
-                          "selective_scan_fwd", "selective_scan_bwd"),
-                "mamba2": ("conv1d_pack_fwd", "conv1d_pack_bwd_dx",
-                           "selective_scan_heads_fwd",
-                           "selective_scan_heads_bwd")}
-
-
 def path_kernels(cfg, schedule=None, rows=2):
-    """The kernels ``cfg``'s training path runs: the Mamba-1 scan's by
-    ``cfg.pallas_schedule``, the Mamba-2 scan's forward by ``schedule``;
-    with ``cfg.scan_tune`` on, by the cached winner at (``rows``, 4096):
-    a plain winner runs no scan kernel (None in their places)."""
-    ks = list(PATH_KERNELS[cfg.unit[0]])
+    """The kernels ``cfg``'s training path runs: conv forward, conv dx,
+    scan forward, scan backward; the Mamba-1 scan's by
+    ``cfg.pallas_schedule``, the Mamba-2 scan's by ``schedule``; with
+    ``cfg.scan_tune`` on, by the cached winner at (``rows``, 4096): a
+    plain winner runs no scan kernel (None in their places)."""
     if cfg.scan_tune != "off":
         from repro_torch.tune import config_shape_args, tuned
         args = config_shape_args(cfg, rows, 4096)
@@ -992,34 +916,13 @@ def path_kernels(cfg, schedule=None, rows=2):
                    cache=None if cfg.scan_tune == "auto" else cfg.scan_tune,
                    **args)
         if kn.get("backend") != "pallas":
-            return ks[:2] + [None, None]
+            return [*CONV_KERNELS, None, None]
         schedule = kn["schedule"]
-        if cfg.unit[0] == "mamba":
-            cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
+    elif cfg.unit[0] == "mamba":
+        schedule = cfg.pallas_schedule
     if cfg.unit[0] == "mamba":
-        ks[2:] = SCAN_KERNELS[cfg.pallas_schedule]
-    if schedule == "blocked_heads_dual":
-        ks[2] = "selective_scan_heads_fwd_dual"
-    return ks
-
-
-def _counter_modules():
-    from repro_torch.kernels import (conv1d_pack, selective_scan,
-                                     selective_scan_heads)
-    return {"conv1d_pack": conv1d_pack, "selective_scan": selective_scan,
-            "selective_scan_heads": selective_scan_heads}
-
-
-def read_launches():
-    mods = _counter_modules()
-    return {name: getattr(mods[m], attr)
-            for name, m, attr in LAUNCH_COUNTERS}
-
-
-def zero_launches():
-    mods = _counter_modules()
-    for _, m, attr in LAUNCH_COUNTERS:
-        setattr(mods[m], attr, 0)
+        return [*CONV_KERNELS, *SCAN_KERNELS[schedule]]
+    return [*CONV_KERNELS, *HEADS_KERNELS[schedule or "blocked_heads"]]
 
 
 @contextlib.contextmanager
@@ -1335,6 +1238,26 @@ def resolver_clock(on):
         kops._resolve_tune, TuneCache._find = resolve, find
 
 
+def count_card_step(step_fn, state, batch):
+    """One more training step under the step counter
+    (``repro_torch.roofline.counter``), its batch on the card first, the
+    launch counters set to 0 just before and read just after: the
+    ``roofline`` phase holds this count to the meta dry run of the same
+    cell. Returns the count, its launches and its seconds."""
+    import torch
+    from repro_torch.roofline.counter import count_call
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    (_, metrics), work = count_call(step_fn, state, dev, device="cuda")
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    work["seconds"] = time.perf_counter() - t0
+    work["launches"] = {k: v for k, v in read_launches().items() if v}
+    return work
+
+
 def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
                 pad=True, tune=None):
     """The training main path at ``arch``'s full width and depth, ``rows``
@@ -1396,6 +1319,7 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
 
     _, profiled = profile_call(one_step, {k: v // steps
                                           for k, v in launches.items()})
+    work = count_card_step(trainer.step_fn, state, batch)
     out = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "remat": cfg.remat, "pallas_schedule": cfg.pallas_schedule,
@@ -1413,7 +1337,7 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
            "max_memory_allocated_gib": peak, "launches": launches,
            "launches_per_step": {k: v // steps for k, v in
                                  launches.items()},
-           "profile": profiled}
+           "profile": profiled, "work": work}
     if tune is not None:
         out["tune_resolver"] = {
             "resolves_per_step": resolver["calls"] / steps,
@@ -1603,6 +1527,7 @@ def phase_tune(tr, eng):
         want = list(SCAN_KERNELS[win["schedule"]]) \
             if win["backend"] == "pallas" else [None, None]
         tt = phase_train(tune=path, pad=False)
+        tt["winner_knobs"] = win
         prof = tt.pop("profile")
         if tt["scan_kernels"] != want:
             raise AssertionError(f"the tuned step ran {tt['scan_kernels']}, "
@@ -1632,6 +1557,117 @@ def phase_tune(tr, eng):
         gc.collect()
         torch.cuda.empty_cache()
     return tt, time.perf_counter() - t0
+
+
+def roofline_path(path, tr, peaks, knobs=None):
+    """One training path's roofline: the meta dry run of its cell (the
+    config, rows × 4096, the scan's schedule or the tuning winner
+    ``knobs``) held to the count of one real step on the card
+    (``tr["work"]``, from ``phase_train``): FLOPs by unit and bytes equal,
+    the kernel tally equal to the launch counters' per-step counts; then
+    MFU, the bound and the memory estimate beside what ``phase_train``
+    measured."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.roofline.analysis import mfu
+    cfg = dataclasses.replace(get_config(tr["arch"]),
+                              pallas_schedule=tr["pallas_schedule"])
+    rec = count_step(cfg, "train", tr["rows"], tr["seq_len"], peaks, knobs)
+    work = tr["work"]
+    dry = {"flops_by_unit": rec["flops_by_unit"],
+           "bytes": rec["bytes_per_device"], "kernels": rec["kernels"]}
+    card = {k: work[k] for k in dry}
+    if dry != card:
+        raise AssertionError(f"{path}: the step counted on the card, "
+                             f"{card}, is not its meta dry run, {dry}")
+    per_step = {k: v for k, v in tr["launches_per_step"].items() if v}
+    if not work["kernels"] == work["launches"] == per_step:
+        raise AssertionError(f"{path}: the counter's kernel tally "
+                             f"{work['kernels']}, the counted step's "
+                             f"launches {work['launches']} and the timed "
+                             f"steps' {per_step} differ")
+    rl = rec["roofline"]
+    bound_s = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
+    step_s = tr["ms_per_step"] / 1e3
+    mem = rec["memory"]
+    kernel_bytes = sum(v for k, v in rec["traffic_by_op"].items()
+                       if k in per_step)
+    return {"path": path, "arch": tr["arch"], "layers": tr["layers"],
+            "rows": tr["rows"], "seq_len": tr["seq_len"],
+            "scan_kernels": tr["scan_kernels"],
+            "model_flops": rl["model_flops"],
+            "ms_per_step": tr["ms_per_step"],
+            "mfu": mfu(rl["model_flops"], step_s, peaks),
+            "flops": rl["flops"], "flops_by_unit": rec["flops_by_unit"],
+            "bytes": rec["bytes_per_device"],
+            "t_compute_ms": rl["t_compute_s"] * 1e3,
+            "t_memory_ms": rl["t_memory_s"] * 1e3,
+            "bound_ms": bound_s * 1e3, "dominant": rl["dominant"],
+            "measured_over_bound": step_s / bound_s,
+            "useful_flops_ratio": rl["useful_flops_ratio"],
+            "roofline_fraction": rl["roofline_fraction"],
+            "traffic_by_op": rec["traffic_by_op"],
+            "kernel_share_of_bytes": kernel_bytes / rec["bytes_per_device"],
+            "kernels_per_step": rec["kernels"],
+            "dry_run_argument_gib": mem["argument_size_in_bytes"] / 2 ** 30,
+            "dry_run_temp_gib": mem["temp_size_in_bytes"] / 2 ** 30,
+            "dry_run_temp_plus_argument_gib": (
+                mem["argument_size_in_bytes"]
+                + mem["temp_size_in_bytes"]) / 2 ** 30,
+            "max_memory_allocated_gib": tr["max_memory_allocated_gib"],
+            "counted_step_peak_gib": work["peak_bytes"] / 2 ** 30,
+            "counted_card_step_s": work["seconds"],
+            "dry_run_s": rec["build_s"] + rec["count_s"]}
+
+
+def phase_roofline(smi, peaks, paths):
+    """The roofline of each training path this run measured (``paths``:
+    {name: (phase_train's result, tuning winner knobs or None)}), from the
+    port's ``roofline`` package, against this card's ``peaks``;
+    meanwhile ``python -m repro_torch.launch.dryrun --paper`` over all four
+    shapes into a temporary directory in a subprocess (no card visible to
+    it: the dry run is meta only), and ``report.baseline`` and
+    ``report.kernel`` of its records."""
+    import torch
+    from repro_torch.roofline import report
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    emit("roofline_card", kind=name, smi=smi, peaks=peaks)
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        paper = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--paper",
+             "--out", tmp, "--card", name], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            for path, (tr, knobs) in paths.items():
+                emit("roofline", **roofline_path(path, tr, peaks, knobs))
+            t_paths = time.perf_counter() - t0
+            out, err = paper.communicate(timeout=300)
+        finally:
+            if paper.poll() is None:
+                paper.kill()
+                paper.communicate()
+        if paper.returncode != 0:
+            raise AssertionError(f"the --paper dry run exited "
+                                 f"{paper.returncode}: {err[-2000:]}")
+        recs = []
+        for fn in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, fn)) as f:
+                recs.append(json.load(f))
+        status = {s: sum(r["status"] == s for r in recs)
+                  for s in ("ok", "skip", "error")}
+        if status["error"] or status["ok"] != 16:
+            raise AssertionError(f"the --paper dry run's records: "
+                                 f"{status}; {out[-2000:]}")
+        baseline, kernel = report.baseline(tmp), report.kernel(tmp)
+    print(baseline, flush=True)
+    return {"card": name, "paper_records": status,
+            "baseline": baseline.splitlines(),
+            "kernel": kernel.splitlines(), "paths_s": t_paths,
+            "seconds": time.perf_counter() - t0}
 
 
 def phase_checkpoint(smi, arch="mamba-1.4b", layers=CKPT_LAYERS,
@@ -1843,7 +1879,7 @@ def serve_mix(cfg, seed=0):
     return mix
 
 
-def phase_conv_slab(shape=CHUNK_SLAB_SHAPE):
+def phase_conv_slab(peaks, shape=CHUNK_SLAB_SHAPE):
     """#1 at a chunk lane's slab (``shape``, bf16): the carried conv tail
     at W-1 leading zero positions, then a mid-prompt slab at global
     positions 512.. (``blocks._conv_resume``); against the plain version,
@@ -1874,7 +1910,7 @@ def phase_conv_slab(shape=CHUNK_SLAB_SHAPE):
     lib = lambda: F.conv1d(xc, wc, b, padding=3, groups=D)
     kern = lambda: kconv.conv1d_pack(x, w, b, pos)
     plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
-    bound, by = conv_bound_ms(x, w, pos)
+    bound, by = conv_bound_ms(x, w, peaks)
     return {"kernel": "conv1d_pack_fwd", "shape": list(shape),
             "dtype": "bfloat16", "max_abs_err": err.max().item(),
             "tolerance": "2^-8 relative (one bf16 rounding)",
@@ -2800,12 +2836,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
+    peaks = peaks_for(name)          # an unknown card fails here, first
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     emit("device", kind=name, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, peaks=peaks)
     print(smi, flush=True)
 
     t = time.perf_counter()
@@ -2821,10 +2858,10 @@ def main():
     sfu_rate = sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6      # exp / s
     emit("sfu", sms=sms, max_sm_clock_mhz=clock_mhz, exp_per_s=sfu_rate)
 
-    conv_rows, conv_worst = phase_conv_fwd()
-    dx_rows, dx_worst = phase_conv_dx()
-    scan_rows, scan_worst = phase_scan(sfu_rate, sms)
-    heads_rows, heads_worst = phase_heads()
+    conv_rows, conv_worst = phase_conv_fwd(peaks)
+    dx_rows, dx_worst = phase_conv_dx(peaks)
+    scan_rows, scan_worst = phase_scan(sfu_rate, sms, peaks)
+    heads_rows, heads_worst = phase_heads(peaks)
 
     # serving first, from the same state as before training existed
     cfg = get_config("mamba-1.4b")
@@ -2905,6 +2942,13 @@ def main():
     tt, tune_s = phase_tune(tr, eng)
     emit("tune", seconds=tune_s)
 
+    # the roofline of every training path above, its count on the card
+    # held to the meta dry run's; the --paper dry run and its report
+    emit("roofline_report", **phase_roofline(smi, peaks, {
+        "mamba-1.4b blocked": (tr, None),
+        "mamba-1.4b tuned": (tt, tt["winner_knobs"]),
+        "mamba-2.8b step": (tr3, None), "mamba2-370m": (tr2, None)}))
+
     # kill and resume: SIGTERM, the emergency save, the restore; then the
     # launcher's checkpoint, trace and profile flags
     emit("checkpoint", **phase_checkpoint(smi))
@@ -2914,7 +2958,7 @@ def main():
     # prefill against whole prefill on both models, the engine (overlap,
     # the pipeline, the TTFT policy, sampling, the chunk lane) on
     # mamba-1.4b, the padded wave, profiles; then the serve launcher
-    slab = phase_conv_slab()
+    slab = phase_conv_slab(peaks)
     emit("kernels", **slab)
     model = LM(cfg)
     model.init(torch.Generator(device=model.device).manual_seed(0))
@@ -2932,7 +2976,7 @@ def main():
     pc = phase_prefix_cache(model, cfg, smi)
     emit("prefix_cache", **pc)
     emit("spec_decode", **phase_spec_decode(model, cfg, smi))
-    suffix_slabs = [phase_conv_slab(shape) for shape in SUFFIX_SLABS]
+    suffix_slabs = [phase_conv_slab(peaks, shape) for shape in SUFFIX_SLABS]
     for row in suffix_slabs:
         emit("kernels", **row)
     del model

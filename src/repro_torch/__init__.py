@@ -17,7 +17,10 @@ and backward (Mamba-1 ``step`` and ``blocked``, Mamba-2 heads).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``resolve_device``); on the CPU every kernel wrapper takes its plain
-PyTorch version.
+PyTorch version. ``device="meta"`` builds shapes only: every kernel
+wrapper returns outputs of the right shapes and dtypes and computes
+nothing, which is how the dry run (``launch/dryrun.py``) counts a step's
+work (``roofline/``).
 """
 from __future__ import annotations
 
@@ -28,13 +31,14 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means the card. Raises when the card is asked for and there
-    is none: the port never moves to the CPU on its own."""
+    """``None`` means the card; ``cpu`` and ``meta`` are taken only when
+    named. Raises when the card is asked for and there is none: the port
+    never moves to the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

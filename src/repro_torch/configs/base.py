@@ -56,7 +56,8 @@ class ArchConfig:
     #                                   never consult the tuner); "auto" =
     #                                   resolve measured winners from the
     #                                   process-default TUNE_CACHE_torch.json;
-    #                                   a path = from that cache file.
+    #                                   a path = from that cache file; a
+    #                                   tune.TuneCache = from it.
     #                                   launch/train.py and launch/serve.py
     #                                   warm the cache for their shapes.
     tune_objective: str = "fwd"       # which sweep's winners scan_tune

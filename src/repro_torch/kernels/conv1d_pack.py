@@ -24,6 +24,8 @@ on the run. dweight and dbias are plain reductions
 (``conv1d_pack_bwd_params``), as the JAX package leaves them to XLA.
 
 * A CPU tensor takes the plain version.
+* A meta tensor gets an output of the right shape and dtype and nothing
+  is computed: the dry run's shape-only path (``launch/dryrun.py``).
 * A CUDA tensor launches the kernel or raises; there is no fallback. Where
   the pointers, strides or D do not allow 16-byte access, the same kernel
   runs one element wide.
@@ -234,6 +236,8 @@ def conv1d_pack(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _check(x, weight, bias, positions)
     if x.device.type == "cpu":
         return conv1d_pack_plain(x, weight, bias, positions)
+    if x.device.type == "meta":
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     return _launch_fwd(x, weight, bias, positions)
 
 
@@ -274,6 +278,8 @@ def conv1d_pack_bwd_dx(dy: torch.Tensor, weight: torch.Tensor,
     _check(dy, weight, None, positions)
     if dy.device.type == "cpu":
         return conv1d_pack_bwd_dx_plain(dy, weight, positions)
+    if dy.device.type == "meta":
+        return torch.empty(dy.shape, dtype=torch.float32, device=dy.device)
     return _launch_dx(dy, weight, positions)
 
 

@@ -32,9 +32,17 @@ every knob, backend included, from the shape-keyed tuning cache
 ``autograd.Function``, so the backward runs the winner's kernel. The JAX
 package resolves once, when it traces; these wrappers resolve at every
 call, which the cache's per-key memo keeps to a dictionary lookup.
+
+Each kernel call is marked for the step counter (``_counted``): while one
+counts (``roofline/counter.py``), the call is charged by its kernel's model
+and the ops inside it are not tallied, so a step counts the same work on
+the card, on the CPU and on the meta device. The mark, the counter's tally
+and the launch counters (``read_launches``, ``zero_launches``) name each
+kernel as ``LAUNCH_COUNTERS`` does.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -50,19 +58,66 @@ SCAN_CHUNK = 64        # checkpoint interval of the scan kernels (a multiple
 HEADS_CHUNK = 256      # checkpoint interval of the heads kernels: the TPU
 #                        kernels' default; a chunk's (P, N) f32 checkpoint
 #                        is as large as 128 tokens of bf16 u at P = N = 64
+WORK_COUNTER = None    # the step counter counting now
+#                        (roofline/counter.py), or None
+
+# Every kernel by the name of its launch counter: the kernel module and the
+# counter there, which its wrapper adds one to where it launches the kernel.
+# The step counter tallies a call under the same name, and kernel_model's
+# KERNEL_WORK charges it.
+LAUNCH_COUNTERS = {
+    "conv1d_pack_fwd": (conv_k, "LAUNCHES"),
+    "conv1d_pack_bwd_dx": (conv_k, "LAUNCHES_DX"),
+    "selective_scan_fwd": (scan_k, "LAUNCHES_FWD"),
+    "selective_scan_bwd": (scan_k, "LAUNCHES_BWD"),
+    "selective_scan_fwd_step": (scan_k, "LAUNCHES_FWD_STEP"),
+    "selective_scan_bwd_step": (scan_k, "LAUNCHES_BWD_STEP"),
+    "selective_scan_heads_fwd": (heads_k, "LAUNCHES_FWD"),
+    "selective_scan_heads_fwd_dual": (heads_k, "LAUNCHES_DUAL"),
+    "selective_scan_heads_bwd": (heads_k, "LAUNCHES_BWD")}
+# the conv's and each scan schedule's (forward, backward) kernel
+CONV_KERNELS = ("conv1d_pack_fwd", "conv1d_pack_bwd_dx")
+SCAN_KERNELS = {
+    "blocked": ("selective_scan_fwd", "selective_scan_bwd"),
+    "step": ("selective_scan_fwd_step", "selective_scan_bwd_step")}
+HEADS_KERNELS = {
+    "blocked_heads": ("selective_scan_heads_fwd", "selective_scan_heads_bwd"),
+    "blocked_heads_dual": ("selective_scan_heads_fwd_dual",
+                           "selective_scan_heads_bwd")}
+
+
+def read_launches():
+    """Every launch counter, by kernel name."""
+    return {name: getattr(m, attr)
+            for name, (m, attr) in LAUNCH_COUNTERS.items()}
+
+
+def zero_launches():
+    for m, attr in LAUNCH_COUNTERS.values():
+        setattr(m, attr, 0)
+
+
+def _counted(name, *args):
+    """Marks one kernel call: an active step counter charges it by
+    ``name``'s model (``roofline/kernel_model.py``, from ``args``) and
+    tallies none of the ops the call issues."""
+    c = WORK_COUNTER
+    return contextlib.nullcontext() if c is None else c.kernel(name, *args)
 
 
 class _Conv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, positions):
         ctx.save_for_backward(x, weight, positions)
-        return conv_k.conv1d_pack(x, weight, bias, positions)
+        with _counted(CONV_KERNELS[0], x, weight.shape[0]):
+            return conv_k.conv1d_pack(x, weight, bias, positions)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, positions = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = conv_k.conv1d_pack_bwd_dx(dy, weight, positions)
+        with _counted(CONV_KERNELS[1], dy, weight.shape[0]):
+            dx = conv_k.conv1d_pack_bwd_dx(dy, weight, positions)
         dw, db = conv_k.conv1d_pack_bwd_params(x, dy, positions,
                                                weight.shape[0])
         # bias has x's dtype (the kernel wrapper checks it)
@@ -91,8 +146,9 @@ class _Scan(torch.autograd.Function):
     def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk, schedule):
         At = A.float().t().contiguous()
         Dp = D.float().contiguous()
-        y, ckpts = scan_k.selective_scan_fwd(u, delta, At, Bm, Cm, Dp,
-                                             positions, chunk, schedule)
+        with _counted(SCAN_KERNELS[schedule][0], u, At.shape[0], chunk):
+            y, ckpts = scan_k.selective_scan_fwd(u, delta, At, Bm, Cm, Dp,
+                                                 positions, chunk, schedule)
         ctx.save_for_backward(u, delta, At, Bm, Cm, Dp, positions, ckpts)
         ctx.chunk, ctx.schedule = chunk, schedule
         ctx.dtypes = (A.dtype, D.dtype)
@@ -101,9 +157,12 @@ class _Scan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         u, delta, At, Bm, Cm, Dp, positions, ckpts = ctx.saved_tensors
-        du, ddt, dB_p, dC_p, dA_p, dD_p = scan_k.selective_scan_bwd(
-            u, delta, At, Bm, Cm, Dp, positions, ckpts,
-            dy.to(u.dtype).contiguous(), ctx.chunk, ctx.schedule)
+        dy = dy.to(u.dtype).contiguous()
+        with _counted(SCAN_KERNELS[ctx.schedule][1], u, At.shape[0],
+                      ctx.chunk):
+            du, ddt, dB_p, dC_p, dA_p, dD_p = scan_k.selective_scan_bwd(
+                u, delta, At, Bm, Cm, Dp, positions, ckpts, dy, ctx.chunk,
+                ctx.schedule)
         a_dt, d_dt = ctx.dtypes
         return (du.to(u.dtype), ddt.to(delta.dtype),
                 dA_p.sum(0).t().to(a_dt), dB_p.sum(1).to(Bm.dtype),
@@ -189,10 +248,11 @@ class _ScanHeads(torch.autograd.Function):
     def forward(ctx, u, delta, A, Bm, Cm, D, positions, chunk, schedule):
         Ah = A.float().contiguous()
         Dp = D.float().contiguous()
-        y, ckpts = heads_k.selective_scan_heads_fwd(
-            u, delta, Ah, Bm, Cm, Dp, positions, chunk, schedule)
+        with _counted(HEADS_KERNELS[schedule][0], u, Bm.shape[-1], chunk):
+            y, ckpts = heads_k.selective_scan_heads_fwd(
+                u, delta, Ah, Bm, Cm, Dp, positions, chunk, schedule)
         ctx.save_for_backward(u, delta, Ah, Bm, Cm, Dp, positions, ckpts)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.schedule = chunk, schedule
         ctx.dtypes = (A.dtype, D.dtype)
         return y
 
@@ -201,9 +261,13 @@ class _ScanHeads(torch.autograd.Function):
         # one backward (#9) serves both forward schedules: the checkpoint
         # contract is the same and the adjoint does not depend on the form
         u, delta, Ah, Bm, Cm, Dp, positions, ckpts = ctx.saved_tensors
-        du, ddt_p, dB_p, dC_p, dA_p, dD_p = heads_k.selective_scan_heads_bwd(
-            u, delta, Ah, Bm, Cm, Dp, positions, ckpts,
-            dy.to(u.dtype).contiguous(), ctx.chunk)
+        dy = dy.to(u.dtype).contiguous()
+        with _counted(HEADS_KERNELS[ctx.schedule][1], u, Bm.shape[-1],
+                      ctx.chunk):
+            du, ddt_p, dB_p, dC_p, dA_p, dD_p = \
+                heads_k.selective_scan_heads_bwd(u, delta, Ah, Bm, Cm, Dp,
+                                                 positions, ckpts, dy,
+                                                 ctx.chunk)
         a_dt, d_dt = ctx.dtypes
         return (du.to(u.dtype), ddt_p.sum(-1).to(delta.dtype),
                 dA_p.sum((0, 2)).to(a_dt), dB_p.sum(1).to(Bm.dtype),

@@ -48,7 +48,9 @@ exactly ``STEP_TILE_T`` (their tile is the chunk; ``ops.SCAN_CHUNK``).
 
 * A CPU tensor takes the plain version (the same for both schedules, as the
   JAX package's one XLA twin serves both); a CUDA tensor launches the
-  schedule's kernel or raises.
+  schedule's kernel or raises; a meta tensor gets outputs of the right
+  shapes and dtypes, checkpoints and partials included, and nothing is
+  computed (the dry run's shape-only path, ``launch/dryrun.py``).
 * ``LAUNCHES_FWD`` / ``LAUNCHES_BWD`` count launches of #4 / #6, and
   ``LAUNCHES_FWD_STEP`` / ``LAUNCHES_BWD_STEP`` of #3 / #5, and nothing
   else.
@@ -676,6 +678,21 @@ def _check_step_chunk(schedule, chunk):
                          f"(their time tile), got {chunk}")
 
 
+def _bwd_meta(u, At, ckpts, dy, bd):
+    """The backward's outputs on the meta device: shapes and dtypes only."""
+    if ckpts.device != u.device or dy.device != u.device:
+        raise ValueError(f"selective_scan operands on several devices: "
+                         f"{u.device}, ckpts {ckpts.device}, dy {dy.device}")
+    Bz, L, Dm = u.shape
+    N = At.shape[0]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    nblk = -(-Dm // bd)
+    return (torch.empty((Bz, L, Dm), **f32), torch.empty((Bz, L, Dm), **f32),
+            torch.empty((Bz, nblk, L, N), **f32),
+            torch.empty((Bz, nblk, L, N), **f32),
+            torch.empty((Bz, N, Dm), **f32), torch.empty((Bz, Dm), **f32))
+
+
 def selective_scan_fwd(u, delta, At, Bm, Cm, Dp, positions, chunk: int,
                        schedule: str = "blocked"):
     """See the module docstring. Returns (y, ckpts)."""
@@ -685,9 +702,13 @@ def selective_scan_fwd(u, delta, At, Bm, Cm, Dp, positions, chunk: int,
     if u.device.type == "cpu":
         return selective_scan_fwd_plain(u, delta, At, Bm, Cm, Dp, positions,
                                         chunk)
+    Bz, L, Dm = u.shape
+    if u.device.type == "meta":
+        return torch.empty_like(u), torch.empty(
+            (Bz, n_chunks(L, chunk), At.shape[0], Dm), dtype=torch.float32,
+            device=u.device)
     _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
     _check_step_chunk(schedule, chunk)
-    Bz, L, Dm = u.shape
     y = torch.empty_like(u)
     ckpts = torch.empty((Bz, n_chunks(L, chunk), D_STATE, Dm),
                         dtype=torch.float32, device=u.device)
@@ -726,6 +747,8 @@ def selective_scan_bwd(u, delta, At, Bm, Cm, Dp, positions, ckpts, dy,
     if u.device.type == "cpu":
         return selective_scan_bwd_plain(u, delta, At, Bm, Cm, Dp, positions,
                                         ckpts, dy, chunk, bd)
+    if u.device.type == "meta":
+        return _bwd_meta(u, At, ckpts, dy, bd)
     _check_cuda(u, delta, At, Bm, Cm, Dp, positions)
     _check_step_chunk(schedule, chunk)
     if chunk % TILE_T:

@@ -42,8 +42,10 @@ Nothing is padded: a ragged L is masked inside, with the semantics the
 reference pads to (pos = 1, Δ = 0 past L). Any chunk ≥ 1.
 
 * A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-  or raises. The kernels take N = ``D_STATE`` and P a multiple of
-  ``P_SLICE``.
+  or raises; a meta tensor gets outputs of the right shapes and dtypes,
+  checkpoints and partials included, and nothing is computed (the dry
+  run's shape-only path, ``launch/dryrun.py``). The kernels take N =
+  ``D_STATE`` and P a multiple of ``P_SLICE``.
 * ``LAUNCHES_FWD`` (#7), ``LAUNCHES_DUAL`` (#8) and ``LAUNCHES_BWD`` (#9)
   count kernel launches and nothing else.
 """
@@ -477,8 +479,12 @@ def selective_scan_heads_fwd(u, delta, A, Bm, Cm, Dp, positions, chunk: int,
         plain = selective_scan_heads_fwd_dual_plain if dual else \
             selective_scan_heads_fwd_plain
         return plain(u, delta, A, Bm, Cm, Dp, positions, chunk)
-    _check_cuda(u, delta, A, Bm, Cm, Dp, positions)
     Bz, L, H, P = u.shape
+    if u.device.type == "meta":
+        return torch.empty_like(u), torch.empty(
+            (Bz, H, n_chunks(L, chunk), P, Bm.shape[-1]),
+            dtype=torch.float32, device=u.device)
+    _check_cuda(u, delta, A, Bm, Cm, Dp, positions)
     y = torch.empty_like(u)
     ckpts = torch.empty((Bz, H, n_chunks(L, chunk), P, D_STATE),
                         dtype=torch.float32, device=u.device)
@@ -519,6 +525,19 @@ def selective_scan_heads_bwd(u, delta, A, Bm, Cm, Dp, positions, ckpts, dy,
     if u.device.type == "cpu":
         return selective_scan_heads_bwd_plain(u, delta, A, Bm, Cm, Dp,
                                               positions, ckpts, dy, chunk)
+    if u.device.type == "meta":
+        if ckpts.device != u.device or dy.device != u.device:
+            raise ValueError(f"selective_scan_heads operands on several "
+                             f"devices: {u.device}, ckpts {ckpts.device}, "
+                             f"dy {dy.device}")
+        nps = n_slices(P)
+        f32 = dict(dtype=torch.float32, device=u.device)
+        return (torch.empty((Bz, L, H, P), **f32),
+                torch.empty((Bz, L, H, nps), **f32),
+                torch.empty((Bz, H * nps, L, N), **f32),
+                torch.empty((Bz, H * nps, L, N), **f32),
+                torch.empty((Bz, H, nps), **f32),
+                torch.empty((Bz, H, nps), **f32))
     _check_cuda(u, delta, A, Bm, Cm, Dp, positions)
     if not (ckpts.is_contiguous() and dy.is_contiguous()):
         raise ValueError("ckpts and dy must be contiguous")

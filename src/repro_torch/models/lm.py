@@ -9,10 +9,10 @@ package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
 Training: ``loss`` is the packed next-token cross-entropy; the parameters
 track gradients, ``remat="unit"`` recomputes each layer in the backward
 (``torch.utils.checkpoint``) and the vocab logits exist one L-chunk at a
-time. Serving: ``forward``, ``prefill``, ``prefill_packed``,
-``prefill_chunk`` (resumable prefill of a long prompt, slab by slab),
-``decode_step``, ``decode_step_sample`` / ``sample_tokens`` (batched
-sampling), their guarded forms with the finiteness probes
+time. Serving: ``forward``, ``prefill_logits``, ``prefill``,
+``prefill_packed``, ``prefill_chunk`` (resumable prefill of a long prompt,
+slab by slab), ``decode_step``, ``decode_step_sample`` / ``sample_tokens``
+(batched sampling), their guarded forms with the finiteness probes
 (``decode_step_sample_guarded``, ``decode_step_greedy_guarded``,
 ``prefill_probe``, ``chunk_probe``), speculative decode's
 ``decode_verify`` and ``spec_rollback``, ``scatter_into_cache`` and
@@ -117,6 +117,18 @@ class LM(nn.Module):
         batch = self._batch(batch)
         x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
         return self._logits(x)
+
+    @torch.no_grad()
+    def prefill_logits(self, batch) -> torch.Tensor:
+        """Serving prefill to the logits at each row's last valid position
+        (B, V) f32, handing off no cache: the dry run's prefill cell (the
+        JAX ``LM.prefill_logits``)."""
+        batch = self._batch(batch)
+        x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
+        lens = (batch["segment_ids"] > 0).sum(-1)
+        xlast = x[torch.arange(x.shape[0], device=x.device),
+                  (lens - 1).clamp(min=0)]
+        return self._logits(xlast)
 
     # ----------------------------------------------------------- loss
     def _chunk_ce(self, xc, lc):

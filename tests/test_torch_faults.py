@@ -46,6 +46,16 @@ COUNTERS = ("shed", "expired", "cancelled", "quarantined", "prefill_faults",
             "prefills", "chunk_rounds", "decode_steps", "generated")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The engines here run thousands of tiny ops: one intra-op thread
+    keeps them from spinning on the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = jget_config("mamba-110m").reduced()

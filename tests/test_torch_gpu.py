@@ -1393,3 +1393,69 @@ def test_spec_is_plain_bitwise_with_overlap_and_a_prefill_in_flight(cuda):
         assert eng.stats.overlapped_prefills > 0
     rate = eng.spec_accept_rate
     assert 0.3 < rate < 1.0, rate
+
+
+def _card_step_and_its_dry_run(cfg, kind, knobs=None):
+    """One step of ``cfg``'s ``kind`` cell on the card at (2, 512), counted
+    by ``roofline/counter.py``, held to its meta dry run: FLOPs by unit,
+    bytes and traffic by op equal exactly, the kernel tally equal to the
+    launch counters. Returns the tally."""
+    from repro_torch.launch import shapes
+    from repro_torch.roofline.counter import count_call
+    Bz, L = 2, 512
+    meta = shapes.make_cell(cfg, kind, Bz, L, "meta", knobs)
+    _, want = count_call(meta.fn, *meta.args, device="meta")
+    cell = shapes.make_cell(cfg, kind, Bz, L, "cuda", knobs)
+    cell.model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    if kind == "decode":
+        cell.args[1].copy_(torch.as_tensor(rng.integers(1, cfg.vocab,
+                                                        (Bz, 1))))
+    else:
+        batch = cell.args[-1]
+        pos = _positions(Bz, L, 0)
+        batch["positions"].copy_(torch.as_tensor(pos))
+        batch["segment_ids"].copy_(torch.as_tensor(
+            np.cumsum(pos == 0, axis=1) + 1))
+        batch["tokens"].copy_(torch.as_tensor(rng.integers(1, cfg.vocab,
+                                                           (Bz, L))))
+    tops.zero_launches()
+    out, got = count_call(cell.fn, *cell.args, device="cuda")
+    torch.cuda.synchronize()
+    launched = tops.read_launches()
+    for k in ("flops", "flops_by_unit", "bytes", "traffic_by_op",
+              "kernels"):
+        assert got[k] == want[k], k
+    assert {k: v for k, v in launched.items() if v} == got["kernels"]
+    if kind == "train":
+        assert torch.isfinite(out[1]["loss"]).item()
+    return got["kernels"]
+
+
+@pytest.mark.parametrize("arch,schedule,kind", [
+    ("mamba-110m", "blocked", "train"), ("mamba-110m", "step", "train"),
+    ("mamba2-370m", None, "train"), ("mamba-110m", "blocked", "prefill"),
+    ("mamba2-370m", None, "decode")])
+def test_counted_card_step_equals_its_meta_dry_run(cuda, arch, schedule,
+                                                   kind):
+    """One step on the card at a reduced width, bf16 (the cells' dtype),
+    counted by ``roofline/counter.py``: FLOPs by unit, bytes and traffic
+    by op equal the meta dry run's exactly, and the kernel tally equals
+    the launch counters."""
+    cfg = get_config(arch).reduced()
+    if schedule is not None:
+        cfg = dataclasses.replace(cfg, pallas_schedule=schedule)
+    _card_step_and_its_dry_run(cfg, kind)
+
+
+def test_counted_card_step_with_a_tuning_winner(cuda):
+    """A train cell given a winner's knobs (``step``, where the config says
+    ``blocked``) launches the winner's kernels on the card and counts as
+    its meta dry run."""
+    cfg = get_config("mamba-110m").reduced()
+    tally = _card_step_and_its_dry_run(cfg, "train", {
+        "backend": "pallas", "schedule": "step", "pchunk": 64})
+    n = cfg.n_layers
+    assert tally == {"conv1d_pack_fwd": 2 * n, "conv1d_pack_bwd_dx": n,
+                     "selective_scan_fwd_step": 2 * n,
+                     "selective_scan_bwd_step": n}

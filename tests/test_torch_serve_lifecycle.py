@@ -46,6 +46,16 @@ COUNTERS = ("shed", "expired", "cancelled", "quarantined", "prefill_faults",
             "prefills", "chunk_rounds", "decode_steps", "generated")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The engines here run thousands of tiny ops: one intra-op thread
+    keeps them from spinning on the cores of the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = jget_config("mamba-110m").reduced()
@@ -327,6 +337,7 @@ def test_kill_and_restore_finishes_bitwise(pair, jax_play, tmp_path,
             eng.snapshot(mgr, step=snap)   # every step boundary
             snap += 1
             assert eng.step(), "the fault plan never fired"
+    mgr.wait()      # the last snapshot's write may still be in flight
     meta = mgr.read_meta(mgr.latest_step())["meta"]
     if long:
         row = meta["chunks"][0]
