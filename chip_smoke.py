@@ -38,7 +38,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 5. engine   — the serving main path: the continuous-batching engine on
               mamba-1.4b (48 layers, bf16, seed 0), 12 greedy requests ×
               16 new tokens; every launch counter set to 0 just before and
-              read just after (only the conv forward may run).
+              read just after (only the conv forward may run, once per
+              layer that has a conv (``conv_layers``) and forward).
 6. train_parity — mamba-1.4b at full width, 2 layers, f32 with TF32 off:
               the loss and every parameter's gradient through the kernels
               against autograd through the plain ``core/`` conv and scan.
@@ -196,6 +197,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               4096). On mamba2-370m (after its chunk parity), 4 requests
               cold, warm and rerun. The serve launcher (phase 12) also runs
               ``--cache-mb 64 --shared-prefix 20 --spec-k 3``.
+15. xlstm   — xlstm-125m (12 layers: 5 mLSTM + 1 sLSTM, twice; d_model
+              768, 4 heads, vocab 50304) at full width and depth, bf16,
+              random weights from seed 0: #1 at its packed prefill's (2,
+              256, 1536) and its chunk slab's (1, 259, 1536) against the
+              plain version, twice bitwise, timed (``kernels`` lines);
+              packed against per-prompt prefill in f32 (every state leaf,
+              5e-4); phase 5's engine with one 1500-token prompt through
+              the chunk lane (#1 exactly 10 mLSTM layers × (prefills +
+              chunk rounds), no other kernel, finite logits; tok/s, TTFT,
+              decode ms/step, peak memory); one prefill round at 2 × 256
+              beside its two sLSTM layers alone (the loop's share of the
+              round, its launches a layer); the prefix cache on 4 requests
+              behind phase 14's 1024-token prompt, cold, warm and rerun,
+              streams bitwise equal. All beside the card's name and power
+              limit (``xlstm`` line).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -285,7 +301,11 @@ PREFIX_REQUESTS = 16             # each with a 16–200 token suffix
 PREFIX_LRU_ENTRIES = 4           # the budget that forces evictions
 PREFIX_MAMBA2_REQUESTS = 4
 SPEC_K = 4
-SUFFIX_SLABS = ((1, 3 + 64, 4096), (1, 3 + 128, 4096))  # #1 at the suffix
+SUFFIX_SLABS = ((1, 3 + 64, 4096), (1, 3 + 128, 4096))
+XLSTM_CONV_SHAPES = ((2, 256, 1536), (1, 3 + SERVE_CHUNK, 1536))  # #1 in
+#                                  xlstm-125m's packed prefill and chunk slab
+XLSTM_PARITY_TOL = 5e-4          # max |Δ| / max(1, max |ref|), 12 f32 layers
+XLSTM_PREFIX_REQUESTS = 4  # #1 at the suffix
 #                                  rounds' narrower slab widths
 
 
@@ -1366,7 +1386,10 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     return out
 
 
-def phase_parity(model_bf16, cfg):
+def phase_parity(model_bf16, cfg, tol=PARITY_TOL):
+    """An f32 copy's ``prefill_packed`` end logits and every state leaf of
+    4 prompts against per-prompt ``prefill``: the worst max |Δ| / max(1,
+    max |ref|) of each, within ``tol``."""
     import numpy as np
     import torch
     from repro_torch.core import packing
@@ -1381,7 +1404,7 @@ def phase_parity(model_bf16, cfg):
     logits, states, seg_lens = f32.prefill_packed(
         {"tokens": pb.tokens, "positions": pb.positions,
          "segment_ids": pb.segment_ids}, ends)
-    worst = {"logits": 0.0, "conv": 0.0, "ssm": 0.0}
+    worst = dict.fromkeys(["logits", *states], 0.0)
     for r, ids in enumerate(pb.seq_ids):
         for s, i in enumerate(ids):
             n = len(prompts[i])
@@ -1390,9 +1413,8 @@ def phase_parity(model_bf16, cfg):
                 {"tokens": prompts[i][None],
                  "positions": np.arange(n, dtype=np.int32)[None],
                  "segment_ids": np.ones((1, n), np.int32)})
-            pairs = [("logits", logits[r, s], lg[0]),
-                     ("conv", states["conv"][:, r, s], cache["conv"][:, 0]),
-                     ("ssm", states["ssm"][:, r, s], cache["ssm"][:, 0])]
+            pairs = [("logits", logits[r, s], lg[0])] + [
+                (k, v[:, r, s], cache[k][:, 0]) for k, v in states.items()]
             for k, got, ref in pairs:
                 e = ((got - ref).abs().max() /
                      ref.abs().max().clamp(min=1.0)).item()
@@ -1400,41 +1422,67 @@ def phase_parity(model_bf16, cfg):
     assert torch.isfinite(logits).all()
     del f32
     torch.cuda.empty_cache()
-    if max(worst.values()) > PARITY_TOL:
+    if max(worst.values()) > tol:
         raise AssertionError(f"packed prefill differs from per-prompt "
-                             f"prefill: {worst} > {PARITY_TOL}")
+                             f"prefill: {worst} > {tol}")
     return worst
 
 
-def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0):
+def conv_layers(cfg):
+    """The layers of ``cfg`` that run #1 in a packed prefill and a chunk
+    slab: every Mamba and every mLSTM layer (an sLSTM block has no
+    conv)."""
+    from repro_torch.models.blocks import layer_kinds
+    return sum(k != "slstm" for k in layer_kinds(cfg))
+
+
+def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0, long=0):
+    """The engine on ``n_requests`` greedy prompts of 16–200 tokens (and,
+    with ``long``, one of ``long`` tokens after the eighth, through the
+    chunk lane), 8 slots: #1 exactly ``conv_layers(cfg)`` × (prefills +
+    chunk rounds), no other kernel, every logit finite."""
+    import torch
+    finite = []
+
+    def checked(name):
+        call = getattr(model, name)
+
+        def run(*a, **k):
+            out = call(*a, **k)
+            finite.append(torch.isfinite(out[0]).all())
+            return out
+        return run
+
+    # the engine's forwards probed for finite logits, for this phase only
+    checks = ("prefill_packed", "prefill_chunk", "decode_step")
+    for name in checks:
+        setattr(model, name, checked(name))
+    try:
+        return _engine_run(model, cfg, n_requests, new_tokens, seed, long,
+                           finite)
+    finally:
+        for name in checks:
+            delattr(model, name)
+
+
+def _engine_run(model, cfg, n_requests, new_tokens, seed, long, finite):
     import numpy as np
     import torch
     from repro_torch.launch.serve import ServeEngine
-    finite = []
-    prefill_packed, decode_step = model.prefill_packed, model.decode_step
-
-    def checked_prefill(*a, **k):
-        logits, states, lens = prefill_packed(*a, **k)
-        finite.append(torch.isfinite(logits).all())
-        return logits, states, lens
-
-    def checked_decode(*a, **k):
-        logits, cache = decode_step(*a, **k)
-        finite.append(torch.isfinite(logits).all())
-        return logits, cache
-
-    model.prefill_packed, model.decode_step = checked_prefill, checked_decode
-    kw = dict(num_slots=8, max_len=512, buckets=(64, 128, 256),
-              prefill_rows=2, max_segments=4)
+    kw = dict(num_slots=8, max_len=2048 if long else 512,
+              buckets=(64, 128, 256), prefill_rows=2, max_segments=4)
     rng = np.random.default_rng(seed)
     warm = ServeEngine(model, **kw)               # cuBLAS and allocator warm-up
-    for n in (20, 150):
+    for n in (20, 150) + ((300,) if long else ()):
         warm.submit(rng.integers(1, cfg.vocab, size=n), 2)
     warm.run()
     del warm
     rng = np.random.default_rng(seed)
     lens = rng.integers(16, 201, size=n_requests)
     prompts = [rng.integers(1, cfg.vocab, size=int(n)) for n in lens]
+    if long:
+        prompts.insert(8, rng.integers(1, cfg.vocab, size=long))
+        lens = np.insert(lens, 8, long)
     engine = ServeEngine(model, **kw)
     for p in prompts:
         engine.submit(p, new_tokens)
@@ -1452,18 +1500,23 @@ def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0):
         raise AssertionError(f"serving launched training kernels: {counts}")
     st = engine.stats
     assert all(engine.status[r] == "done" for r in outs), engine.status
-    assert [len(outs[r]) for r in sorted(outs)] == [new_tokens] * n_requests
+    assert [len(outs[r]) for r in sorted(outs)] == [new_tokens] * len(lens)
     assert bool(torch.stack(finite).all()), "non-finite logits"
-    if launches == 0 or launches != cfg.n_layers * st.prefills:
+    if bool(long) != bool(st.chunk_rounds):
+        raise AssertionError(f"{st.chunk_rounds} chunk rounds with a long "
+                             f"prompt of {long}")
+    forwards = st.prefills + st.chunk_rounds
+    if launches == 0 or launches != conv_layers(cfg) * forwards:
         raise AssertionError(f"conv1d_pack launched {launches} times for "
-                             f"{st.prefills} prefills × {cfg.n_layers} "
+                             f"{forwards} forwards × {conv_layers(cfg)} "
                              f"layers")
-    return {"requests": n_requests, "prompt_lens": [int(n) for n in lens],
+    return {"requests": len(lens), "prompt_lens": [int(n) for n in lens],
             "generated": st.generated, "wall_s": wall,
             "tok_per_s": st.generated / wall,
             "ttft_p50_ms": st.ttft_percentiles()["p50"],
             "prefills": st.prefills, "midflight_refills":
             st.midflight_refills, "decode_steps": st.decode_steps,
+            "chunk_rounds": st.chunk_rounds,
             "prefill_ms_per_prefill": st.prefill_ms / st.prefills,
             "decode_ms_per_step": st.decode_ms / st.decode_steps,
             "host_ms": st.host_ms,
@@ -1879,11 +1932,12 @@ def serve_mix(cfg, seed=0):
     return mix
 
 
-def phase_conv_slab(peaks, shape=CHUNK_SLAB_SHAPE):
+def phase_conv_slab(peaks, shape=CHUNK_SLAB_SHAPE, packed=False):
     """#1 at a chunk lane's slab (``shape``, bf16): the carried conv tail
     at W-1 leading zero positions, then a mid-prompt slab at global
-    positions 512.. (``blocks._conv_resume``); against the plain version,
-    twice bitwise, timed beside it, cuDNN and its bound."""
+    positions 512.. (``blocks._conv_resume``); with ``packed``, a packed
+    prefill's rows (``packed_positions``) instead. Against the plain
+    version, twice bitwise, timed beside it, cuDNN and its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
@@ -1893,8 +1947,11 @@ def phase_conv_slab(peaks, shape=CHUNK_SLAB_SHAPE):
     w = torch.randn((4, D), generator=g, device="cuda").mul(0.5).to(
         torch.bfloat16)
     b = torch.randn((D,), generator=g, device="cuda").to(torch.bfloat16)
-    pos = torch.zeros((B, L), dtype=torch.int32, device="cuda")
-    pos[:, 3:] = torch.arange(512, 512 + L - 3, dtype=torch.int32)
+    if packed:
+        pos = torch.as_tensor(packed_positions(B, L, L), device="cuda")
+    else:
+        pos = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+        pos[:, 3:] = torch.arange(512, 512 + L - 3, dtype=torch.int32)
     y = kconv.conv1d_pack(x, w, b, pos)
     again = kconv.conv1d_pack(x, w, b, pos)
     want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
@@ -1902,7 +1959,7 @@ def phase_conv_slab(peaks, shape=CHUNK_SLAB_SHAPE):
     err = (y.float() - want).abs()
     if not torch.equal(y, again) or not bool(
             (err <= 2.0 ** -8 * want.abs() + 1e-6).all()):
-        raise AssertionError(f"conv1d_pack at the chunk slab: bitwise "
+        raise AssertionError(f"conv1d_pack at {shape}: bitwise "
                              f"repeat {torch.equal(y, again)}, max err "
                              f"{err.max().item()}")
     xc = x.transpose(1, 2).contiguous()
@@ -2503,9 +2560,9 @@ def prefix_mix(cfg, n=PREFIX_REQUESTS, seed=1):
 
 def timed_engine(model, cfg, eng, submit):
     """``submit(eng)``, then ``eng.run()`` with every launch counter set to
-    0 just before and read just after: #1 exactly n_layers × the forwards
-    that ran (packed prefills and chunk rounds), nothing else. Returns
-    (outputs, the run's numbers)."""
+    0 just before and read just after: #1 exactly ``conv_layers(cfg)`` ×
+    the forwards that ran (packed prefills and chunk rounds), nothing
+    else. Returns (outputs, the run's numbers)."""
     import torch
     submit(eng)
     torch.cuda.synchronize()
@@ -2519,9 +2576,9 @@ def timed_engine(model, cfg, eng, submit):
     conv = counts.pop("conv1d_pack_fwd")
     st = eng.stats
     ran = st.prefills - st.prefill_faults + st.chunk_rounds
-    if any(counts.values()) or conv != cfg.n_layers * ran:
+    if any(counts.values()) or conv != conv_layers(cfg) * ran:
         raise AssertionError(f"{cfg.name}: #1 {conv} for {ran} forwards × "
-                             f"{cfg.n_layers}, others {counts}; {st!r}")
+                             f"{conv_layers(cfg)}, others {counts}; {st!r}")
     pct, ipct = st.ttft_percentiles(), st.itl_percentiles()
     return outs, {
         "wall_s": wall, "generated": st.generated,
@@ -2594,7 +2651,7 @@ def phase_prefix_cache(model, cfg, smi, n=PREFIX_REQUESTS, full=True):
     same("rerun", rerun)
     if warm_row["prefills"] or warm_row["cache"]["hits"] < n - 1 or \
             warm_row["conv1d_pack_launches"] != \
-            cfg.n_layers * warm_row["chunk_rounds"] or \
+            conv_layers(cfg) * warm_row["chunk_rounds"] or \
             rerun_row["prefills"] or rerun_row["chunk_rounds"] or \
             rerun_row["conv1d_pack_launches"] or \
             rerun_row["cache"]["hits"] != n:
@@ -2821,6 +2878,101 @@ def phase_serve_launcher():
             "seconds": time.perf_counter() - t0}
 
 
+def xlstm_prefill_round(model, cfg):
+    """One packed prefill round of xlstm-125m at the largest bucket (2 ×
+    256, 4 prompts a row) beside its two sLSTM layers alone on the same
+    shapes: the host-clock ms of each (median of 3, after a warm-up, a
+    device sync at the end), the sLSTM loop's share, and the device
+    launches of one sLSTM layer (its trace's kernels)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.models import blocks
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in
+               (60, 70, 50, 76, 64, 64, 64, 64)]
+    dev = model.device
+    pb = packing.pack(prompts, 256, policy="first_fit", num_rows=2)
+    ends = torch.as_tensor(packing.segment_ends(pb, 4), device=dev)
+    batch = {"tokens": pb.tokens, "positions": pb.positions,
+             "segment_ids": pb.segment_ids}
+    ctx = blocks.Ctx(positions=torch.as_tensor(pb.positions, device=dev),
+                     segment_ids=torch.as_tensor(pb.segment_ids, device=dev))
+    x = torch.randn((2, 256, cfg.d_model), device=dev).to(
+        getattr(torch, cfg.dtype))
+    sl = [p for k, p in zip(model.kinds, model.layers) if k == "slstm"]
+
+    def slstm_layers():
+        with torch.no_grad():
+            for p in sl:
+                blocks.apply_slstm(p, x, ctx, cfg, collect=True,
+                                   collect_ends=ends)
+
+    def med(fn):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[1]
+
+    round_ms = med(lambda: model.prefill_packed(batch, ends))
+    slstm_ms = med(slstm_layers)
+    _, _, events = trace_call(lambda: blocks.apply_slstm(
+        sl[0], x, ctx, cfg, collect=True, collect_ends=ends))
+    kernels = [e for e in events if not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset")]
+    return {"shape": [2, 256], "segments": 8, "round_ms": round_ms,
+            "slstm_layers": len(sl), "slstm_ms": slstm_ms,
+            "slstm_share": slstm_ms / round_ms,
+            "slstm_launches_per_layer": len(kernels),
+            "slstm_launches_per_step": len(kernels) / 256}
+
+
+def phase_xlstm(smi, peaks):
+    """Phase 15: xlstm-125m at full width and depth (12 layers, d_model
+    768, 4 heads, bf16, random weights from seed 0). #1 at its two shapes
+    (the packed prefill's (2, 256, 1536) and the chunk slab's (1, 259,
+    1536)) against the plain version, twice bitwise; packed against
+    per-prompt prefill (f32, ``XLSTM_PARITY_TOL``); the engine (8 slots,
+    12 greedy prompts of 16–200 tokens and one of ``SERVE_LONG`` through
+    the chunk lane, 16 new tokens; #1 exactly 10 mLSTM layers × (prefills
+    + chunk rounds)); a prefill round and its sLSTM loop's share; the
+    prefix cache cold, warm and rerun on ``XLSTM_PREFIX_REQUESTS``
+    requests behind phase 14's shared prompt, streams bitwise equal.
+    Returns (the phase's line, the two ``kernels`` rows)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    rows = [phase_conv_slab(peaks, shape, packed=shape[0] == 2)
+            for shape in XLSTM_CONV_SHAPES]
+    cfg = get_config("xlstm-125m")
+    model = LM(cfg)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    if conv_layers(cfg) != 10:
+        raise AssertionError(f"xlstm-125m: {model.kinds}")
+    parity = phase_parity(model, cfg, XLSTM_PARITY_TOL)
+    eng = phase_engine(model, cfg, long=SERVE_LONG)
+    pre = xlstm_prefill_round(model, cfg)
+    pc = phase_prefix_cache(model, cfg, smi, n=XLSTM_PREFIX_REQUESTS,
+                            full=False)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "kinds": list(model.kinds),
+           "conv_layers": conv_layers(cfg), "card": smi,
+           "parity": {"dtype": "float32", "tf32": "off",
+                      "tolerance": XLSTM_PARITY_TOL, "max_rel_err": parity},
+           "engine": eng, "prefill_round": pre, "prefix_cache": pc,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2992,6 +3144,13 @@ def main():
     torch.cuda.empty_cache()
     emit("serve_launcher", **phase_serve_launcher())
 
+    # xlstm-125m served by the engine: #1 at its shapes, parity, the
+    # engine with the chunk lane, a prefill round, the prefix cache
+    xl, xl_rows = phase_xlstm(smi, peaks)
+    for row in xl_rows:
+        emit("kernels", **row)
+    emit("xlstm", **xl)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -3063,7 +3222,14 @@ def main():
               suffix_slabs=[{k: r[k] for k in (
                   "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
                   "library_ms", "bound_ms", "bound_by", "max_abs_err")}
-                  for r in suffix_slabs]),
+                  for r in suffix_slabs],
+              launches_xlstm=xl["engine"]["conv1d_pack_launches"],
+              launches_xlstm_prefix_cache=xl["prefix_cache"]["warm"][
+                  "conv1d_pack_launches"],
+              xlstm_shapes=[{k: r[k] for k in (
+                  "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                  for r in xl_rows]),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),

@@ -1,4 +1,4 @@
-"""ArchConfig for the port: the Mamba-1 and Mamba-2 fields of
+"""ArchConfig for the port: the Mamba-1, Mamba-2 and xLSTM fields of
 ``repro.configs.base``.
 
 A copy, not an import: the port runs where JAX is not installed. Only what
@@ -9,6 +9,11 @@ the Mamba-1 training scan's kernels: ``"blocked"`` (#4/#6) or ``"step"``
 (#3/#5). The Mamba-2 scan runs ``blocked_heads`` (``blocked_heads_dual``
 through ``kernels.ops.selective_scan_heads(schedule=...)``). With
 ``scan_tune`` on, the tuner's measured winner replaces both choices.
+
+A heterogeneous stack is a repeating pattern unit (``pattern``, e.g.
+xLSTM's five ``mlstm`` layers and one ``slstm``): layer ``i`` is of kind
+``unit[i % len(unit)]``, so layers past the last whole unit reuse the
+unit's prefix, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,10 +26,15 @@ REGISTRY = {}
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # "mamba" only (Mamba-1 and Mamba-2)
+    family: str                       # "mamba" (Mamba-1 and Mamba-2) |
+    #                                   "xlstm" (mLSTM and sLSTM)
     n_layers: int
     d_model: int
     vocab: int
+    n_heads: int = 1                  # xlstm: mLSTM / sLSTM heads (unused
+    #                                   by the Mamba blocks)
+    d_ff: int = 0                     # MLP width; > 0 on an xLSTM unit
+    #                                   raises (no MLP sub-block yet)
     norm_eps: float = 1e-6
     # Mamba
     d_state: int = 16
@@ -38,6 +48,11 @@ class ArchConfig:
     ssm_norm: str = "none"            # mamba2 output gate: "none" |
     #                                   "rms_gate" (RMSNorm of y·silu(z)
     #                                   with a learned (d_inner,) scale)
+    # xlstm layer pattern: one entry per layer in the unit
+    pattern: Tuple[str, ...] = ()     # e.g. 5 × "mlstm" + "slstm"; () =
+    #                                   homogeneous (the Mamba rule)
+    conv_width: int = 4               # xlstm mLSTM temporal conv width
+    proj_factor: float = 2.0          # xlstm mLSTM up-projection factor
     # execution
     dtype: str = "bfloat16"           # activation/compute dtype
     param_dtype: str = "float32"
@@ -98,19 +113,31 @@ class ArchConfig:
 
     @property
     def unit(self) -> Tuple[str, ...]:
-        """The layer kind (the JAX package's one-layer pattern unit)."""
-        return ("mamba2",) if self.ssm_variant == "mamba2" else ("mamba",)
+        """The repeating layer-pattern unit: ``pattern`` when set, else the
+        Mamba kind of ``ssm_variant`` (the JAX rule; a family the port
+        lacks gets the JAX default, ``("attn",)``, which the blocks
+        refuse)."""
+        if self.pattern:
+            return self.pattern
+        if self.family == "mamba":
+            return ("mamba2",) if self.ssm_variant == "mamba2" else ("mamba",)
+        return ("attn",)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the JAX package's
-        ``reduced()`` restricted to the fields kept here)."""
+        ``reduced()`` restricted to the fields kept here). Two whole units
+        deep: 2 layers for Mamba, 12 for xLSTM's six-layer unit."""
         k = {}
         if self.ssm_variant == "mamba2":
             k["ssm_head_dim"] = 16             # 8 heads at d_inner = 128
             k["ssm_heads"] = None
+        if self.family != "mamba":
+            k["n_heads"] = 4
+            k["d_ff"] = 128 if self.d_ff else 0
         return dataclasses.replace(
-            self, name=self.name + "-smoke", n_layers=2, d_model=64,
-            vocab=128, dtype="float32", scan_chunk=8, **k)
+            self, name=self.name + "-smoke",
+            n_layers=max(len(self.unit) * 2, 2), d_model=64, vocab=128,
+            dtype="float32", scan_chunk=8, **k)
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

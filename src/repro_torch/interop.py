@@ -6,12 +6,18 @@ tensors: parameters, gradients, optimizer moments → the JAX tree layout);
 JAX trainer checkpointed can continue in the port and back.
 
 The JAX tree (as numpy arrays, or anything ``np.asarray`` takes) is
-``{"embed", "units": {"0_<kind>": {leaf: (n_layers, …)}}, "final_norm",
-"head"}``, ``<kind>`` the config's layer kind (``mamba`` or ``mamba2``):
-``jax.vmap`` over the layer init gives every block leaf a
-leading layer axis. The port keeps one ``ParameterDict`` per layer, so
-that axis is split into ``layers.<i>.<leaf>``. Leaf layouts are unchanged:
-both packages store dense weights (din, dout) and apply them as ``x @ W``.
+``{"embed", "units": {"<j>_<kind>": {leaf: (n_units, …)}}, "tail":
+{"<j>_<kind>": {leaf: …}}, "final_norm", "head"}``: one entry per position
+``j`` of the config's pattern unit (``0_mamba`` or ``0_mamba2`` alone for
+a Mamba stack, whose units are its layers), ``jax.vmap`` over the unit
+init giving every unit leaf a leading unit axis, and ``tail`` (present
+when ``n_layers`` is no multiple of the unit) holding the layers past the
+last whole unit, which reuse the unit's prefix. The port keeps one
+``ParameterDict`` per layer: layer ``u·len(unit) + j`` is entry ``u`` of
+``units["<j>_<kind>"]``, and tail layer ``n_units·len(unit) + t`` is
+``tail["<t>_<kind>"]``, each as ``layers.<i>.<leaf>``. Leaf layouts are
+unchanged: both packages store dense weights (din, dout) and apply them as
+``x @ W``.
 """
 from __future__ import annotations
 
@@ -24,9 +30,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.optim.adamw import AdamWState
 
 
-def _unit_key(cfg: ArchConfig) -> str:
-    """The JAX tree's key of the layer stack: ``0_`` + the layer kind."""
-    return f"0_{cfg.unit[0]}"
+def _layout(cfg: ArchConfig):
+    """(n_units, n_tail, the unit's keys ``<j>_<kind>``) of the JAX
+    tree."""
+    U = len(cfg.unit)
+    return (cfg.n_layers // U, cfg.n_layers % U,
+            [f"{j}_{kind}" for j, kind in enumerate(cfg.unit)])
 
 
 def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
@@ -34,34 +43,51 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
     def t(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    units = tree["units"][_unit_key(cfg)]
+    n_units, n_tail, names = _layout(cfg)
+    U = len(names)
     out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
            "head": t(tree["head"])}
-    for k, v in units.items():
-        v = np.asarray(v)
-        if v.shape[0] != cfg.n_layers:
-            raise ValueError(f"units leaf {k!r} has {v.shape[0]} layers, "
-                             f"config {cfg.name} has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{k}"] = t(v[i])
+    for j, name in enumerate(names if n_units else ()):
+        for k, v in tree["units"][name].items():
+            v = np.asarray(v)
+            if v.shape[0] != n_units:
+                raise ValueError(f"units leaf {name}.{k} has {v.shape[0]} "
+                                 f"units, config {cfg.name} has {n_units}")
+            for u in range(n_units):
+                out[f"layers.{u * U + j}.{k}"] = t(v[u])
+    for j, name in enumerate(names[:n_tail]):
+        for k, v in tree["tail"][name].items():
+            out[f"layers.{n_units * U + j}.{k}"] = t(v)
     return out
 
 
 def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
-    """The inverse map: ``{"embed", "units": {"0_<kind>": {leaf: (n_layers,
-    …)}}, "final_norm", "head"}`` of f32 numpy arrays, the layer axis
-    stacked back. Takes any dict keyed like ``LM.named_parameters()``
-    (e.g. the gradients of a train step)."""
+    """The inverse map: ``{"embed", "units": {"<j>_<kind>": {leaf:
+    (n_units, …)}}, ["tail": {"<j>_<kind>": {leaf: …}},] "final_norm",
+    "head"}`` of f32 numpy arrays, the unit axis stacked back. Takes any
+    dict keyed like ``LM.named_parameters()`` (e.g. the gradients of a
+    train step)."""
     def a(t):
         return t.detach().float().cpu().numpy()
 
-    leaves = sorted({k.split(".", 2)[2] for k in named
-                     if k.startswith("layers.")})
-    units = {leaf: np.stack([a(named[f"layers.{i}.{leaf}"])
-                             for i in range(cfg.n_layers)])
-             for leaf in leaves}
-    return {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
-            "head": a(named["head"]), "units": {_unit_key(cfg): units}}
+    def leaves(i):
+        pre = f"layers.{i}."
+        return sorted(k[len(pre):] for k in named if k.startswith(pre))
+
+    n_units, n_tail, names = _layout(cfg)
+    U = len(names)
+    out = {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
+           "head": a(named["head"])}
+    if n_units:
+        out["units"] = {name: {leaf: np.stack(
+            [a(named[f"layers.{u * U + j}.{leaf}"]) for u in range(n_units)])
+            for leaf in leaves(j)} for j, name in enumerate(names)}
+    if n_tail:
+        out["tail"] = {name: {leaf: a(named[f"layers.{n_units * U + j}."
+                                            f"{leaf}"])
+                              for leaf in leaves(n_units * U + j)}
+                       for j, name in enumerate(names[:n_tail])}
+    return out
 
 
 def opt_state_from_jax(jstate, cfg: ArchConfig, device) -> AdamWState:

@@ -48,7 +48,7 @@ SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 # layer kinds whose decode state is O(1) in the context length
-RECURRENT_KINDS = {"mamba", "mamba2"}
+RECURRENT_KINDS = {"mamba", "mamba2", "mlstm", "slstm"}
 
 
 def cell_supported(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:

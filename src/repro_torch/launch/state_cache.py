@@ -26,7 +26,9 @@ evictions (counters), bytes and entries (gauges).
 
 Layout of one stored row (``LM.init_cache`` with one slot):
 ``{"conv": (n_layers, 1, W-1, d_inner), "ssm": (n_layers, 1, d_inner, N)}``
-(Mamba-1) or ``"ssm": (n_layers, 1, H, P, N)`` (Mamba-2).
+(Mamba-1) or ``"ssm": (n_layers, 1, H, P, N)`` (Mamba-2); a pattern
+config's groups, e.g. xlstm-125m's ``"0_mlstm.C"`` (2, 1, H, dh, dh), the
+same way (layer axis first, the row second).
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""The Mamba-1 and Mamba-2 blocks (port of the ``mamba`` and ``mamba2``
-parts of ``repro.models.blocks``).
+"""The Mamba-1, Mamba-2, mLSTM and sLSTM blocks (port of the ``mamba``,
+``mamba2``, ``mlstm`` and ``slstm`` parts of ``repro.models.blocks``).
 
-``init_mamba``/``init_mamba2`` make a block's parameters,
-``apply_mamba``/``apply_mamba2`` run it over a packed (B, L) buffer and
-``step_mamba``/``step_mamba2`` over one decode token. Parameter
-names and layouts are the JAX package's: dense weights are (din, dout) and
-applied as ``x @ W`` (the transpose of ``nn.Linear.weight``), and every
-weight is cast to the activation dtype at use.
+``init_<kind>`` makes a block's parameters, ``apply_<kind>`` runs it over
+a packed (B, L) buffer and ``step_<kind>`` over one decode token
+(``KINDS`` holds them by kind, ``layer_kinds`` gives each layer's).
+Parameter names and layouts are the JAX package's: dense weights are (din,
+dout) and applied as ``x @ W`` (the transpose of ``nn.Linear.weight``),
+and every weight is cast to the activation dtype at use.
 
 State handoff (serving), selected by ``collect`` and ``collect_ends``:
   * per ROW (``collect_ends=None``) — one right-padded sequence per row;
@@ -17,8 +17,8 @@ State handoff (serving), selected by ``collect`` and ``collect_ends``:
     token that segment's final state (``LM.prefill_packed``). State leaves
     gain a (B, S, …) leading pair.
 
-Chunked prefill (``chunk_mamba``/``chunk_mamba2``, ``CHUNK``) resumes a long
-prompt from its carried decode-layout state, one slab at a time
+Chunked prefill (``chunk_<kind>``, ``CHUNK``) resumes a long prompt from
+its carried decode-layout state, one slab at a time
 (``LM.prefill_chunk``); ``sample_from_logits`` is the serving engine's
 batched sampler, on counter-based noise (its section below).
 """
@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ssm as core_ssm
 from repro_torch.core.conv import conv1d_pack_update
+from repro_torch.core.recurrence import NEG, mlstm, mlstm_step, slstm
 from repro_torch.kernels import ops as kops
 
 
@@ -445,7 +446,289 @@ def chunk_mamba2(p, x, cache, ctx: Ctx, cfg: ArchConfig):
     return x + y @ p["out_proj"].to(x.dtype), state
 
 
-CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2}
+# ===========================================================================
+# xLSTM blocks
+# ===========================================================================
+# The mLSTM block's conv is ``conv1d_pack`` (kernel #1 on the card) in a
+# packed prefill and a chunk slab; its recurrence and the whole sLSTM block
+# are plain PyTorch (``core/recurrence.py``), as the JAX package runs them
+# in XLA with no Pallas kernel.
+
+def mlstm_param_shapes(cfg: ArchConfig):
+    d, H, W = cfg.d_model, cfg.n_heads, cfg.conv_width
+    pf = int(cfg.proj_factor * d)
+    return {"norm": (d,), "w_upx": (d, pf), "w_upz": (d, pf),
+            "conv_w": (W, pf), "conv_b": (pf,), "wq": (pf, pf),
+            "wk": (pf, pf), "wv": (pf, pf), "w_if": (pf, 2 * H),
+            "b_if": (2 * H,), "w_down": (pf, d)}
+
+
+def init_mlstm(cfg: ArchConfig, generator: torch.Generator,
+               device) -> Dict[str, torch.Tensor]:
+    """One block's f32 parameters, from the distributions of the JAX
+    package's ``init_mlstm`` (forget-gate bias 3, input-gate bias 0)."""
+    d, H, W = cfg.d_model, cfg.n_heads, cfg.conv_width
+    s = mlstm_param_shapes(cfg)
+    pf = s["w_upx"][1]
+
+    def dense(k, din):
+        return _randn(generator, s[k], device) * din ** -0.5
+
+    return {
+        "norm": torch.ones(s["norm"], device=device),
+        "w_upx": dense("w_upx", d), "w_upz": dense("w_upz", d),
+        "conv_w": _randn(generator, s["conv_w"], device) * W ** -0.5,
+        "conv_b": torch.zeros(s["conv_b"], device=device),
+        "wq": dense("wq", pf), "wk": dense("wk", pf), "wv": dense("wv", pf),
+        "w_if": dense("w_if", pf),
+        "b_if": torch.cat([torch.zeros(H, device=device),
+                           torch.full((H,), 3.0, device=device)]),
+        "w_down": dense("w_down", pf),
+    }
+
+
+def _mlstm_heads(p, x_in, x_c, cfg: ArchConfig):
+    """q, k from the conv's output, v from its input, and the log gates:
+    (…, pf) → q, k, v (…, H, dh), log f = log σ(f̃) and log i (…, H) f32."""
+    H = cfg.n_heads
+    lead, dt = x_in.shape[:-1], x_in.dtype
+    dh = x_in.shape[-1] // H
+    q = (x_c @ p["wq"].to(dt)).reshape(*lead, H, dh)
+    k = (x_c @ p["wk"].to(dt)).reshape(*lead, H, dh)
+    v = (x_in @ p["wv"].to(dt)).reshape(*lead, H, dh)
+    g = x_c @ p["w_if"].to(dt) + p["b_if"].to(dt)
+    logi, f_pre = g.chunk(2, dim=-1)
+    return q, k, v, F.logsigmoid(f_pre.float()), logi.float()
+
+
+def _mlstm_out(p, x, y, z):
+    y = y.reshape(z.shape) * F.silu(z)
+    return x + (y @ p["w_down"].to(x.dtype)).reshape(x.shape)
+
+
+def _fold_segments(t, S):
+    """(B, …) → (B·S, …): each row repeated once per segment, so one call
+    runs every segment's freeze run (the JAX package's vmap over segment
+    ids)."""
+    return t[:, None].expand(t.shape[0], S, *t.shape[1:]).reshape(
+        t.shape[0] * S, *t.shape[1:])
+
+
+def _segment_masks(ctx: Ctx, S: int):
+    """(B, S, L) bool: token t is in segment s + 1."""
+    sid = torch.arange(1, S + 1, device=ctx.segment_ids.device)
+    return ctx.segment_ids[:, None] == sid[None, :, None]
+
+
+def apply_mlstm(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
+                collect_ends=None):
+    """x (B, L, d) → x + block(x) [, state]. The conv is ``conv1d_pack``
+    (kernel #1 on the card), the recurrence ``core.recurrence.mlstm``."""
+    Bz, L, _ = x.shape
+    W = cfg.conv_width
+    hin = _norm(p["norm"], x, cfg.norm_eps)
+    x_in = hin @ p["w_upx"].to(hin.dtype)
+    z = hin @ p["w_upz"].to(hin.dtype)
+    x_c = F.silu(kops.conv1d_pack(x_in, p["conv_w"].to(hin.dtype),
+                                  p["conv_b"].to(hin.dtype), ctx.positions))
+    q, k, v, logf, logi = _mlstm_heads(p, x_in, x_c, cfg)
+    y = None
+    if collect and collect_ends is not None:
+        # per-SEGMENT handoff: the matrix-state trajectory is never
+        # materialised, so each segment's final state comes from a run with
+        # the gates outside it made identity (f' = 1, i' = 0), whose final
+        # state is the state at the segment's last token. The segments are
+        # folded into the batch axis: (B·S, L, …), one call.
+        y = mlstm(q, k, v, logf, logi, positions=ctx.positions,
+                  chunk=cfg.scan_chunk)
+        S = collect_ends.shape[1]
+        msk = _segment_masks(ctx, S)
+        mf = msk.reshape(Bz * S, L)[..., None]
+        _, (C, n, m) = mlstm(
+            *(_fold_segments(t, S) for t in (q, k, v)),
+            torch.where(mf, _fold_segments(logf, S), 0.0),
+            torch.where(mf, _fold_segments(logi, S), NEG),
+            positions=torch.where(msk, ctx.positions[:, None], 1).reshape(
+                Bz * S, L),
+            chunk=cfg.scan_chunk, return_state=True)
+        state = {"conv": _conv_tail_ends(x_in, collect_ends,
+                                         _ends_lens(ctx, collect_ends), W),
+                 "C": C.reshape(Bz, S, *C.shape[1:]),
+                 "n": n.reshape(Bz, S, *n.shape[1:]),
+                 "m": m.reshape(Bz, S, *m.shape[1:])}
+        return _mlstm_out(p, x, y, z), state
+    if collect:
+        # freeze across right-padding: f' = 1 (log f = 0), i' = 0 (log i =
+        # −1e30), and the padding's positions must not fire the reset
+        valid = _valid(ctx, x)
+        logf = torch.where(valid[..., None], logf, 0.0)
+        logi = torch.where(valid[..., None], logi, NEG)
+        y, (C, n, m) = mlstm(q, k, v, logf, logi,
+                             positions=torch.where(valid, ctx.positions, 1),
+                             chunk=cfg.scan_chunk, return_state=True)
+        state = {"conv": _conv_tail(x_in, valid.sum(-1), W),
+                 "C": C, "n": n, "m": m}
+        return _mlstm_out(p, x, y, z), state
+    y = mlstm(q, k, v, logf, logi, positions=ctx.positions,
+              chunk=cfg.scan_chunk)
+    return _mlstm_out(p, x, y, z)
+
+
+def init_mlstm_cache(cfg: ArchConfig, batch: int, dtype, device):
+    """conv (B, W-1, pf) in the activation dtype; C (B, H, dh, dh), n (B,
+    H, dh) and the stabiliser m (B, H) in f32, m empty at −1e30."""
+    H = cfg.n_heads
+    pf = int(cfg.proj_factor * cfg.d_model)
+    dh = pf // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, pf),
+                                dtype=dtype, device=device),
+            "C": torch.zeros((batch, H, dh, dh), **f32),
+            "n": torch.zeros((batch, H, dh), **f32),
+            "m": torch.full((batch, H), NEG, **f32)}
+
+
+def step_mlstm(p, x_t, cache, ctx: Ctx, cfg: ArchConfig):
+    """x_t (B, 1, d); the conv is ``conv1d_pack_update`` (plain, as in the
+    JAX package). Returns (x_t + block(x_t), new cache)."""
+    hin = _norm(p["norm"], x_t, cfg.norm_eps)
+    x_in = hin[:, 0] @ p["w_upx"].to(hin.dtype)
+    z = hin[:, 0] @ p["w_upz"].to(hin.dtype)
+    x_c, conv_state = conv1d_pack_update(
+        x_in, cache["conv"], p["conv_w"].to(hin.dtype),
+        p["conv_b"].to(hin.dtype), ctx.reset_t)
+    q, k, v, logf, logi = _mlstm_heads(p, x_in, F.silu(x_c), cfg)
+    y, (C, n, m) = mlstm_step((cache["C"], cache["n"], cache["m"]),
+                              q, k, v, logf, logi, ctx.reset_t)
+    return _mlstm_out(p, x_t, y, z), {"conv": conv_state, "C": C, "n": n,
+                                      "m": m}
+
+
+def chunk_mlstm(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One mLSTM block over a resumed slab: #1 through ``_conv_resume``,
+    the recurrence from the carried (C, n, m)."""
+    W = cfg.conv_width
+    hin = _norm(p["norm"], x, cfg.norm_eps)
+    x_in = hin @ p["w_upx"].to(hin.dtype)
+    z = hin @ p["w_upz"].to(hin.dtype)
+    x_c, ext = _conv_resume(x_in, cache["conv"], p["conv_w"].to(hin.dtype),
+                            p["conv_b"].to(hin.dtype), ctx.positions)
+    q, k, v, logf, logi = _mlstm_heads(p, x_in, F.silu(x_c), cfg)
+    valid = _valid(ctx, x)
+    logf = torch.where(valid[..., None], logf, 0.0)
+    logi = torch.where(valid[..., None], logi, NEG)
+    y, (C, n, m) = mlstm(q, k, v, logf, logi,
+                         positions=torch.where(valid, ctx.positions, 1),
+                         chunk=cfg.scan_chunk,
+                         state=(cache["C"], cache["n"], cache["m"]),
+                         return_state=True)
+    state = {"conv": _conv_tail(ext, (W - 1) + valid.sum(-1), W),
+             "C": C, "n": n, "m": m}
+    return _mlstm_out(p, x, y, z), state
+
+
+def slstm_param_shapes(cfg: ArchConfig):
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    return {"norm": (d,), "w_pre": (d, 4 * d), "R": (4, H, dh, dh),
+            "w_out": (d, d)}
+
+
+def init_slstm(cfg: ArchConfig, generator: torch.Generator,
+               device) -> Dict[str, torch.Tensor]:
+    """One block's f32 parameters, from the distributions of the JAX
+    package's ``init_slstm``."""
+    d = cfg.d_model
+    s = slstm_param_shapes(cfg)
+    dh = s["R"][2]
+    return {
+        "norm": torch.ones(s["norm"], device=device),
+        "w_pre": _randn(generator, s["w_pre"], device) * d ** -0.5,
+        "R": _randn(generator, s["R"], device) * dh ** -0.5 * 0.3,
+        "w_out": _randn(generator, s["w_out"], device) * d ** -0.5,
+    }
+
+
+def _slstm_pre(p, x, cfg: ArchConfig):
+    """The gates' input preactivations (B, T, 4, H, dh)."""
+    Bz, T, d = x.shape
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    return (h @ p["w_pre"].to(h.dtype)).reshape(
+        Bz, T, 4, cfg.n_heads, d // cfg.n_heads)
+
+
+def _slstm_out(p, x, y):
+    return x + y.reshape(x.shape) @ p["w_out"].to(x.dtype)
+
+
+def apply_slstm(p, x, ctx: Ctx, cfg: ArchConfig, collect: bool = False,
+                collect_ends=None):
+    """x (B, L, d) → x + block(x) [, state]: ``core.recurrence.slstm``, a
+    loop over time."""
+    Bz, L, _ = x.shape
+    pre = _slstm_pre(p, x, cfg)
+    if collect and collect_ends is not None:
+        # per-SEGMENT handoff: the valid-freeze run of every segment (state
+        # frozen outside it, so the row's final state is the one at its
+        # last token) and the plain run for the output, folded into one
+        # batch of B·(S+1) rows: one loop over time for all of them
+        S = collect_ends.shape[1]
+        msk = _segment_masks(ctx, S)
+        pos = torch.cat([ctx.positions[:, None],
+                         torch.where(msk, ctx.positions[:, None], 1)], dim=1)
+        valid = torch.cat([torch.ones_like(msk[:, :1]), msk], dim=1)
+        y, st = slstm(_fold_segments(pre, S + 1), p["R"],
+                      positions=pos.reshape(Bz * (S + 1), L),
+                      valid=valid.reshape(Bz * (S + 1), L),
+                      return_state=True)
+        y = y.reshape(Bz, S + 1, *y.shape[1:])[:, 0]
+        c, n, m, hh = (t.reshape(Bz, S + 1, *t.shape[1:])[:, 1:]
+                       for t in st)
+        return _slstm_out(p, x, y), {"c": c, "n": n, "m": m, "h": hh}
+    if collect:
+        y, (c, n, m, hh) = slstm(pre, p["R"], positions=ctx.positions,
+                                 valid=_valid(ctx, x), return_state=True)
+        return _slstm_out(p, x, y), {"c": c, "n": n, "m": m, "h": hh}
+    return _slstm_out(p, x, slstm(pre, p["R"], positions=ctx.positions))
+
+
+def init_slstm_cache(cfg: ArchConfig, batch: int, dtype, device):
+    """c, n, h zero and m empty at −1e30, each (B, H, dh) f32."""
+    H = cfg.n_heads
+    shape = (batch, H, cfg.d_model // H)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
+            "m": torch.full(shape, NEG, **f32),
+            "h": torch.zeros(shape, **f32)}
+
+
+def _slstm_state(cache):
+    return tuple(cache[k] for k in ("c", "n", "m", "h"))
+
+
+def step_slstm(p, x_t, cache, ctx: Ctx, cfg: ArchConfig):
+    """x_t (B, 1, d): one step of the sLSTM loop from the cached state; a
+    reset is position 0. Returns (x_t + block(x_t), new cache)."""
+    pos = None
+    if ctx.reset_t is not None:
+        pos = torch.where(ctx.reset_t, 0, 1)[:, None]
+    y, (c, n, m, hh) = slstm(_slstm_pre(p, x_t, cfg), p["R"], positions=pos,
+                             state=_slstm_state(cache), return_state=True)
+    return _slstm_out(p, x_t, y), {"c": c, "n": n, "m": m, "h": hh}
+
+
+def chunk_slstm(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One sLSTM block over a resumed slab, from the carried state; the
+    slab's padding freezes it."""
+    y, (c, n, m, hh) = slstm(_slstm_pre(p, x, cfg), p["R"],
+                             positions=ctx.positions,
+                             state=_slstm_state(cache), valid=_valid(ctx, x),
+                             return_state=True)
+    return _slstm_out(p, x, y), {"c": c, "n": n, "m": m, "h": hh}
+
+
+CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2, "mlstm": chunk_mlstm,
+         "slstm": chunk_slstm}
 
 
 # Per layer kind: (init, parameter shapes, apply, decode cache, decode step)
@@ -454,18 +737,30 @@ KINDS = {
               step_mamba),
     "mamba2": (init_mamba2, mamba2_param_shapes, apply_mamba2,
                init_mamba2_cache, step_mamba2),
+    "mlstm": (init_mlstm, mlstm_param_shapes, apply_mlstm, init_mlstm_cache,
+              step_mlstm),
+    "slstm": (init_slstm, slstm_param_shapes, apply_slstm, init_slstm_cache,
+              step_slstm),
 }
+# the layer kinds of each family the port has
+FAMILY_KINDS = {"mamba": {"mamba", "mamba2"}, "xlstm": {"mlstm", "slstm"}}
 
 
-def kind_of(cfg: ArchConfig):
-    """The block functions of ``cfg``'s layer kind; raises on a kind the
-    port does not have."""
-    kind = cfg.unit[0]
-    if cfg.family != "mamba" or len(cfg.unit) != 1 or kind not in KINDS:
+def layer_kinds(cfg: ArchConfig):
+    """Each layer's kind: layer ``i`` is ``cfg.unit[i % len(cfg.unit)]`` (the
+    JAX layout: whole units, then tail layers that reuse the unit's
+    prefix). Raises on a family or kind the port does not have."""
+    unit = cfg.unit
+    if not set(unit) <= FAMILY_KINDS.get(cfg.family, set()):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}, unit {cfg.unit}; the port "
-            f"has the Mamba-1 and Mamba-2 blocks only")
-    return KINDS[kind]
+            f"{cfg.name}: family {cfg.family!r}, unit {unit}; the port has "
+            f"the Mamba-1 and Mamba-2 blocks and the xLSTM (mLSTM, sLSTM) "
+            f"blocks only")
+    if cfg.family == "xlstm" and cfg.d_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: d_ff = {cfg.d_ff} on an xLSTM unit; the port has "
+            f"no MLP sub-block yet")
+    return tuple(unit[i % len(unit)] for i in range(cfg.n_layers))
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

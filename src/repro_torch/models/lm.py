@@ -1,6 +1,9 @@
-"""The Mamba language model (port of ``repro.models.lm`` for family
-``mamba``): embedding → ``n_layers`` Mamba-1 or Mamba-2 blocks (the
-config's ``unit``) → RMSNorm → head.
+"""The language model (port of ``repro.models.lm`` for the families
+``mamba`` and ``xlstm``): embedding → ``n_layers`` blocks → RMSNorm →
+head. Layer ``i`` is of kind ``cfg.unit[i % len(cfg.unit)]``
+(``blocks.layer_kinds``): every layer a Mamba-1 or a Mamba-2 block, or
+xLSTM's pattern unit of five mLSTM layers and one sLSTM, as in the JAX
+package (whole units, then tail layers that reuse the unit's prefix).
 
 ``LM`` is an ``nn.Module`` that holds its parameters under the JAX
 package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
@@ -19,14 +22,19 @@ slab by slab), ``decode_step``, ``decode_step_sample`` / ``sample_tokens``
 ``reset_cache_rows`` run under ``torch.no_grad()``, so they build no
 autograd graph.
 
-Caches and harvested states keep the JAX package's stacked layout with the
-layer axis first: a decode cache is ``{"conv": (n_layers, slots, W-1, di),
-"ssm": (n_layers, slots, di, N)}`` (Mamba-1) or ``"ssm": (n_layers, slots,
-H, P, N)`` (Mamba-2), and a packed prefill's states carry
-``(n_layers, B, S, …)``. ``decode_step``, ``prefill_chunk``,
-``reset_cache_rows``, ``scatter_into_cache`` and ``spec_rollback`` update
-the cache in place (JAX's versions return a new one), so the engine holds
-one cache's worth of device memory.
+Caches and harvested states are one flat dict whose every leaf has the
+layer axis first and the row axis second: a Mamba decode cache is
+``{"conv": (n_layers, slots, W-1, di), "ssm": (n_layers, slots, di, N)}``
+(Mamba-1) or ``"ssm": (n_layers, slots, H, P, N)`` (Mamba-2), and a packed
+prefill's states carry ``(n_layers, B, S, …)``. A pattern config keeps
+one group per unit position ``j``: ``"<j>_<kind>.<leaf>"`` holds layers
+j, j + len(unit), … (tail layers included), e.g. xlstm-125m's
+``"0_mlstm.C"`` (2, slots, H, dh, dh) and ``"5_slstm.h"`` (2, slots, H,
+dh). Leaves named ``m`` are log-domain stabilisers, empty at −1e30.
+``decode_step``, ``prefill_chunk``, ``reset_cache_rows``,
+``scatter_into_cache`` and ``spec_rollback`` update the cache in place
+(JAX's versions return a new one), so the engine holds one cache's worth
+of device memory.
 """
 from __future__ import annotations
 
@@ -46,13 +54,12 @@ from repro_torch.models.blocks import Ctx
 class LM(nn.Module):
     """Built on ``device`` (default ``cuda``; raises when there is no card).
     The parameters are allocated, not initialised: call ``init(generator)``
-    or ``load_state_dict(interop.params_from_jax(...))``. Every layer is of
-    ``cfg.unit``'s kind (``mamba`` or ``mamba2``); any other raises."""
+    or ``load_state_dict(interop.params_from_jax(...))``. Each layer is of
+    its ``blocks.layer_kinds`` kind; a family the port lacks raises."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        (self._init_block, shapes_of, self._apply_block, self._cache_block,
-         self._step_block) = B.kind_of(cfg)
+        self.kinds = B.layer_kinds(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         pdt = getattr(torch, cfg.param_dtype)
@@ -61,13 +68,45 @@ class LM(nn.Module):
             return nn.Parameter(torch.empty(shape, dtype=pdt,
                                             device=self.device))
 
-        shapes = shapes_of(cfg)
+        # the cache groups: one per unit position j, holding layers j,
+        # j + U, …; keys unprefixed for a homogeneous (Mamba) stack
+        U = len(cfg.unit)
+        self._groups = [(f"{j}_{kind}." if cfg.pattern else "", kind)
+                        for j, kind in enumerate(cfg.unit[:cfg.n_layers])]
+        self._where = [(self._groups[i % U][0], i // U)
+                       for i in range(cfg.n_layers)]
         self.embed = param((cfg.vocab, cfg.d_model))
         self.layers = nn.ModuleList(
-            nn.ParameterDict({k: param(s) for k, s in shapes.items()})
-            for _ in range(cfg.n_layers))
+            nn.ParameterDict({k: param(s) for k, s in
+                              B.KINDS[kind][1](cfg).items()})
+            for kind in self.kinds)
         self.final_norm = param((cfg.d_model,))
         self.head = param((cfg.d_model, cfg.vocab))
+
+    # ------------------------------------------------------- layer views
+    def _layer_state(self, tree, i):
+        """Layer ``i``'s leaves of a cache-layout dict, by leaf name: views
+        of entry ``r`` of its group's stacked leaves."""
+        prefix, r = self._where[i]
+        return {k[len(prefix):]: v[r] for k, v in tree.items()
+                if k.startswith(prefix)}
+
+    def _store(self, cache, i, state):
+        """Write layer ``i``'s new state into ``cache``, in place."""
+        prefix, r = self._where[i]
+        for k, v in state.items():
+            cache[prefix + k][r].copy_(v)
+
+    def _stack_states(self, per_layer):
+        """Per-layer state dicts → the flat dict, each group's leaves
+        stacked over its layers in depth order."""
+        out = {}
+        for prefix, _ in self._groups:
+            layers = [st for (pf, _), st in zip(self._where, per_layer)
+                      if pf == prefix]
+            for k in layers[0]:
+                out[prefix + k] = torch.stack([st[k] for st in layers])
+        return out
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -76,8 +115,8 @@ class LM(nn.Module):
         generator must live on the model's device."""
         cfg, dev = self.cfg, self.device
         self.embed.copy_(B._randn(generator, self.embed.shape, dev) * 0.02)
-        for layer in self.layers:
-            for k, v in self._init_block(cfg, generator, dev).items():
+        for kind, layer in zip(self.kinds, self.layers):
+            for k, v in B.KINDS[kind][0](cfg, generator, dev).items():
                 layer[k].copy_(v)
         self.final_norm.fill_(1.0)
         self.head.copy_(B._randn(generator, self.head.shape, dev)
@@ -103,12 +142,13 @@ class LM(nn.Module):
     # ----------------------------------------------------------- forward
     def _stack(self, x, ctx) -> torch.Tensor:
         remat = self.cfg.remat == "unit" and torch.is_grad_enabled()
-        for p in self.layers:
+        for kind, p in zip(self.kinds, self.layers):
+            apply = B.KINDS[kind][2]
             if remat:
-                x = checkpoint(self._apply_block, p, x, ctx, self.cfg,
+                x = checkpoint(apply, p, x, ctx, self.cfg,
                                use_reentrant=False)
             else:
-                x = self._apply_block(p, x, ctx, self.cfg)
+                x = apply(p, x, ctx, self.cfg)
         return B._norm(self.final_norm, x, self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -166,14 +206,13 @@ class LM(nn.Module):
         return loss, {"ce": loss.detach(), "tokens": cnt}
 
     def _collect(self, x, ctx, ends=None):
-        convs, ssms = [], []
-        for p in self.layers:
-            x, st = self._apply_block(p, x, ctx, self.cfg, collect=True,
-                                      collect_ends=ends)
-            convs.append(st["conv"])
-            ssms.append(st["ssm"])
+        states = []
+        for kind, p in zip(self.kinds, self.layers):
+            x, st = B.KINDS[kind][2](p, x, ctx, self.cfg, collect=True,
+                                     collect_ends=ends)
+            states.append(st)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
-        return x, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+        return x, self._stack_states(states)
 
     @torch.no_grad()
     def prefill(self, batch):
@@ -196,9 +235,9 @@ class LM(nn.Module):
         segment's last-token index in its row (−1 = absent).
 
         Returns (logits (B, S, V) at segment ends, zeros where absent;
-        states {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
-        di, N) or (n_layers, B, S, H, P, N)}; seg_lens (B, S) int32, 0 where
-        absent)."""
+        states in the cache layout with (B, S) in place of the slot axis,
+        e.g. {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
+        di, N)} for Mamba-1; seg_lens (B, S) int32, 0 where absent)."""
         batch = self._batch(batch)
         ends = torch.as_tensor(ends, device=self.device)
         ctx = self._ctx(batch)
@@ -219,7 +258,7 @@ class LM(nn.Module):
         Returns the cache."""
         src = torch.as_tensor(src, device=self.device).long()
         dst = torch.as_tensor(dst, device=self.device).long()
-        n_slots = cache["ssm"].shape[1]
+        n_slots = next(iter(cache.values())).shape[1]
         keep = (dst >= 0) & (dst < n_slots)
         src, dst = src[keep], dst[keep]
         for k, c in cache.items():
@@ -230,10 +269,15 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------- decode
     def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        one = self._cache_block(self.cfg, batch_size,
-                                getattr(torch, self.cfg.dtype), self.device)
-        return {k: v[None].repeat((self.cfg.n_layers,) + (1,) * v.dim())
-                for k, v in one.items()}
+        out = {}
+        for j, (prefix, kind) in enumerate(self._groups):
+            n = len(range(j, self.cfg.n_layers, len(self.cfg.unit)))
+            one = B.KINDS[kind][3](self.cfg, batch_size,
+                                   getattr(torch, self.cfg.dtype),
+                                   self.device)
+            out.update({prefix + k: v[None].repeat((n,) + (1,) * v.dim())
+                        for k, v in one.items()})
+        return out
 
     @torch.no_grad()
     def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None):
@@ -242,12 +286,10 @@ class LM(nn.Module):
         tokens_t = torch.as_tensor(tokens_t, device=self.device)
         x = self._embed(tokens_t)
         ctx = Ctx(reset_t=reset)
-        for i, p in enumerate(self.layers):
-            x, st = self._step_block(
-                p, x, {"conv": cache["conv"][i], "ssm": cache["ssm"][i]},
-                ctx, self.cfg)
-            cache["conv"][i].copy_(st["conv"])
-            cache["ssm"][i].copy_(st["ssm"])
+        for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
+            x, st = B.KINDS[kind][4](p, x, self._layer_state(cache, i), ctx,
+                                     self.cfg)
+            self._store(cache, i, st)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         return self._logits(x[:, 0]), cache
 
@@ -376,7 +418,7 @@ class LM(nn.Module):
         """True when every layer kind has a chunk-resume step
         (``blocks.CHUNK``): the serve engine's gate for prompts longer
         than its largest prefill bucket."""
-        return all(kind in B.CHUNK for kind in self.cfg.unit)
+        return all(kind in B.CHUNK for kind in self.kinds)
 
     @torch.no_grad()
     def prefill_chunk(self, cache, batch, cache_len):
@@ -390,12 +432,10 @@ class LM(nn.Module):
         batch = self._batch(batch)
         x = self._embed(batch["tokens"])
         ctx = self._ctx(batch)
-        chunk = B.CHUNK[self.cfg.unit[0]]
-        for i, p in enumerate(self.layers):
-            x, st = chunk(p, x, {"conv": cache["conv"][i],
-                                 "ssm": cache["ssm"][i]}, ctx, self.cfg)
-            cache["conv"][i].copy_(st["conv"])
-            cache["ssm"][i].copy_(st["ssm"])
+        for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
+            x, st = B.CHUNK[kind](p, x, self._layer_state(cache, i), ctx,
+                                  self.cfg)
+            self._store(cache, i, st)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         nvalid = (batch["segment_ids"] > 0).sum(-1)
         xlast = x[torch.arange(x.shape[0], device=x.device),
@@ -406,14 +446,15 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def reset_cache_rows(self, cache, fresh):
-        """Zero the rows ``fresh`` (B,) bool of a decode-layout cache back
+        """Set the rows ``fresh`` (B,) bool of a decode-layout cache back
         to their ``init_cache`` values, in place (the engine claims a chunk
         row for a new request: no stale conv tail or state leaks across
-        tenants). Returns the cache."""
+        tenants): 0, and −1e30 on the stabilisers (leaves named ``m``).
+        Returns the cache."""
         fresh = torch.as_tensor(fresh, device=self.device)
-        for c in cache.values():
+        for k, c in cache.items():
             m = fresh.reshape((1, -1) + (1,) * (c.dim() - 2))
-            c.masked_fill_(m, 0)
+            c.masked_fill_(m, B.NEG if k.rsplit(".", 1)[-1] == "m" else 0)
         return cache
 
     @staticmethod

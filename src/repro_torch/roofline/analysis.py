@@ -125,13 +125,13 @@ def model_flops_per_step(cfg, kind: str, batch: int, seq: int) -> float:
 
 
 def active_params(cfg) -> float:
-    """Parameter count from the block shapes (``models/blocks.py``
-    ``kind_of``) plus the embedding, the final norm and the head: no device,
-    no allocation. The JAX version scales expert weights to the top-k
-    active set; the port has no experts until slice 7 (ROADMAP queue 1),
-    and that scaling belongs here when they come."""
+    """Parameter count from each layer's block shapes (``models/blocks.py``
+    ``layer_kinds``, ``KINDS``) plus the embedding, the final norm and the
+    head: no device, no allocation. The JAX version scales expert weights
+    to the top-k active set; the port has no experts until slice 7
+    (ROADMAP queue 1), and that scaling belongs here when they come."""
     from repro_torch.models import blocks
-    shapes = blocks.kind_of(cfg)[1](cfg)
-    per_layer = sum(math.prod(s) for s in shapes.values())
-    return float(cfg.n_layers * per_layer + 2 * cfg.vocab * cfg.d_model
-                 + cfg.d_model)
+    per_kind = {k: sum(math.prod(s) for s in blocks.KINDS[k][1](cfg).values())
+                for k in set(cfg.unit)}
+    return float(sum(per_kind[k] for k in blocks.layer_kinds(cfg))
+                 + 2 * cfg.vocab * cfg.d_model + cfg.d_model)

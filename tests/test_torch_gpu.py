@@ -1459,3 +1459,74 @@ def test_counted_card_step_with_a_tuning_winner(cuda):
     assert tally == {"conv1d_pack_fwd": 2 * n, "conv1d_pack_bwd_dx": n,
                      "selective_scan_fwd_step": 2 * n,
                      "selective_scan_bwd_step": n}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM (xlstm-125m's mLSTM layers run #1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 1536), (1, 259, 1536)])
+def test_conv_fwd_kernel_at_the_xlstm_shapes(cuda, shape, dtype):
+    """#1 at xlstm-125m's packed prefill (2, 256, 1536: packed rows, one
+    carried) and chunk slab (1, 259, 1536: the carried tail at three
+    leading zero positions, then global positions 512..), on the mLSTM's
+    contiguous up-projection: the plain version's output within one
+    rounding of the dtype, and twice bitwise equal."""
+    tdt = getattr(torch, dtype)
+    Bz, L, D = shape
+    rng = np.random.default_rng(L)
+    f = dict(device=cuda, dtype=tdt)
+    x = torch.as_tensor(rng.normal(size=shape)).to(**f)
+    w = torch.as_tensor(rng.normal(size=(4, D)) * 0.5).to(**f)
+    b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    if Bz == 2:
+        pos = _positions(Bz, L, L)
+    else:
+        pos = np.zeros((Bz, L), np.int32)
+        pos[:, 3:] = np.arange(512, 512 + L - 3)
+    pos = torch.as_tensor(pos, device=cuda)
+    assert kconv.vector_path(x, w, b, strides=x.stride()[:2], D=D)
+    y, again = (kconv.conv1d_pack(x, w, b, pos) for _ in range(2))
+    want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    torch.testing.assert_close(
+        y.float(), want, atol=1e-5,
+        rtol=1e-5 if dtype == "float32" else 2.0 ** -8)
+
+
+def test_xlstm_engine_streams_cold_equal_warm(cuda):
+    """xlstm-125m.reduced() in bf16 on the card behind a 64-token shared
+    prompt: a warm run (the prefix stored by the first request, restored
+    by the others) and a rerun (whole-prompt hits, no forward) give the
+    cold run's streams bit for bit; #1 runs once per mLSTM layer (10 of
+    the 12) and forward."""
+    from repro_torch.launch.state_cache import StateCache
+    cfg = dataclasses.replace(get_config("xlstm-125m").reduced(),
+                              dtype="bfloat16")
+    model = LM(cfg, cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    mlstm_layers = sum(k == "mlstm" for k in model.kinds)
+    assert mlstm_layers == 10
+    prompts = _prefix_prompts(cfg.vocab)
+
+    def run(sc):
+        eng = ServeEngine(model, state_cache=sc, **PREFIX_KW)
+        for p in prompts:
+            eng.submit(p, 8, prefix_len=64)
+        n0 = kconv.LAUNCHES
+        outs = eng.run()
+        torch.cuda.synchronize()
+        assert kconv.LAUNCHES - n0 == mlstm_layers * (
+            eng.stats.prefills + eng.stats.chunk_rounds)
+        return outs, eng
+
+    cold, _ = run(None)
+    sc = StateCache(1 << 26)
+    warm, weng = run(sc)
+    assert warm == cold and weng.stats.prefills == 0
+    assert sc.hits == len(prompts) - 1
+    rerun, reng = run(sc)
+    assert rerun == cold
+    assert reng.stats.prefills == reng.stats.chunk_rounds == 0
