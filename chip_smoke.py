@@ -102,9 +102,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``t_compute``, ``t_memory``, the bound, ms/step over it, and
               the dry run's temp + argument bytes beside
               ``max_memory_allocated``. Meanwhile ``python -m
-              repro_torch.launch.dryrun --paper`` over the four shapes
-              into a temporary directory (a subprocess that sees no card)
-              and ``report.baseline`` / ``report.kernel`` of its records.
+              repro_torch.launch.dryrun --arch <the paper's four
+              configs>`` over the four shapes into a temporary directory
+              (a subprocess that sees no card) and ``report.baseline`` /
+              ``report.kernel`` of its records.
 11. checkpoint — kill and resume on the card: mamba-1.4b at full width
               (d_model 2048, d_inner 4096, N 16, vocab 50280) with 4 layers,
               bf16 compute, f32 params, random weights from seed 0,
@@ -212,6 +213,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               behind phase 14's 1024-token prompt, cold, warm and rerun,
               streams bitwise equal. All beside the card's name and power
               limit (``xlstm`` line).
+16. xlstm_train — xlstm-125m trained (``phase_xlstm_train``): #1 and #2 at
+              its training shape (2, 4096, 1536) bf16 against their plain
+              versions, twice bitwise, timed (``kernels`` lines); the
+              training parity of one whole unit (6 layers: 5 mLSTM + 1
+              sLSTM) at full width, f32, 2 × 2048 (#1 exactly 10: forward
+              and ``remat`` recompute; #2 5; nothing else); the training
+              main path at full width and depth, bf16 compute, f32 params,
+              pack 2 × 4096, through the training launcher
+              (``repro_torch.launch.train.main --arch xlstm-125m``, in this
+              process: ``Trainer``, AdamW): a warm-up run of one step at
+              2 × 64, then a run of 2 timed steps (#1 20 and #2 10 a step,
+              nothing else; ms/step, real tok/s, MFU, peak memory); one
+              step at 2 × 64 profiled with each layer's forward, recompute
+              and backward marked (``layer_ranges``): the sLSTM and mLSTM
+              layers' host and device ms, their shares of the step and
+              their device events; one card step at 2 × 128 counted and
+              held to the meta dry run of the same cell. All beside the
+              card's name and power limit (``xlstm_train`` line).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -307,6 +326,15 @@ XLSTM_CONV_SHAPES = ((2, 256, 1536), (1, 3 + SERVE_CHUNK, 1536))  # #1 in
 XLSTM_PARITY_TOL = 5e-4          # max |Δ| / max(1, max |ref|), 12 f32 layers
 XLSTM_PREFIX_REQUESTS = 4  # #1 at the suffix
 #                                  rounds' narrower slab widths
+# phase 16 (xlstm_train): xlstm-125m's training step; a 2 × 4096 step
+# takes 34–46 s of host time (the sLSTM's loop over time), so the
+# warm-up, the profile and the count run shorter rows of the same model
+XLSTM_TRAIN_SHAPE = (2, 4096, 1536)  # (rows, L, up-projection): #1 and #2
+XLSTM_TRAIN_STEPS = 2
+XLSTM_SHORT_SEQ = 64     # the warm-up's and the profile's rows (a trace's
+#                          post-processing grows with its ≈ 360 events a
+#                          time step)
+XLSTM_COUNT_SEQ = 128
 
 
 def emit(phase, **kw):
@@ -453,61 +481,66 @@ def phase_conv_fwd(peaks):
     return rows, worst
 
 
-def phase_conv_dx(peaks):
-    """Kernel #2 at the three models' training shapes, a ragged L and a
-    one-element-wide shape, against ``conv1d_pack_bwd_dx_plain``; twice,
-    bitwise equal."""
+def conv_dx_row(shape, dtype, peaks):
+    """Kernel #2 at ``shape`` in ``dtype`` (packed positions), against
+    ``conv1d_pack_bwd_dx_plain``; twice, bitwise equal; timed beside the
+    plain version, cuDNN and its bound. Returns its ``kernels`` row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
-    rows, worst = [], 0.0
+    B, L, D = shape
+    pos = torch.as_tensor(packed_positions(B, L, L), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(L + 1)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    w = torch.randn((4, D), generator=g, device="cuda").mul(0.5).to(dtype)
+    dx = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+    launch = kconv.LAST_LAUNCH
+    again = kconv.conv1d_pack_bwd_dx(dy, w, pos)
+    torch.cuda.synchronize()
+    want = kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
+    err = (dx - want).abs()
+    tol = "1e-5 · (1 + |ref|) (f32 on both sides, taps reordered)"
+    if not bool((err <= 1e-5 * (1 + want.abs())).all()):
+        raise AssertionError(f"conv1d_pack dx kernel disagrees with "
+                             f"its plain version at {shape} {dtype}: "
+                             f"max err {err.max().item()}")
+    if not torch.equal(dx, again):
+        raise AssertionError("conv1d_pack dx kernel is not bitwise "
+                             "repeatable")
+    # library yardstick: cuDNN depthwise correlation with the flipped
+    # weights, right-padded, on a reset-free input
+    dyc = dy.transpose(1, 2).contiguous()
+    wf = w.flip(0).t().contiguous()[:, None, :]
+    lib = lambda: F.conv1d(dyc, wf, padding=3, groups=D)
+    bound, by = conv_dx_bound_ms(dy, w, peaks)
+    kern = lambda: kconv.conv1d_pack_bwd_dx(dy, w, pos)
+    plain = lambda: kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
+    return {
+        "kernel": "conv1d_pack_bwd_dx", "shape": list(shape),
+        "dtype": str(dtype).split(".")[-1],
+        "max_abs_err": err.max().item(), "tolerance": tol,
+        "bitwise_repeat": True,
+        "launch": launch,
+        "kernel_ms": graph_ms(kern, 10, 3),
+        "plain_ms": graph_ms(plain, 10, 3),
+        "library_ms": graph_ms(lib, 10, 3), "bound_ms": bound,
+        "bound_by": by, "kernel_eager_ms": eager_ms(kern, 20, 3),
+        "plain_eager_ms": eager_ms(plain, 5, 1),
+        "library_eager_ms": eager_ms(lib, 20, 3)}
+
+
+def phase_conv_dx(peaks):
+    """Kernel #2 at the three models' training shapes, a ragged L and a
+    one-element-wide shape (``conv_dx_row``)."""
+    import torch
+    rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (TRAIN_SHAPE, RAGGED_SHAPE, TRAIN_SHAPE_28,
                       MAMBA2_CONV_SHAPE, ONE_WIDE_SHAPE):
-            B, L, D = shape
-            pos = torch.as_tensor(packed_positions(B, L, L), device="cuda")
-            g = torch.Generator(device="cuda").manual_seed(L + 1)
-            dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
-            w = torch.randn((4, D), generator=g, device="cuda").mul(
-                0.5).to(dtype)
-            dx = kconv.conv1d_pack_bwd_dx(dy, w, pos)
-            launch = kconv.LAST_LAUNCH
-            again = kconv.conv1d_pack_bwd_dx(dy, w, pos)
-            torch.cuda.synchronize()
-            want = kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
-            err = (dx - want).abs()
-            tol = "1e-5 · (1 + |ref|) (f32 on both sides, taps reordered)"
-            if not bool((err <= 1e-5 * (1 + want.abs())).all()):
-                raise AssertionError(f"conv1d_pack dx kernel disagrees with "
-                                     f"its plain version at {shape} {dtype}: "
-                                     f"max err {err.max().item()}")
-            if not torch.equal(dx, again):
-                raise AssertionError("conv1d_pack dx kernel is not bitwise "
-                                     "repeatable")
-            worst = max(worst, err.max().item())
-            # library yardstick: cuDNN depthwise correlation with the flipped
-            # weights, right-padded, on a reset-free input
-            dyc = dy.transpose(1, 2).contiguous()
-            wf = w.flip(0).t().contiguous()[:, None, :]
-            lib = lambda: F.conv1d(dyc, wf, padding=3, groups=D)
-            bound, by = conv_dx_bound_ms(dy, w, peaks)
-            kern = lambda: kconv.conv1d_pack_bwd_dx(dy, w, pos)
-            plain = lambda: kconv.conv1d_pack_bwd_dx_plain(dy, w, pos)
-            rows.append({
-                "kernel": "conv1d_pack_bwd_dx", "shape": list(shape),
-                "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err.max().item(), "tolerance": tol,
-                "bitwise_repeat": True,
-                "launch": launch,
-                "kernel_ms": graph_ms(kern, 10, 3),
-                "plain_ms": graph_ms(plain, 10, 3),
-                "library_ms": graph_ms(lib, 10, 3), "bound_ms": bound,
-                "bound_by": by, "kernel_eager_ms": eager_ms(kern, 20, 3),
-                "plain_eager_ms": eager_ms(plain, 5, 1),
-                "library_eager_ms": eager_ms(lib, 20, 3)})
+            rows.append(conv_dx_row(shape, dtype, peaks))
             emit("kernels", **rows[-1])
-            del dy, dx, again, want, err, dyc
-    return rows, worst
+            gc.collect()
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 def scan_inputs(shape, dtype, seed):
@@ -928,7 +961,11 @@ def path_kernels(cfg, schedule=None, rows=2):
     scan forward, scan backward; the Mamba-1 scan's by
     ``cfg.pallas_schedule``, the Mamba-2 scan's by ``schedule``; with
     ``cfg.scan_tune`` on, by the cached winner at (``rows``, 4096): a
-    plain winner runs no scan kernel (None in their places)."""
+    plain winner runs no scan kernel (None in their places). xLSTM has no
+    scan kernel: its mLSTM layers run the conv's two, its recurrences are
+    plain."""
+    if cfg.family == "xlstm":
+        return [*CONV_KERNELS, None, None]
     if cfg.scan_tune != "off":
         from repro_torch.tune import config_shape_args, tuned
         args = config_shape_args(cfg, rows, 4096)
@@ -1030,11 +1067,15 @@ def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
         k_loss, k_grads = loss_and_grads()
     torch.cuda.synchronize()
     ran = read_launches()
-    expected = path_kernels(cfg, schedule)
+    expected = [k for k in path_kernels(cfg, schedule) if k]
     if any(ran[k] == 0 for k in expected) or \
             any(v for k, v in ran.items() if k not in expected):
         raise AssertionError(f"the kernel path ran {ran}, expected exactly "
                              f"{expected}")
+    if cfg.family == "xlstm" and \
+            {k: v for k, v in ran.items() if v} != conv_launches(cfg):
+        raise AssertionError(f"the kernel path ran {ran}, expected "
+                             f"{conv_launches(cfg)}")
     zero_launches()
     with plain_path():
         p_loss, p_grads = loss_and_grads()
@@ -1100,6 +1141,7 @@ RECORDS_PER_LAUNCH = {"conv1d_pack_fwd": ("conv fwd #1", 1),
                           ("heads scan fwd dual #8", 1),
                       "selective_scan_heads_bwd": ("heads scan bwd #9", 1)}
 PROFILE_TRACES = 3   # traces taken at most until one holds every launch
+LAYER_MARK = "layer:"  # the record_function ranges of ``layer_ranges``
 
 
 def merge_spans(spans):
@@ -1130,8 +1172,16 @@ def overlap_us(x, y):
 
 def trace_call(fn):
     """``fn()`` under ``torch.profiler``: its result, its wall time on the
-    host's clock (ending in a device sync) and its device events (kernels,
-    copies, sets)."""
+    host's clock (ending in a device sync), its device events (kernels,
+    copies, sets), and ``marks``: for each kind that ``layer_ranges``
+    marked in the call, the host ms its ranges cover (their union) and
+    the device ms and count of the events launched inside them, each
+    placed by the start of the op the trace links it to (an event linked
+    to no op is placed nowhere), and under ``None`` the count of device
+    events linked to an op. The marks' own device-side records are not
+    device events."""
+    import bisect
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1142,8 +1192,32 @@ def trace_call(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return out, wall_ms, kernels
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(LAYER_MARK)]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    spans = {}
+    for e in ops:
+        if e.name.startswith(LAYER_MARK):
+            spans.setdefault(e.name[len(LAYER_MARK):], []).append(
+                (e.time_range.start, e.time_range.end))
+    marks = {}
+    if spans:
+        spans = {k: merge_spans(v) for k, v in spans.items()}
+        marks = {k: {"host_ms": sum(b - a for a, b in m) / 1e3,
+                     "device_ms": 0.0, "events": 0} for k, m in spans.items()}
+        linked = 0
+        for e in ops:
+            ks = [x for x in e.kernels if not x.name.startswith(LAYER_MARK)]
+            linked += len(ks)
+            t = e.time_range.start
+            for k, m in spans.items():
+                i = bisect.bisect_right(m, [t, float("inf")]) - 1
+                if ks and i >= 0 and t <= m[i][1]:
+                    marks[k]["device_ms"] += sum(x.duration for x in ks) / 1e3
+                    marks[k]["events"] += len(ks)
+        marks[None] = linked
+    return out, wall_ms, kernels, marks
 
 
 def profile_call(fn, launches_per_call, setup=None):
@@ -1163,14 +1237,17 @@ def profile_call(fn, launches_per_call, setup=None):
     between runs of the same program, and once one #7 launch too few), so
     a trace that lacks a launch the counters saw is set aside, with what
     it lacked, and the call traced again, up to ``PROFILE_TRACES`` times;
-    the caller then holds the trace that is reported to its exact counts.
+    ``records_complete`` says whether the trace reported names every
+    launch. Where ``fn`` runs in ``layer_ranges``, ``by_layer_kind``
+    gives each kind's host and device ms (``trace_call``'s marks) and
+    their shares of the call's wall and of its device events' ms.
     Returns (``fn``'s last result, the profile)."""
     set_aside = []
     for _ in range(PROFILE_TRACES):
         if setup is not None:
             setup()
         zero_launches()
-        out, wall_ms, kernels = trace_call(fn)
+        out, wall_ms, kernels, marks = trace_call(fn)
         launches = read_launches()
         want = launches_per_call(out) if callable(launches_per_call) \
             else launches_per_call
@@ -1211,10 +1288,17 @@ def profile_call(fn, launches_per_call, setup=None):
         "busy_ms": busy / 1e3, "busy_share_of_wall": busy / 1e3 / wall_ms,
         "busy_share_of_kernel_window": busy / max(window, 1e-9),
         "kernels": len(kernels), "launches": launches,
-        "traces_set_aside": set_aside,
+        "traces_set_aside": set_aside, "records_complete": not lacks,
         "by_group_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
         "by_group_calls": calls,
         "top_kernels": [[name[:90], us / 1e3, n] for name, (us, n) in top]}
+    if marks:
+        device_ms = prof["kernel_ms_sum"]
+        prof["events_linked_to_an_op"] = marks.pop(None)
+        prof["by_layer_kind"] = {k: dict(
+            m, host_share_of_wall=m["host_ms"] / wall_ms,
+            device_share=m["device_ms"] / max(device_ms, 1e-9))
+            for k, m in marks.items()}
     if len(by_stream) > 1:
         streams = sorted(((sid, len(sp), merge_spans(sp))
                           for sid, sp in by_stream.items()),
@@ -1434,6 +1518,15 @@ def conv_layers(cfg):
     conv)."""
     from repro_torch.models.blocks import layer_kinds
     return sum(k != "slstm" for k in layer_kinds(cfg))
+
+
+def conv_launches(cfg, steps=1):
+    """#1's and #2's launches in ``steps`` training steps of ``cfg``: #1
+    once per conv layer, twice under ``remat="unit"`` (the forward and its
+    recompute in the backward), #2 once."""
+    n = conv_layers(cfg) * steps
+    return dict(zip(CONV_KERNELS, ((2 if cfg.remat == "unit" else 1) * n,
+                                   n)))
 
 
 def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0, long=0):
@@ -1677,11 +1770,14 @@ def phase_roofline(smi, peaks, paths):
     """The roofline of each training path this run measured (``paths``:
     {name: (phase_train's result, tuning winner knobs or None)}), from the
     port's ``roofline`` package, against this card's ``peaks``;
-    meanwhile ``python -m repro_torch.launch.dryrun --paper`` over all four
-    shapes into a temporary directory in a subprocess (no card visible to
-    it: the dry run is meta only), and ``report.baseline`` and
-    ``report.kernel`` of its records."""
+    meanwhile ``python -m repro_torch.launch.dryrun --arch`` over the
+    paper's four configs (``dryrun.PAPER``; ``--paper`` would add the
+    assigned configs, whose xlstm-125m cells take minutes on the meta
+    device) and all four shapes into a temporary directory in a subprocess
+    (no card visible to it: the dry run is meta only), and
+    ``report.baseline`` and ``report.kernel`` of its records."""
     import torch
+    from repro_torch.launch.dryrun import PAPER
     from repro_torch.roofline import report
     t0 = time.perf_counter()
     name = torch.cuda.get_device_name(0)
@@ -1691,8 +1787,8 @@ def phase_roofline(smi, peaks, paths):
         env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                    CUDA_VISIBLE_DEVICES="")
         paper = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--paper",
-             "--out", tmp, "--card", name], cwd=ROOT, env=env,
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             *PAPER, "--out", tmp, "--card", name], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
             for path, (tr, knobs) in paths.items():
@@ -1704,7 +1800,7 @@ def phase_roofline(smi, peaks, paths):
                 paper.kill()
                 paper.communicate()
         if paper.returncode != 0:
-            raise AssertionError(f"the --paper dry run exited "
+            raise AssertionError(f"the paper configs' dry run exited "
                                  f"{paper.returncode}: {err[-2000:]}")
         recs = []
         for fn in sorted(os.listdir(tmp)):
@@ -1713,7 +1809,7 @@ def phase_roofline(smi, peaks, paths):
         status = {s: sum(r["status"] == s for r in recs)
                   for s in ("ok", "skip", "error")}
         if status["error"] or status["ok"] != 16:
-            raise AssertionError(f"the --paper dry run's records: "
+            raise AssertionError(f"the paper configs' dry run records: "
                                  f"{status}; {out[-2000:]}")
         baseline, kernel = report.baseline(tmp), report.kernel(tmp)
     print(baseline, flush=True)
@@ -2921,7 +3017,7 @@ def xlstm_prefill_round(model, cfg):
 
     round_ms = med(lambda: model.prefill_packed(batch, ends))
     slstm_ms = med(slstm_layers)
-    _, _, events = trace_call(lambda: blocks.apply_slstm(
+    _, _, events, _ = trace_call(lambda: blocks.apply_slstm(
         sl[0], x, ctx, cfg, collect=True, collect_ends=ends))
     kernels = [e for e in events if not e.name.startswith("Memcpy")
                and not e.name.startswith("Memset")]
@@ -2968,6 +3064,217 @@ def phase_xlstm(smi, peaks):
            "engine": eng, "prefill_round": pre, "prefix_cache": pc,
            "phase_wall_s": time.perf_counter() - t_phase}
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+@contextlib.contextmanager
+def layer_ranges():
+    """While on, a training step marks its layers for ``torch.profiler``
+    by kind (``trace_call`` reads the marks): each block's forward, its
+    ``remat`` recompute included, in a ``record_function`` range
+    ``LAYER_MARK`` + kind, and each layer's backward, from the gradient
+    reaching its output to its input's, in another of the same name,
+    opened and closed by tensor hooks (a layer's input is the layer
+    below's output, whose hook closes the range and opens the next; the
+    bottom layer's input closes the last). A layer's recompute runs inside
+    its own backward range. No device sync: the marks cost a
+    ``record_function`` call each, 36 a step of 12 layers."""
+    import torch
+    from torch.autograd.profiler import record_function
+    from repro_torch.models import blocks
+    saved = dict(blocks.KINDS)
+    bwd = [None]                 # the backward range now open
+    outs = []                    # this step's block outputs, hooked
+
+    def edge(kind):
+        def hook(grad):
+            if bwd[0] is not None:
+                bwd[0].__exit__(None, None, None)
+            bwd[0] = None if kind is None else \
+                record_function(LAYER_MARK + kind)
+            if bwd[0] is not None:
+                bwd[0].__enter__()
+            if kind is None:
+                outs.clear()
+            return grad
+        return hook
+
+    def wrap(kind, apply):
+        def marked(p, x, ctx, cfg, *a, **k):
+            with record_function(LAYER_MARK + kind):
+                out = apply(p, x, ctx, cfg, *a, **k)
+            if bwd[0] is None and out.requires_grad:   # not a recompute
+                if x.requires_grad and not any(x is o for o in outs):
+                    x.register_hook(edge(None))        # the bottom input
+                out.register_hook(edge(kind))
+                outs.append(out)
+            return out
+        return marked
+
+    for kind, entry in saved.items():
+        blocks.KINDS[kind] = (*entry[:2], wrap(kind, entry[2]), *entry[3:])
+    try:
+        yield
+    finally:
+        blocks.KINDS.update(saved)
+
+
+def launch_train(*argv):
+    """``python -m repro_torch.launch.train`` in this process, on the card:
+    its history, and its last printed line (a dict), which must name the
+    card, every step and finite losses. What it prints is kept off this
+    script's output."""
+    import io
+    from repro_torch.launch import train as launcher
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        hist = launcher.main(list(argv))
+    last = json.loads(printed.getvalue().strip().splitlines()[-1])
+    steps = int(argv[list(argv).index("--steps") + 1])
+    if last.get("device") != "cuda" or last.get("steps") != steps or \
+            not all(v == v and abs(v) < float("inf")
+                    for v in last["losses"]):
+        raise AssertionError(f"the launcher ({' '.join(argv)}) gave {last}")
+    return hist, last
+
+
+def phase_xlstm_train(smi, peaks):
+    """Phase 16: xLSTM training on the card. (a) #1 and #2 at xlstm-125m's
+    training shape ``XLSTM_TRAIN_SHAPE`` (bf16, packed rows) against their
+    plain versions, twice bitwise, timed. (b) Training parity: one whole
+    unit (5 mLSTM + 1 sLSTM) at full width, f32, 2 × 2048: the kernel
+    path against the plain path, #1 10 (``remat="unit"``: forward and
+    recompute) and #2 5. (c) The training main path, xlstm-125m at full
+    width and depth, bf16 compute, f32 params, through the training
+    launcher (``launch_train``: ``Trainer`` + AdamW over the packing
+    loader): a warm-up run of one step at 2 × ``XLSTM_SHORT_SEQ`` (the
+    same code and kernels: a 2 × 4096 step takes 34–46 s on an H100),
+    then a run of ``XLSTM_TRAIN_STEPS`` timed steps at 2 × 4096 with the
+    launch counters (exactly ``conv_launches``) and nothing else in them;
+    then a model of its own in this process takes one step at 2 ×
+    ``XLSTM_SHORT_SEQ`` and profiles the next in ``layer_ranges``: the
+    sLSTM and mLSTM layers' host and device ms and shares, from that one
+    trace. The launch counters over the traced step must equal
+    ``conv_launches``; the trace's own records of #1 and #2 are not held
+    to them (``records_complete`` says whether it names every launch; a
+    lost record of a 2 µs kernel does not move a share). (d) One card
+    step at 2 × ``XLSTM_COUNT_SEQ`` counted (``count_card_step``) equal
+    to the meta dry run of the same cell in FLOPs by unit and bytes, its
+    kernel tally the launch counters'. Returns (the phase's line, the two
+    ``kernels`` rows)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline.analysis import mfu, model_flops_per_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    rows = [phase_conv_slab(peaks, XLSTM_TRAIN_SHAPE, packed=True),
+            conv_dx_row(XLSTM_TRAIN_SHAPE, torch.bfloat16, peaks)]
+    parity = phase_train_parity("xlstm-125m", layers=len(
+        get_config("xlstm-125m").unit))
+    t_parity = time.perf_counter() - t_phase
+
+    cfg = get_config("xlstm-125m")
+    B, L, steps = XLSTM_TRAIN_SHAPE[0], XLSTM_TRAIN_SHAPE[1], \
+        XLSTM_TRAIN_STEPS
+    args = ("--arch", cfg.name, "--rows", str(B))
+    whist, _ = launch_train(*args, "--steps", "1", "--seq-len",
+                            str(XLSTM_SHORT_SEQ))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    hist, last = launch_train(*args, "--steps", str(steps), "--seq-len",
+                              str(L))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict({k: 0 for k in launches}, **conv_launches(cfg, steps))
+    if launches != want:
+        raise AssertionError(f"xlstm-125m training launched {launches}, "
+                             f"expected {want}")
+    losses = [whist[0]["loss"]] + [h["loss"] for h in hist]
+    step_ms = sum(h["step_ms"] for h in hist) / steps
+    real = sum(h["real_tokens"] for h in hist)
+    flops = model_flops_per_step(cfg, "train", B, L)
+
+    # the device's view, at a short row: one step of a model of its own,
+    # after one untimed step, traced with its layers marked
+    model = LM(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model, AdamW(cosine_schedule(3e-4, 1, 4)),
+                      train_loader(cfg, "pack", XLSTM_SHORT_SEQ, B),
+                      TrainerConfig(steps=1))
+    state, _ = trainer.train(torch.Generator(device="cuda").manual_seed(0),
+                             verbose=False)
+    pbatch = trainer.loader.batch(1)
+
+    def one_step():
+        nonlocal state
+        state, metrics = trainer.step_fn(state, pbatch)
+        float(metrics["loss"])
+
+    with layer_ranges():
+        _, prof = profile_call(one_step, dict(
+            {k: 0 for k in launches}, **conv_launches(cfg)))
+    n_kind = {k: model.kinds.count(k) for k in set(model.kinds)}
+    by_kind = prof.get("by_layer_kind", {})
+    if sorted(by_kind) != sorted(n_kind):
+        raise AssertionError(f"the profiled step marked {sorted(by_kind)}, "
+                             f"where the model has {n_kind}")
+
+    # the count of one card step at a short row, held to the meta dry run
+    cbatch = train_loader(cfg, "pack", XLSTM_COUNT_SEQ, B).batch(0)
+    work = count_card_step(trainer.step_fn, state, cbatch)
+    dry = count_step(cfg, "train", B, XLSTM_COUNT_SEQ, peaks)
+    card = {k: work[k] for k in ("flops_by_unit", "bytes", "kernels")}
+    meta = {"flops_by_unit": dry["flops_by_unit"],
+            "bytes": dry["bytes_per_device"], "kernels": dry["kernels"]}
+    if card != meta or not work["kernels"] == work["launches"] == \
+            conv_launches(cfg):
+        raise AssertionError(f"xlstm-125m at {B} × {XLSTM_COUNT_SEQ}: the "
+                             f"card step counted {card} with launches "
+                             f"{work['launches']}, the meta dry run {meta}")
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "kinds": n_kind, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "remat": cfg.remat, "card": smi, "kernel_rows": [
+            {k: r[k] for k in ("kernel", "shape", "kernel_ms",
+                               "kernel_eager_ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by", "max_abs_err")}
+            for r in rows],
+        "parity": parity, "parity_s": t_parity,
+        "launcher": "repro_torch.launch.train " + " ".join(args),
+        "rows": B, "seq_len": L, "mode": "pack",
+        "warmup": {"seq_len": XLSTM_SHORT_SEQ, "loss": whist[0]["loss"],
+                   "step_ms": whist[0]["step_ms"]},
+        "timed_steps": steps, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": [h["step_ms"] for h in hist], "ms_per_step": step_ms,
+        "real_tok_per_s": real / (step_ms * steps) * 1e3,
+        "real_fraction": real / sum(h["buffer_tokens"] for h in hist),
+        "timed_wall_s": wall, "launcher_seconds": last["seconds"],
+        "model_flops": flops, "mfu": mfu(flops, step_ms / 1e3, peaks),
+        "max_memory_allocated_gib": peak,
+        "launches_per_step": {k: v // steps for k, v in launches.items()
+                              if v},
+        "profile_seq_len": XLSTM_SHORT_SEQ, "profile": prof,
+        "layers_by_kind": {k: dict(
+            by_kind[k], layers=n, events_per_layer_time_step=by_kind[k][
+                "events"] / (n * XLSTM_SHORT_SEQ)) for k, n in n_kind.items()},
+        "count": {"seq_len": XLSTM_COUNT_SEQ, "card": card,
+                  "card_seconds": work["seconds"],
+                  "dry_run_s": dry["build_s"] + dry["count_s"],
+                  "flops": dry["flops_per_device"],
+                  "model_flops": dry["roofline"]["model_flops"]},
+        "phase_wall_s": time.perf_counter() - t_phase,
+        "phase_budget_s": 150}
+    del state, trainer, model
     gc.collect()
     torch.cuda.empty_cache()
     return out, rows
@@ -3095,7 +3402,7 @@ def main():
     emit("tune", seconds=tune_s)
 
     # the roofline of every training path above, its count on the card
-    # held to the meta dry run's; the --paper dry run and its report
+    # held to the meta dry run's; the paper configs' dry run and report
     emit("roofline_report", **phase_roofline(smi, peaks, {
         "mamba-1.4b blocked": (tr, None),
         "mamba-1.4b tuned": (tt, tt["winner_knobs"]),
@@ -3150,6 +3457,13 @@ def main():
     for row in xl_rows:
         emit("kernels", **row)
     emit("xlstm", **xl)
+
+    # xlstm-125m trained: #1 and #2 at its training shape, parity of one
+    # unit, the training main path at full width and depth, its count
+    xt, xt_rows = phase_xlstm_train(smi, peaks)
+    for row in xt_rows:
+        emit("kernels", **row)
+    emit("xlstm_train", **xt)
 
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
@@ -3229,7 +3543,10 @@ def main():
               xlstm_shapes=[{k: r[k] for k in (
                   "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
                   "library_ms", "bound_ms", "bound_by", "max_abs_err")}
-                  for r in xl_rows]),
+                  for r in xl_rows],
+              launches_xlstm_train=xt["launches_per_step"][
+                  "conv1d_pack_fwd"] * xt["timed_steps"],
+              xlstm_train_shape=xt["kernel_rows"][0]),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),
@@ -3237,7 +3554,10 @@ def main():
               launches_train_step=launches3["conv1d_pack_bwd_dx"],
               launches_train_mamba2=launches2["conv1d_pack_bwd_dx"],
               resources=conv_resources("bwd_dx", dx_rows),
-              train_ms=conv_train_ms(dx_rows)),
+              train_ms=conv_train_ms(dx_rows),
+              launches_xlstm_train=xt["launches_per_step"][
+                  "conv1d_pack_bwd_dx"] * xt["timed_steps"],
+              xlstm_train_shape=xt["kernel_rows"][1]),
         entry("selective_scan_fwd_step", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:116", step_fwd_row,
               launches3["selective_scan_fwd_step"],

@@ -16,7 +16,20 @@ JAX stabiliser is an associative scan; here ``m`` is computed segment by
 segment instead (``_maxplus``: a cumulative sum of log f from each segment
 start, then a segmented running maximum), since a running sum over the
 whole row would carry the −1e30 of every earlier reset and swallow the
-terms after it. Every clip of the JAX code is kept as it is.
+terms after it. Where gradients are taken, the running sums (the
+stabiliser's and each chunk's cumulative decays) are segment by segment
+too (``_seg_scan``): then no gradient crosses a reset, exactly, where a
+running sum over the row or the chunk, differenced, leaves the rounding
+of two cancelling sums in the earlier segment's gradient. Without
+gradients (serving, the dry run's prefill) they stay one ``cumsum`` each,
+a launch or two in place of 3·log2(L): the same sums to f32 rounding.
+Every clip of the JAX code is
+kept as it is. Their subgradients differ (torch.clamp passes the
+gradient at a bound, jnp.clip splits a tie), but that moves a gradient by
+under 1e-5 of its scale, where the port's and the JAX package's gradients
+differ by ~1e-4: f32 rounding, which the mLSTM normaliser's
+near-cancellation amplifies (tests/test_torch_xlstm_train.py measures
+both).
 """
 from __future__ import annotations
 
@@ -37,17 +50,21 @@ def _segment_starts(reset: Optional[torch.Tensor], B: int, L: int, device):
     return torch.cummax(torch.where(reset, t, 0), dim=1).values
 
 
-def _seg_cummax(v: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
-    """Running maximum of v (B, L, H) along L that restarts at each
-    segment (``start`` from ``_segment_starts``): log2(L) shifted maxima
+def _seg_scan(v: torch.Tensor, start: torch.Tensor, op) -> torch.Tensor:
+    """Inclusive running ``op`` (``torch.maximum`` or ``torch.add``) of v
+    (B, L, H) along L that restarts at each segment (``start`` (B, L), the
+    first step of each step's segment): log2(L) shifted steps
     (Hillis–Steele), each taken only where the earlier step lies in the
-    same segment. Exact: a maximum does not round."""
+    same segment. A maximum rounds nothing. Nothing reaches a step from
+    another segment, in the backward either: its gradient there is exactly
+    0, where a running sum over the row, differenced, would leave the
+    rounding of two cancelling sums."""
     L = v.shape[1]
     t = torch.arange(L, device=v.device)
     d = 1
     while d < L:
         ok = (t[d:] - d >= start[:, d:])[..., None]           # (B, L-d, 1)
-        tail = torch.where(ok, torch.maximum(v[:, d:], v[:, :-d]), v[:, d:])
+        tail = torch.where(ok, op(v[:, d:], v[:, :-d]), v[:, d:])
         v = torch.cat([v[:, :d], tail], dim=1)
         d *= 2
     return v
@@ -62,15 +79,19 @@ def _maxplus(logf, logi, reset, m_in0=None):
     B, L, _ = logf.shape
     start = _segment_starts(reset, B, L, logf.device)
     lf = logf if reset is None else torch.where(reset[..., None], 0.0, logf)
-    cs = torch.cumsum(lf, dim=1)
-    G = cs - torch.gather(cs, 1, start[..., None].expand_as(cs))
-    m = G + _seg_cummax(logi - G, start)
+    first = (start == 0)
+    if torch.is_grad_enabled():
+        S = _seg_scan(lf, start, torch.add)        # Σ lf over [start, t]
+        G = S - torch.where(first[..., None], lf[:, :1], 0.0)
+    else:                    # S is read only in the first segment
+        S = torch.cumsum(lf, dim=1)
+        G = S - torch.gather(S, 1, start[..., None].expand_as(S))
+    m = G + _seg_scan(logi - G, start, torch.maximum)
     if m_in0 is not None:
-        first = (start == 0)
         if reset is not None:
             first = first & ~reset[:, :1]
         m = torch.where(first[..., None],
-                        torch.maximum(cs + m_in0[:, None], m), m)
+                        torch.maximum(S + m_in0[:, None], m), m)
     return m
 
 
@@ -121,14 +142,26 @@ def mlstm(q, k, v, logf, logi, positions: Optional[torch.Tensor] = None,
         q, k, v, logfp, ip = map(padc, (q, k, v, logfp, ip))
         reset = F.pad(reset, (0, pad))
     Lp = L + pad
+    cumFs = None
+    if torch.is_grad_enabled():
+        # Σ log f' from the later of the step's segment start and its
+        # chunk's start, per step: a chunk's cumulative decays, with no
+        # gradient across a reset
+        t = torch.arange(Lp, device=dev)
+        cstart = torch.maximum(_segment_starts(reset, B, Lp, dev),
+                               t - t % chunk)
+        cumFs = _seg_scan(logfp, cstart, torch.add)
     tri = torch.arange(chunk, device=dev)
     tri = tri[:, None] >= tri[None]                        # (t, s): s ≤ t
     ys, ns = [], []
     for c0 in range(0, Lp, chunk):
         sl = slice(c0, c0 + chunk)
-        qb, kb, vb, lfb, ib, rb = (q[:, sl], k[:, sl], v[:, sl], logfp[:, sl],
-                                   ip[:, sl], reset[:, sl])
-        cumF = torch.cumsum(lfb, dim=1)                    # (B, chunk, H)
+        qb, kb, vb, ib, rb = (q[:, sl], k[:, sl], v[:, sl], ip[:, sl],
+                              reset[:, sl])
+        # from the chunk's start where no gradient is taken: the same
+        # differences within a segment
+        cumF = torch.cumsum(logfp[:, sl], dim=1) if cumFs is None \
+            else cumFs[:, sl]
         # intra-chunk segment id: the carry is valid until the first reset
         seg = torch.cumsum(rb.to(torch.int32), dim=1)
         Pt = torch.exp(cumF) * (seg == 0)[..., None]       # decay from entry

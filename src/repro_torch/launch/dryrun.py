@@ -24,11 +24,13 @@ parameters, AdamW's m and v, and the batch for a train step; the
 parameters and the inputs otherwise); ``temp_size_in_bytes`` is the peak of
 the live bytes the step creates, as the counter tracks them.
 
-The JAX ``ASSIGNED`` configs are not in the port until slice 7 (ROADMAP
+The JAX ``ASSIGNED`` configs the port lacks wait for slice 7 (ROADMAP
 queue 1 item 5): their cells get a ``skip`` record, not an error. The one
-the port has, xlstm-125m, is served but not yet trained or counted: its
-cells get a ``skip`` record that names the slice that brings them. Unlike
-the JAX module, this one sets no ``XLA_FLAGS`` and imports nothing of JAX.
+it has, xlstm-125m, is counted like the Mamba configs. Its sLSTM is a
+Python loop over time, and the meta device runs each of its ops through
+Python, so its train and prefill cells take minutes of host time, where
+a Mamba cell takes seconds. Unlike the JAX module, this one sets no
+``XLA_FLAGS`` and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -55,22 +57,16 @@ ASSIGNED = [
 PAPER = ["mamba-110m", "mamba-1.4b", "mamba-2.8b", "mamba2-370m"]
 NOT_PORTED = ("not in the port: the non-Mamba block kinds and their configs "
               "wait for slice 7 (ROADMAP queue 1 item 5)")
-NOT_COUNTED = ("xLSTM is served by the port but not trained on the card yet: "
-               "its training step and the dry run's count of its cells come "
-               "in slice 7b (ROADMAP queue 1 item 5b)")
 
 
 def skip_reason(arch: str) -> Optional[str]:
     """Why ``arch``'s cells are skipped whatever the shape, or None when
-    they run: a registered Mamba config runs, a registered xLSTM one is not
-    counted yet, anything else is not in the port."""
+    they run: a config the port registers runs, anything else is not in
+    the port."""
     if arch in PAPER:
         return None
     load_all()
-    cfg = REGISTRY.get(arch)
-    if cfg is None:
-        return NOT_PORTED
-    return NOT_COUNTED if cfg.family == "xlstm" else None
+    return None if arch in REGISTRY else NOT_PORTED
 
 
 def card_name(card: Optional[str] = None) -> str:

@@ -1,17 +1,23 @@
 """Training launcher of the port (``repro.launch.train`` on one card):
-packed Mamba-1 or Mamba-2 training with the scan and conv kernels.
+packed training of a Mamba-1 or Mamba-2 model with the scan and conv
+kernels, or of xlstm-125m (the conv kernels in its mLSTM layers; its
+mLSTM and sLSTM recurrences are plain PyTorch).
 
   python -m repro_torch.launch.train --arch mamba-1.4b --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --arch mamba2-370m --rows 8 --seq-len 4096
+  python -m repro_torch.launch.train --arch xlstm-125m --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --tiny --device cpu --steps 3 \\
       --rows 2 --seq-len 256 --ckpt-dir /tmp/ckpt --ckpt-every 1 \\
       --obs-trace /tmp/train_trace.json
 
-Runs on ``cuda`` unless ``--device cpu`` is given. ``--scan-tune auto``
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--tiny`` is the JAX
+launcher's: 4 layers of d_model 128, so for xlstm-125m 4 tail mLSTM
+layers (fewer than its 6-layer unit) and no sLSTM. ``--scan-tune auto``
 (the process-default ``TUNE_CACHE_torch.json``) or ``--scan-tune <path>``
 sweeps the scan's schedules forward + backward at the run's (rows,
 seq-len) before the first step, unless the cache holds that key, and the
-model then runs the measured winner.
+model then runs the measured winner; a config with no scan (xLSTM) has
+nothing to sweep, and the flag does nothing, as in the JAX launcher.
 
 ``--ckpt-dir`` saves every ``--ckpt-every`` steps (default 50) and, on
 SIGTERM or SIGINT, once more before stopping; a launch whose directory

@@ -12,7 +12,9 @@ such as the CUDA RNG state a recomputed layer restores, are bookkeeping):
   on, else at the f32 rate; ops outside the registry add no FLOPs;
 * bytes: the inputs' and the outputs' ``nbytes``; a view op moves none and
   an allocation (``empty``) writes none; an in-place op's destination
-  counts as read and written.
+  counts as read and written. ``log_sigmoid``'s buffer (a scratch tensor
+  of the input's size on the CPU and the meta device, empty on the card)
+  counts nowhere, so each device's count is the card's.
 
 Inside a kernel entry (``kernels/ops.py`` marks each one) the ops issued
 are not tallied: the kernel's bytes and operations from
@@ -42,6 +44,9 @@ from repro_torch.roofline.kernel_model import kernel_work
 _aten = torch.ops.aten
 _ALLOC = {_aten.empty.memory_format, _aten.empty_like.default,
           _aten.empty_strided.default, _aten.new_empty.default}
+# ops with a scratch tensor that only some devices fill: where it sits
+_SCRATCH_OUT = {_aten.log_sigmoid_forward.default: 1}
+_SCRATCH_IN = {_aten.log_sigmoid_backward.default: 2}
 
 
 def flop_unit(dtype: torch.dtype) -> str:
@@ -125,6 +130,10 @@ class StepCounter(TorchDispatchMode):
                 t.device.type == self.device_type for t in ins + outs):
             return out
         nbytes = sum(t.nbytes for t in ins) + sum(t.nbytes for t in outs)
+        if func in _SCRATCH_OUT:
+            nbytes -= out[_SCRATCH_OUT[func]].nbytes
+        elif func in _SCRATCH_IN:
+            nbytes -= args[_SCRATCH_IN[func]].nbytes
         self.bytes += nbytes
         packet = func._overloadpacket
         if packet in flop_registry:

@@ -294,7 +294,10 @@ def test_cli_lists_and_names_no_mesh(capsys):
     dryrun.main(["--paper", "--list", "--shape", "train_4k", "long_500k"])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 2 * 14
-    assert sum("RUN" in ln for ln in lines) == 8
+    # the four paper configs and xlstm-125m run; the other nine are skips
+    assert sum("RUN" in ln for ln in lines) == 2 * 5
+    assert sum(ln.startswith("xlstm-125m") and "RUN" in ln
+               for ln in lines) == 2
     with pytest.raises(SystemExit):
         dryrun.main(["--help"])
     assert "--mesh has no counterpart" in " ".join(

@@ -1530,3 +1530,78 @@ def test_xlstm_engine_streams_cold_equal_warm(cuda):
     rerun, reng = run(sc)
     assert rerun == cold
     assert reng.stats.prefills == reng.stats.chunk_rounds == 0
+
+
+# ---------------------------------------------------------------------------
+# xLSTM training (#1 forward and recompute, #2 backward in its mLSTM layers)
+# ---------------------------------------------------------------------------
+
+XLSTM_TRAIN_SHAPE = (2, 4096, 1536)     # xlstm-125m's training step
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dx"])
+def test_conv_kernels_at_the_xlstm_training_shape(cuda, kernel):
+    """#1 and #2 at xlstm-125m's training shape (2, 4096, 1536) in bf16, on
+    packed rows (one carried): the plain version's output within one bf16
+    rounding (#1) or 1e-5 · (1 + |ref|) (#2, f32 on both sides), and twice
+    bitwise equal."""
+    Bz, L, D = XLSTM_TRAIN_SHAPE
+    rng = np.random.default_rng(L)
+    f = dict(device=cuda, dtype=torch.bfloat16)
+    x = torch.as_tensor(rng.normal(size=XLSTM_TRAIN_SHAPE)).to(**f)
+    w = torch.as_tensor(rng.normal(size=(4, D)) * 0.5).to(**f)
+    b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
+    pos = torch.as_tensor(_positions(Bz, L, L), device=cuda)
+    if kernel == "fwd":
+        out, again = (kconv.conv1d_pack(x, w, b, pos) for _ in range(2))
+        want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+        tol = dict(atol=1e-5, rtol=2.0 ** -8)
+    else:
+        out, again = (kconv.conv1d_pack_bwd_dx(x, w, pos) for _ in range(2))
+        want = kconv.conv1d_pack_bwd_dx_plain(x, w, pos)
+        tol = dict(atol=1e-5, rtol=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), want, **tol)
+
+
+def test_xlstm_train_step_kernels_against_the_plain_path(cuda, monkeypatch):
+    """xlstm-125m.reduced() (12 layers: 10 mLSTM, 2 sLSTM) in f32 at 2 × 256
+    with resets: the loss within 1e-5 and every gradient leaf within 1e-3 ·
+    max |ref| (chip_smoke.py's ``TRAIN_PARITY_TOL``) of the plain path's
+    (autograd through the plain conv), #1 launched exactly 20 times
+    (forward and ``remat`` recompute) and #2 10, nothing else; the plain
+    path launches nothing."""
+    import types
+
+    from repro_torch.core import conv as core_conv
+    cfg = get_config("xlstm-125m").reduced()
+    model = LM(cfg, cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(9)
+    pos = _positions(2, 256, 9)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (2, 256)).astype(np.int32),
+             "positions": pos,
+             "segment_ids": (np.cumsum(pos == 0, axis=1) + 1).astype(
+                 np.int32)}
+    params = dict(model.named_parameters())
+
+    def loss_and_grads():
+        tops.zero_launches()
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return loss.item(), dict(zip(params, grads)), {
+            k: v for k, v in tops.read_launches().items() if v}
+
+    k_loss, k_grads, k_ran = loss_and_grads()
+    assert k_ran == {"conv1d_pack_fwd": 20, "conv1d_pack_bwd_dx": 10}
+    monkeypatch.setattr(B, "kops", types.SimpleNamespace(
+        conv1d_pack=core_conv.conv1d_pack))
+    p_loss, p_grads, p_ran = loss_and_grads()
+    assert p_ran == {}
+    assert abs(k_loss - p_loss) <= 1e-5 * abs(p_loss)
+    for k, ref in p_grads.items():
+        assert torch.isfinite(k_grads[k]).all(), k
+        err = (k_grads[k] - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item(), (k, err)

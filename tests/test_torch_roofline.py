@@ -135,9 +135,12 @@ def test_scan_traffic_matches_jax_over_the_h100_rate(arch, shards):
 CONV_BOUNDS = [((2, 256, 4096), 2, 2.52, 2), ((2, 4096, 4096), 2, 40.09, 2),
                ((2, 4096, 5120), 2, 50.11, 2), ((8, 4096, 2048), 2, 80.18, 2),
                ((2, 997, 4100), 2, 9.78, 2), ((1, 259, 4096), 2, 1.28, 2),
-               ((1, 67, 4096), 2, 0.34, 2), ((1, 131, 4096), 2, 0.65, 2)]
+               ((1, 67, 4096), 2, 0.34, 2), ((1, 131, 4096), 2, 0.65, 2),
+               ((2, 256, 1536), 2, 0.944, 3), ((1, 259, 1536), 2, 0.480, 3),
+               ((2, 4096, 1536), 2, 15.04, 2)]
 DX_BOUNDS = [((2, 4096, 4096), 2, 60.12, 2), ((2, 4096, 5120), 2, 75.14, 2),
-             ((8, 4096, 2048), 2, 120.24, 2), ((2, 997, 4100), 2, 14.65, 2)]
+             ((8, 4096, 2048), 2, 120.24, 2), ((2, 997, 4100), 2, 14.65, 2),
+             ((2, 4096, 1536), 2, 22.55, 2)]
 
 
 @pytest.mark.parametrize("shape,es,want,digits", CONV_BOUNDS)
@@ -228,3 +231,19 @@ def test_counter_takes_a_products_unit_from_its_operands(tf32):
     # freed after its product, while the live bytes are still below it)
     assert c.peak_bytes == y32.nbytes + y16.nbytes + e.nbytes == \
         8 * 4 * 4 + 8 * 4 * 2 + 1000 * 4
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_counter_charges_no_log_sigmoid_buffer(device):
+    """``F.logsigmoid`` keeps a buffer of its input's size on the CPU and
+    the meta device and an empty one on the card: the count charges it
+    nowhere, so a step that runs it (the xLSTM gates) counts the card's
+    bytes on every device. Forward: the input read, the output written;
+    backward: the gradient and the input read, the input's gradient
+    written."""
+    x = torch.ones((2, 100), device=device, requires_grad=True)
+    g = torch.ones((2, 100), device=device)
+    with counter.StepCounter(device) as c:
+        y = torch.nn.functional.logsigmoid(x)
+        torch.autograd.grad(y, x, grad_outputs=g)
+    assert c.bytes == 5 * x.nbytes

@@ -304,12 +304,17 @@ def test_mamba_layout_is_unchanged(arch, leaves):
         k: s[:1] + (2, 2) + s[2:] for k, s in leaves.items()}
 
 
-def test_counts_and_dry_run_cells_match_jax():
+def test_counts_and_dry_run_cells_match_jax(monkeypatch):
     """``active_params`` and model FLOPs equal the JAX package's for
     xlstm-125m (the JAX count walks its init's shapes); the dry run's cells
-    are the JAX ones and each gives a ``skip`` record naming slice 7b."""
+    are the JAX ones, and ``run_cell`` counts an xLSTM cell: an ``ok``
+    record by way of ``count_step``, whose kernel tally is #1 twice (forward
+    and ``remat`` recompute) and #2 once per mLSTM layer. It counts a
+    train cell of 1 × 8 on one reduced unit here: a full-size xLSTM cell
+    takes minutes on the meta device (the sLSTM's loop over time)."""
     from repro.launch import shapes as jshapes
     from repro.roofline import analysis as jan
+    from repro_torch.kernels.ops import CONV_KERNELS
     from repro_torch.launch import dryrun, shapes
     from repro_torch.roofline import analysis as an
     for cfg, jcfg in ((get_config("xlstm-125m"), jget_config("xlstm-125m")),
@@ -323,9 +328,18 @@ def test_counts_and_dry_run_cells_match_jax():
     for s in shapes.SHAPES:
         assert shapes.cell_supported(get_config("xlstm-125m"), s) == \
             jshapes.cell_supported(jget_config("xlstm-125m"), s)
-        rec = dryrun.run_cell("xlstm-125m", s, None,
-                              card="NVIDIA H100 80GB HBM3")
-        assert rec["status"] == "skip" and "slice 7b" in rec["reason"]
+    assert dryrun.skip_reason("xlstm-125m") is None
+    monkeypatch.setitem(shapes.SHAPES, "train_1x8",
+                        dict(kind="train", seq=8, batch=1))
+    small = dict(n_layers=6, d_model=64, vocab=128, scan_chunk=8)
+    rec = dryrun.run_cell("xlstm-125m", "train_1x8", None, overrides=small,
+                          card="NVIDIA H100 80GB HBM3")
+    assert rec["status"] == "ok", rec.get("trace")
+    assert rec["fn"] == "train_step" and rec["count_s"] > 0
+    assert rec["kernels"] == dict(zip(CONV_KERNELS, (10, 5)))
+    assert rec["roofline"]["model_flops"] == jan.model_flops_per_step(
+        dataclasses.replace(jget_config("xlstm-125m"), **small), "train", 1,
+        8)
 
 
 def test_serve_cli_on_xlstm(capsys):
