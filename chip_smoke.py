@@ -219,18 +219,40 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               training parity of one whole unit (6 layers: 5 mLSTM + 1
               sLSTM) at full width, f32, 2 × 2048 (#1 exactly 10: forward
               and ``remat`` recompute; #2 5; nothing else); the training
-              main path at full width and depth, bf16 compute, f32 params,
-              pack 2 × 4096, through the training launcher
-              (``repro_torch.launch.train.main --arch xlstm-125m``, in this
-              process: ``Trainer``, AdamW): a warm-up run of one step at
-              2 × 64, then a run of 2 timed steps (#1 20 and #2 10 a step,
-              nothing else; ms/step, real tok/s, MFU, peak memory); one
+              main path at full width, 6 of its 12 layers (one whole unit:
+              the depth cut keeps the whole script within its 1200 s
+              budget), bf16 compute, f32 params, pack 2 × 4096,
+              through the training launcher (``repro_torch.launch.train.
+              main --arch xlstm-125m --layers 6``, in this process:
+              ``Trainer``, AdamW): a warm-up run of one step at 2 × 64,
+              then a run of 2 timed steps (#1 10 and #2 5 a step, nothing
+              else; ms/step, real tok/s, MFU, peak memory); one
               step at 2 × 64 profiled with each layer's forward, recompute
               and backward marked (``layer_ranges``): the sLSTM and mLSTM
               layers' host and device ms, their shares of the step and
               their device events; one card step at 2 × 128 counted and
               held to the meta dry run of the same cell. All beside the
               card's name and power limit (``xlstm_train`` line).
+
+17. hybrid_train — recurrentgemma-2b trained (``phase_hybrid_train``): #1
+              and #2 at its training shape (2, 4096, 2560), bf16 and f32,
+              against their plain versions, twice bitwise, timed beside
+              cuDNN and their bounds (``kernels`` lines); the training
+              parity of one whole unit (rec, rec, attn, each with its
+              GeGLU MLP) at full width, f32, 2 × 2048 (#1 exactly 4: two
+              RG-LRU layers, forward and ``remat`` recompute; #2 2;
+              nothing else); the training main path at full width and
+              depth (26 layers, d_model 2560, vocab 256000, tied
+              embedding), bf16 compute, f32 params, pack 2 × 4096 on the
+              paper's lengths, through the training launcher in this
+              process: a warm-up run of one step at 2 × 64, then a run of
+              2 timed steps (#1 36 and #2 18 a step, nothing else;
+              ms/step, real tok/s, MFU, peak memory); a 2 × 512 step
+              profiled with each sub-block marked (``layer_ranges``:
+              the rec, attn and mlp kinds' host and device ms); one card
+              step at 2 × 128 counted and held to the meta dry run of the
+              same cell. All beside the card's name and power limit
+              (``hybrid_train`` line).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -331,10 +353,24 @@ XLSTM_PREFIX_REQUESTS = 4  # #1 at the suffix
 # warm-up, the profile and the count run shorter rows of the same model
 XLSTM_TRAIN_SHAPE = (2, 4096, 1536)  # (rows, L, up-projection): #1 and #2
 XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_LAYERS = 6   # the timed steps' depth: one whole unit (5 mLSTM
+#                          + 1 sLSTM) of the 12, so the script stays within
+#                          its 1200 s budget with phase 17 (a 12-layer
+#                          step takes 38–64 s on an H100, the sLSTM
+#                          loop's)
 XLSTM_SHORT_SEQ = 64     # the warm-up's and the profile's rows (a trace's
 #                          post-processing grows with its ≈ 360 events a
 #                          time step)
 XLSTM_COUNT_SEQ = 128
+HYBRID_CONV_SHAPE = (2, 4096, 2560)  # (rows, L, lru_width): recurrentgemma-2b
+#                                      training, #1 and #2
+HYBRID_TRAIN_STEPS = 2
+HYBRID_SHORT_SEQ = 64    # the warm-up run's rows
+HYBRID_PROFILE_SEQ = 512  # the traced step's rows: on an H100 host, at
+#                           4096 the trace's ≈ 91k kernels took 80–141 s
+#                           to read, at 1024 its 33k took 71 s over three
+#                           traces
+HYBRID_COUNT_SEQ = 128
 
 
 def emit(phase, **kw):
@@ -424,61 +460,67 @@ def timing_iters(shape):
     return 50 if shape[1] <= 256 else 10
 
 
-def phase_conv_fwd(peaks):
-    """Kernel #1 at the serving buckets, the three models' training shapes
-    and a one-element-wide shape, against ``conv1d_pack_plain``; twice,
-    bitwise equal."""
+def conv_fwd_row(shape, dtype, peaks):
+    """Kernel #1 at ``shape`` in ``dtype`` (``conv_inputs``: packed rows and
+    a carried row) against ``conv1d_pack_plain``; twice, bitwise equal;
+    timed beside the plain version, cuDNN and its bound. Returns its
+    ``kernels`` row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import conv1d_pack as kconv
-    rows, worst = [], 0.0
+    x, w, b, pos = conv_inputs(shape, dtype, seed=shape[1])
+    y = kconv.conv1d_pack(x, w, b, pos)
+    launch = kconv.LAST_LAUNCH
+    again = kconv.conv1d_pack(x, w, b, pos)
+    torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        raise AssertionError(f"conv1d_pack kernel is not bitwise "
+                             f"repeatable at {shape} {dtype}")
+    want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
+    err = (y.float() - want).abs()
+    if dtype == torch.float32:
+        ok, tol = bool((err <= 1e-5).all()), "1e-5 abs"
+    else:      # one bf16 rounding of the f32-accumulated result
+        ok = bool((err <= 2.0 ** -8 * want.abs() + 1e-6).all())
+        tol = "2^-8 relative (one bf16 rounding)"
+    if not ok:
+        raise AssertionError(f"conv1d_pack kernel disagrees with its "
+                             f"plain version at {shape} {dtype}: "
+                             f"max err {err.max().item()}")
+    # library yardstick: cuDNN depthwise conv on a reset-free input
+    xc = x.transpose(1, 2).contiguous()
+    wc = w.t().contiguous()[:, None, :]
+    lib = lambda: F.conv1d(xc, wc, b, padding=3, groups=shape[2])
+    bound, by = conv_bound_ms(x, w, peaks)
+    kern = lambda: kconv.conv1d_pack(x, w, b, pos)
+    plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
+    it = timing_iters(shape)
+    return {
+        "kernel": "conv1d_pack_fwd",
+        "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+        "max_abs_err": err.max().item(), "tolerance": tol,
+        "bitwise_repeat": True,
+        "launch": launch,
+        "kernel_ms": graph_ms(kern, it), "plain_ms":
+        graph_ms(plain, it), "library_ms": graph_ms(lib, it),
+        "bound_ms": bound, "bound_by": by,
+        "kernel_eager_ms": eager_ms(kern),
+        "plain_eager_ms": eager_ms(plain),
+        "library_eager_ms": eager_ms(lib)}
+
+
+def phase_conv_fwd(peaks):
+    """Kernel #1 at the serving buckets, the three models' training shapes
+    and a one-element-wide shape (``conv_fwd_row``)."""
+    import torch
+    rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (*SHAPES, TRAIN_SHAPE_28, MAMBA2_CONV_SHAPE,
                       ONE_WIDE_SHAPE):
-            x, w, b, pos = conv_inputs(shape, dtype, seed=shape[1])
-            y = kconv.conv1d_pack(x, w, b, pos)
-            launch = kconv.LAST_LAUNCH
-            again = kconv.conv1d_pack(x, w, b, pos)
-            torch.cuda.synchronize()
-            if not torch.equal(y, again):
-                raise AssertionError(f"conv1d_pack kernel is not bitwise "
-                                     f"repeatable at {shape} {dtype}")
-            want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(),
-                                           pos)
-            err = (y.float() - want).abs()
-            if dtype == torch.float32:
-                ok, tol = bool((err <= 1e-5).all()), "1e-5 abs"
-            else:      # one bf16 rounding of the f32-accumulated result
-                ok = bool((err <= 2.0 ** -8 * want.abs() + 1e-6).all())
-                tol = "2^-8 relative (one bf16 rounding)"
-            if not ok:
-                raise AssertionError(f"conv1d_pack kernel disagrees with its "
-                                     f"plain version at {shape} {dtype}: "
-                                     f"max err {err.max().item()}")
-            worst = max(worst, err.max().item())
-            # library yardstick: cuDNN depthwise conv on a reset-free input
-            xc = x.transpose(1, 2).contiguous()
-            wc = w.t().contiguous()[:, None, :]
-            lib = lambda: F.conv1d(xc, wc, b, padding=3, groups=shape[2])
-            bound, by = conv_bound_ms(x, w, peaks)
-            kern = lambda: kconv.conv1d_pack(x, w, b, pos)
-            plain = lambda: kconv.conv1d_pack_plain(x, w, b, pos)
-            it = timing_iters(shape)
-            rows.append({
-                "kernel": "conv1d_pack_fwd",
-                "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err.max().item(), "tolerance": tol,
-                "bitwise_repeat": True,
-                "launch": launch,
-                "kernel_ms": graph_ms(kern, it), "plain_ms":
-                graph_ms(plain, it), "library_ms": graph_ms(lib, it),
-                "bound_ms": bound, "bound_by": by,
-                "kernel_eager_ms": eager_ms(kern),
-                "plain_eager_ms": eager_ms(plain),
-                "library_eager_ms": eager_ms(lib)})
+            rows.append(conv_fwd_row(shape, dtype, peaks))
             emit("kernels", **rows[-1])
-            del x, y, again, want, err, xc
-    return rows, worst
+            gc.collect()
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 def conv_dx_row(shape, dtype, peaks):
@@ -961,10 +1003,10 @@ def path_kernels(cfg, schedule=None, rows=2):
     scan forward, scan backward; the Mamba-1 scan's by
     ``cfg.pallas_schedule``, the Mamba-2 scan's by ``schedule``; with
     ``cfg.scan_tune`` on, by the cached winner at (``rows``, 4096): a
-    plain winner runs no scan kernel (None in their places). xLSTM has no
-    scan kernel: its mLSTM layers run the conv's two, its recurrences are
-    plain."""
-    if cfg.family == "xlstm":
+    plain winner runs no scan kernel (None in their places). xLSTM and the
+    hybrid have no scan kernel: their mLSTM and RG-LRU layers run the
+    conv's two, their recurrences and attention are plain."""
+    if cfg.family in ("xlstm", "hybrid"):
         return [*CONV_KERNELS, None, None]
     if cfg.scan_tune != "off":
         from repro_torch.tune import config_shape_args, tuned
@@ -1072,7 +1114,7 @@ def phase_train_parity(arch="mamba-1.4b", schedule=None, layers=2,
             any(v for k, v in ran.items() if k not in expected):
         raise AssertionError(f"the kernel path ran {ran}, expected exactly "
                              f"{expected}")
-    if cfg.family == "xlstm" and \
+    if cfg.family in ("xlstm", "hybrid") and \
             {k: v for k, v in ran.items() if v} != conv_launches(cfg):
         raise AssertionError(f"the kernel path ran {ran}, expected "
                              f"{conv_launches(cfg)}")
@@ -1513,11 +1555,10 @@ def phase_parity(model_bf16, cfg, tol=PARITY_TOL):
 
 
 def conv_layers(cfg):
-    """The layers of ``cfg`` that run #1 in a packed prefill and a chunk
-    slab: every Mamba and every mLSTM layer (an sLSTM block has no
-    conv)."""
+    """The layers of ``cfg`` that run #1 in a forward: every Mamba, mLSTM
+    and RG-LRU layer (an sLSTM or attention block has no conv)."""
     from repro_torch.models.blocks import layer_kinds
-    return sum(k != "slstm" for k in layer_kinds(cfg))
+    return sum(k not in ("slstm", "attn") for k in layer_kinds(cfg))
 
 
 def conv_launches(cfg, steps=1):
@@ -3072,7 +3113,8 @@ def phase_xlstm(smi, peaks):
 @contextlib.contextmanager
 def layer_ranges():
     """While on, a training step marks its layers for ``torch.profiler``
-    by kind (``trace_call`` reads the marks): each block's forward, its
+    by kind (``trace_call`` reads the marks; a hybrid layer's MLP as
+    ``mlp``): each block's forward, its
     ``remat`` recompute included, in a ``record_function`` range
     ``LAYER_MARK`` + kind, and each layer's backward, from the gradient
     reaching its output to its input's, in another of the same name,
@@ -3115,10 +3157,13 @@ def layer_ranges():
 
     for kind, entry in saved.items():
         blocks.KINDS[kind] = (*entry[:2], wrap(kind, entry[2]), *entry[3:])
+    mlp = blocks.MLP
+    blocks.MLP = (*mlp[:2], wrap("mlp", mlp[2]))
     try:
         yield
     finally:
         blocks.KINDS.update(saved)
+        blocks.MLP = mlp
 
 
 def launch_train(*argv):
@@ -3147,11 +3192,12 @@ def phase_xlstm_train(smi, peaks):
     unit (5 mLSTM + 1 sLSTM) at full width, f32, 2 × 2048: the kernel
     path against the plain path, #1 10 (``remat="unit"``: forward and
     recompute) and #2 5. (c) The training main path, xlstm-125m at full
-    width and depth, bf16 compute, f32 params, through the training
-    launcher (``launch_train``: ``Trainer`` + AdamW over the packing
-    loader): a warm-up run of one step at 2 × ``XLSTM_SHORT_SEQ`` (the
-    same code and kernels: a 2 × 4096 step takes 34–46 s on an H100),
-    then a run of ``XLSTM_TRAIN_STEPS`` timed steps at 2 × 4096 with the
+    width, ``XLSTM_TRAIN_LAYERS`` of its 12 layers, bf16 compute, f32
+    params, through the training launcher (``launch_train``: ``Trainer`` +
+    AdamW over the packing loader): a warm-up run of one step at 2 ×
+    ``XLSTM_SHORT_SEQ`` (the same code and kernels: a 12-layer 2 × 4096
+    step takes 38–64 s on an H100), then a run of ``XLSTM_TRAIN_STEPS``
+    timed steps at 2 × 4096 with the
     launch counters (exactly ``conv_launches``) and nothing else in them;
     then a model of its own in this process takes one step at 2 ×
     ``XLSTM_SHORT_SEQ`` and profiles the next in ``layer_ranges``: the
@@ -3179,9 +3225,11 @@ def phase_xlstm_train(smi, peaks):
     t_parity = time.perf_counter() - t_phase
 
     cfg = get_config("xlstm-125m")
+    cut = dataclasses.replace(cfg, n_layers=XLSTM_TRAIN_LAYERS)
     B, L, steps = XLSTM_TRAIN_SHAPE[0], XLSTM_TRAIN_SHAPE[1], \
         XLSTM_TRAIN_STEPS
-    args = ("--arch", cfg.name, "--rows", str(B))
+    args = ("--arch", cfg.name, "--rows", str(B), "--layers",
+            str(XLSTM_TRAIN_LAYERS))
     whist, _ = launch_train(*args, "--steps", "1", "--seq-len",
                             str(XLSTM_SHORT_SEQ))
     torch.cuda.synchronize()
@@ -3194,14 +3242,14 @@ def phase_xlstm_train(smi, peaks):
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = dict({k: 0 for k in launches}, **conv_launches(cfg, steps))
+    want = dict({k: 0 for k in launches}, **conv_launches(cut, steps))
     if launches != want:
         raise AssertionError(f"xlstm-125m training launched {launches}, "
                              f"expected {want}")
     losses = [whist[0]["loss"]] + [h["loss"] for h in hist]
     step_ms = sum(h["step_ms"] for h in hist) / steps
     real = sum(h["real_tokens"] for h in hist)
-    flops = model_flops_per_step(cfg, "train", B, L)
+    flops = model_flops_per_step(cut, "train", B, L)
 
     # the device's view, at a short row: one step of a model of its own,
     # after one untimed step, traced with its layers marked
@@ -3250,6 +3298,7 @@ def phase_xlstm_train(smi, peaks):
             for r in rows],
         "parity": parity, "parity_s": t_parity,
         "launcher": "repro_torch.launch.train " + " ".join(args),
+        "timed_layers": XLSTM_TRAIN_LAYERS,
         "rows": B, "seq_len": L, "mode": "pack",
         "warmup": {"seq_len": XLSTM_SHORT_SEQ, "loss": whist[0]["loss"],
                    "step_ms": whist[0]["step_ms"]},
@@ -3278,6 +3327,160 @@ def phase_xlstm_train(smi, peaks):
     gc.collect()
     torch.cuda.empty_cache()
     return out, rows
+
+
+def phase_hybrid_train(smi, peaks):
+    """Phase 17: recurrentgemma-2b trained on the card. (a) #1 and #2 at
+    its training shape ``HYBRID_CONV_SHAPE`` (packed rows and a carried
+    row), bf16 and f32, against their plain versions, twice bitwise,
+    timed beside cuDNN and their bounds. (b) Training parity of one whole
+    unit (rec, rec, attn, each with its GeGLU MLP) at full width, f32, 2 ×
+    2048: the kernel path against the plain path, #1 exactly 4 (2 rec
+    layers, forward and ``remat`` recompute), #2 2. (c) The training main
+    path, recurrentgemma-2b at full width and depth (26 layers, d_model
+    2560, vocab 256000, tied embedding), bf16 compute, f32 params,
+    through the training launcher (``launch_train``): a warm-up run of one
+    step at 2 × ``HYBRID_SHORT_SEQ``, then a run of ``HYBRID_TRAIN_STEPS``
+    timed steps at 2 × 4096 packed on the paper's lengths, #1 36 and #2
+    18 a step and no other kernel; then a model of its own in this
+    process takes one step at 2 × ``HYBRID_PROFILE_SEQ`` and profiles the
+    next in ``layer_ranges``: device ms by kernel group, the busy share,
+    and each sub-block kind's (rec, attn, mlp) host and device ms. (d) One
+    card step of that model at 2 × ``HYBRID_COUNT_SEQ`` counted
+    (``count_card_step``), equal to the meta dry run of the same cell in
+    FLOPs by unit and bytes, its kernel tally the launch counters'.
+    Returns (the phase's line, the four ``kernels`` rows)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline.analysis import (active_params, mfu,
+                                               model_flops_per_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(conv_fwd_row(HYBRID_CONV_SHAPE, dtype, peaks))
+        rows.append(conv_dx_row(HYBRID_CONV_SHAPE, dtype, peaks))
+        gc.collect()
+    t_rows = time.perf_counter() - t_phase
+    cfg = get_config("recurrentgemma-2b")
+    parity = phase_train_parity(cfg.name, layers=len(cfg.unit))
+    t_parity = time.perf_counter() - t_phase - t_rows
+
+    B, L, steps = HYBRID_CONV_SHAPE[0], HYBRID_CONV_SHAPE[1], \
+        HYBRID_TRAIN_STEPS
+    args = ("--arch", cfg.name, "--rows", str(B))
+    t0 = time.perf_counter()
+    whist, _ = launch_train(*args, "--steps", "1", "--seq-len",
+                            str(HYBRID_SHORT_SEQ))
+    warm_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    hist, last = launch_train(*args, "--steps", str(steps), "--seq-len",
+                              str(L))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict({k: 0 for k in launches}, **conv_launches(cfg, steps))
+    if launches != want:
+        raise AssertionError(f"recurrentgemma-2b training launched "
+                             f"{launches}, expected {want}")
+    losses = [whist[0]["loss"]] + [h["loss"] for h in hist]
+    step_ms = sum(h["step_ms"] for h in hist) / steps
+    real = sum(h["real_tokens"] for h in hist)
+    flops = model_flops_per_step(cfg, "train", B, L)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the device's view: one step of a model of its own, after one
+    # untimed step, traced with its layers marked
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    trainer = Trainer(model, AdamW(cosine_schedule(3e-4, 1, 4)),
+                      train_loader(cfg, "pack", HYBRID_PROFILE_SEQ, B),
+                      TrainerConfig(steps=1))
+    state, _ = trainer.train(torch.Generator(device="cuda").manual_seed(0),
+                             verbose=False)
+    pbatch = trainer.loader.batch(1)
+
+    def one_step():
+        nonlocal state
+        state, metrics = trainer.step_fn(state, pbatch)
+        float(metrics["loss"])
+
+    with layer_ranges():
+        _, prof = profile_call(one_step, dict(
+            {k: 0 for k in launches}, **conv_launches(cfg)))
+    n_kind = dict({k: model.kinds.count(k) for k in set(model.kinds)},
+                  mlp=cfg.n_layers)
+    if sorted(prof.get("by_layer_kind", {})) != sorted(n_kind):
+        raise AssertionError(f"the profiled step marked "
+                             f"{sorted(prof.get('by_layer_kind', {}))}, "
+                             f"where the model has {n_kind}")
+    profile_s = time.perf_counter() - t0
+
+    # the count of one card step at a short row, held to the meta dry run
+    t0 = time.perf_counter()
+    cbatch = train_loader(cfg, "pack", HYBRID_COUNT_SEQ, B).batch(0)
+    work = count_card_step(trainer.step_fn, state, cbatch)
+    dry = count_step(cfg, "train", B, HYBRID_COUNT_SEQ, peaks)
+    card = {k: work[k] for k in ("flops_by_unit", "bytes", "kernels")}
+    meta = {"flops_by_unit": dry["flops_by_unit"],
+            "bytes": dry["bytes_per_device"], "kernels": dry["kernels"]}
+    if card != meta or not work["kernels"] == work["launches"] == \
+            conv_launches(cfg):
+        raise AssertionError(f"recurrentgemma-2b at {B} × "
+                             f"{HYBRID_COUNT_SEQ}: the card step counted "
+                             f"{card} with launches {work['launches']}, the "
+                             f"meta dry run {meta}")
+    count_s = time.perf_counter() - t0
+    del state, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "kinds": n_kind, "mlp": cfg.act,
+        "tie_embeddings": cfg.tie_embeddings,
+        "params": active_params(cfg), "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "remat": cfg.remat, "card": smi,
+        "kernel_rows": [
+            {k: r[k] for k in ("kernel", "shape", "dtype", "kernel_ms",
+                               "kernel_eager_ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by", "max_abs_err")}
+            for r in rows],
+        "kernel_rows_s": t_rows, "parity": parity, "parity_s": t_parity,
+        "launcher": "repro_torch.launch.train " + " ".join(args),
+        "rows": B, "seq_len": L, "mode": "pack",
+        "warmup": {"seq_len": HYBRID_SHORT_SEQ, "loss": whist[0]["loss"],
+                   "step_ms": whist[0]["step_ms"], "run_s": warm_s},
+        "timed_steps": steps, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "step_ms": [h["step_ms"] for h in hist], "ms_per_step": step_ms,
+        "real_tok_per_s": real / (step_ms * steps) * 1e3,
+        "real_fraction": real / sum(h["buffer_tokens"] for h in hist),
+        "timed_wall_s": wall, "launcher_seconds": last["seconds"],
+        "model_flops": flops, "mfu": mfu(flops, step_ms / 1e3, peaks),
+        "max_memory_allocated_gib": peak,
+        "launches_per_step": {k: v // steps for k, v in launches.items()
+                              if v},
+        "profile_seq_len": HYBRID_PROFILE_SEQ, "profile": prof,
+        "profile_s": profile_s,
+        "count": {"seq_len": HYBRID_COUNT_SEQ, "card": card,
+                  "card_seconds": work["seconds"],
+                  "dry_run_s": dry["build_s"] + dry["count_s"],
+                  "flops": dry["flops_per_device"],
+                  "model_flops": dry["roofline"]["model_flops"],
+                  "phase_s": count_s},
+        "phase_wall_s": time.perf_counter() - t_phase,
+        "phase_budget_s": 150}, rows
 
 
 def main():
@@ -3465,6 +3668,14 @@ def main():
         emit("kernels", **row)
     emit("xlstm_train", **xt)
 
+    # recurrentgemma-2b trained: #1 and #2 at its training shape, parity
+    # of one unit, the training main path at full width and depth, its
+    # count
+    ht, ht_rows = phase_hybrid_train(smi, peaks)
+    for row in ht_rows:
+        emit("kernels", **row)
+    emit("hybrid_train", **ht)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -3546,7 +3757,10 @@ def main():
                   for r in xl_rows],
               launches_xlstm_train=xt["launches_per_step"][
                   "conv1d_pack_fwd"] * xt["timed_steps"],
-              xlstm_train_shape=xt["kernel_rows"][0]),
+              xlstm_train_shape=xt["kernel_rows"][0],
+              launches_hybrid_train=ht["launches_per_step"][
+                  "conv1d_pack_fwd"] * ht["timed_steps"],
+              hybrid_train_shape=ht["kernel_rows"][0]),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),
@@ -3557,7 +3771,10 @@ def main():
               train_ms=conv_train_ms(dx_rows),
               launches_xlstm_train=xt["launches_per_step"][
                   "conv1d_pack_bwd_dx"] * xt["timed_steps"],
-              xlstm_train_shape=xt["kernel_rows"][1]),
+              xlstm_train_shape=xt["kernel_rows"][1],
+              launches_hybrid_train=ht["launches_per_step"][
+                  "conv1d_pack_bwd_dx"] * ht["timed_steps"],
+              hybrid_train_shape=ht["kernel_rows"][1]),
         entry("selective_scan_fwd_step", "selective_scan.cu",
               "src/repro/kernels/selective_scan.py:116", step_fwd_row,
               launches3["selective_scan_fwd_step"],

@@ -1,5 +1,5 @@
-"""ArchConfig for the port: the Mamba-1, Mamba-2 and xLSTM fields of
-``repro.configs.base``.
+"""ArchConfig for the port: the Mamba-1, Mamba-2, xLSTM and hybrid
+(RecurrentGemma) fields of ``repro.configs.base``.
 
 A copy, not an import: the port runs where JAX is not installed. Only what
 the serving and training slices read is kept. There is no ``use_pallas``:
@@ -11,9 +11,10 @@ through ``kernels.ops.selective_scan_heads(schedule=...)``). With
 ``scan_tune`` on, the tuner's measured winner replaces both choices.
 
 A heterogeneous stack is a repeating pattern unit (``pattern``, e.g.
-xLSTM's five ``mlstm`` layers and one ``slstm``): layer ``i`` is of kind
-``unit[i % len(unit)]``, so layers past the last whole unit reuse the
-unit's prefix, as in the JAX package.
+xLSTM's five ``mlstm`` layers and one ``slstm``, RecurrentGemma's ``rec,
+rec, attn``): layer ``i`` is of kind ``unit[i % len(unit)]``, so layers
+past the last whole unit reuse the unit's prefix, as in the JAX package.
+With ``d_ff > 0`` a hybrid layer runs its block, then a gated MLP.
 """
 from __future__ import annotations
 
@@ -27,14 +28,24 @@ REGISTRY = {}
 class ArchConfig:
     name: str
     family: str                       # "mamba" (Mamba-1 and Mamba-2) |
-    #                                   "xlstm" (mLSTM and sLSTM)
+    #                                   "xlstm" (mLSTM and sLSTM) | "hybrid"
+    #                                   (RG-LRU and local attention)
     n_layers: int
     d_model: int
     vocab: int
-    n_heads: int = 1                  # xlstm: mLSTM / sLSTM heads (unused
-    #                                   by the Mamba blocks)
-    d_ff: int = 0                     # MLP width; > 0 on an xLSTM unit
-    #                                   raises (no MLP sub-block yet)
+    n_heads: int = 1                  # xlstm: mLSTM / sLSTM heads; hybrid:
+    #                                   attention query heads (unused by
+    #                                   the Mamba blocks)
+    n_kv_heads: int = 1               # hybrid: attention K/V heads (JAX
+    #                                   requires it; 1 = MQA)
+    d_ff: int = 0                     # MLP width (hybrid: each layer's
+    #                                   gated MLP); > 0 on an xLSTM unit
+    #                                   raises (no MLP wired there yet)
+    head_dim: Optional[int] = None    # default d_model // n_heads
+    act: str = "swiglu"               # MLP gate: swiglu | geglu (tanh GeLU)
+    attn_window: Optional[int] = None  # sliding-window size (None = full)
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False      # head = embed.T, embedding × √d_model
     norm_eps: float = 1e-6
     # Mamba
     d_state: int = 16
@@ -48,10 +59,14 @@ class ArchConfig:
     ssm_norm: str = "none"            # mamba2 output gate: "none" |
     #                                   "rms_gate" (RMSNorm of y·silu(z)
     #                                   with a learned (d_inner,) scale)
-    # xlstm layer pattern: one entry per layer in the unit
-    pattern: Tuple[str, ...] = ()     # e.g. 5 × "mlstm" + "slstm"; () =
+    # hybrid / xlstm layer pattern: one entry per layer in the unit
+    pattern: Tuple[str, ...] = ()     # e.g. 5 × "mlstm" + "slstm", or
+    #                                   ("rec", "rec", "attn"); () =
     #                                   homogeneous (the Mamba rule)
-    conv_width: int = 4               # xlstm mLSTM temporal conv width
+    lru_width: Optional[int] = None   # hybrid recurrent width (default
+    #                                   d_model)
+    lru_gate_blocks: int = 16         # block-diagonal RG-LRU gates
+    conv_width: int = 4               # hybrid/xlstm temporal conv width
     proj_factor: float = 2.0          # xlstm mLSTM up-projection factor
     # execution
     dtype: str = "bfloat16"           # activation/compute dtype
@@ -79,7 +94,15 @@ class ArchConfig:
     #                                   resolves: "fwd" (forward only —
     #                                   serving) | "fwdbwd" (forward +
     #                                   backward — what launch/train.py sets)
+    attn_chunk: Optional[int] = None  # online-softmax KV chunk (None =
+    #                                   materialised scores up to L = 4096,
+    #                                   chunks of 1024 beyond)
     remat: str = "unit"               # none | unit (checkpoint each layer)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else \
+            self.d_model // self.n_heads
 
     @property
     def dtr(self) -> int:
@@ -126,7 +149,8 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the JAX package's
         ``reduced()`` restricted to the fields kept here). Two whole units
-        deep: 2 layers for Mamba, 12 for xLSTM's six-layer unit."""
+        deep: 2 layers for Mamba, 12 for xLSTM's six-layer unit, 6 for the
+        hybrid's three-layer unit."""
         k = {}
         if self.ssm_variant == "mamba2":
             k["ssm_head_dim"] = 16             # 8 heads at d_inner = 128
@@ -134,6 +158,10 @@ class ArchConfig:
         if self.family != "mamba":
             k["n_heads"] = 4
             k["d_ff"] = 128 if self.d_ff else 0
+        if self.family == "hybrid":
+            k.update(n_kv_heads=max(1, min(self.n_kv_heads, 2)), head_dim=16,
+                     lru_width=64 if self.lru_width else None,
+                     lru_gate_blocks=4, attn_chunk=None)
         return dataclasses.replace(
             self, name=self.name + "-smoke",
             n_layers=max(len(self.unit) * 2, 2), d_model=64, vocab=128,

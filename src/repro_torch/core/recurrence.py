@@ -1,6 +1,12 @@
-"""The xLSTM recurrences (port of the mLSTM and sLSTM parts of
-``repro.core.recurrence``): the PackMamba boundary rule, the recurrence's
-multiplicative term forced to zero at ``positions == 0``, on both.
+"""The RG-LRU and xLSTM recurrences (port of ``rglru``, ``mlstm`` and
+``slstm`` of ``repro.core.recurrence``): the PackMamba boundary rule, the
+recurrence's multiplicative term forced to zero at ``positions == 0``, on
+each.
+
+* RG-LRU (RecurrentGemma) is a diagonal recurrence with state (D,):
+  a_t = exp(−c·softplus(Λ)·r_t), h_t = a_t h_{t−1} + √(1−a_t²)·(i_t ⊙ x_t),
+  one ``core.scan.segmented_scan``. The JAX package runs that scan in XLA
+  with no Pallas kernel; the plain chunked scan is its counterpart here.
 
 * mLSTM keeps a matrix state C (dk×dv) per head with a *scalar* per-head
   decay. ``mlstm`` is the chunkwise-parallel form (inter-chunk state +
@@ -38,7 +44,31 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scan import segmented_scan
+
 NEG = -1e30
+RGLRU_C = 8.0
+
+
+def rglru(x, r_gate, i_gate, a_param, positions: Optional[torch.Tensor] = None,
+          h0: Optional[torch.Tensor] = None, chunk: int = 256):
+    """x, r_gate, i_gate (B, L, D), the gates already sigmoided; a_param
+    (D,); h0 (B, D) or None. The scan is ``segmented_scan``'s chunked
+    method, in f32. Returns (h (B, L, D) in x's dtype, h_last (B, D) f32).
+
+    The √(1−a²) input normaliser uses the gate's own a, as an unpacked
+    sequence sees it at its step 0 with h_{−1} = 0: the reset zeroes only
+    the multiplicative a inside the scan, never the b term. Near a = 1 the
+    normaliser's gradient grows as a/√(1−a²); at a = 1 in f32 it is −inf,
+    in the JAX package as here (the same ``clamp`` and ``sqrt``)."""
+    log_a = -RGLRU_C * F.softplus(a_param.float()) * r_gate.float()
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * (i_gate.float()
+                                                         * x.float())
+    reset = (positions == 0) if positions is not None else None
+    h, h_last = segmented_scan(a, b, reset=reset, h0=h0, method="chunked",
+                               chunk=chunk)
+    return h.to(x.dtype), h_last
 
 
 def _segment_starts(reset: Optional[torch.Tensor], B: int, L: int, device):

@@ -15,9 +15,11 @@ when ``n_layers`` is no multiple of the unit) holding the layers past the
 last whole unit, which reuse the unit's prefix. The port keeps one
 ``ParameterDict`` per layer: layer ``u·len(unit) + j`` is entry ``u`` of
 ``units["<j>_<kind>"]``, and tail layer ``n_units·len(unit) + t`` is
-``tail["<t>_<kind>"]``, each as ``layers.<i>.<leaf>``. Leaf layouts are
-unchanged: both packages store dense weights (din, dout) and apply them as
-``x @ W``.
+``tail["<t>_<kind>"]``, each as ``layers.<i>.<leaf>``; a hybrid layer's
+MLP, the JAX sub-block ``"<j>_ffn"`` beside ``"<j>_rec"`` or
+``"<j>_attn"``, is ``ffns.<i>.<leaf>``. A tied embedding has no ``head``
+on either side. Leaf layouts are unchanged: both packages store dense
+weights (din, dout) and apply them as ``x @ W``.
 """
 from __future__ import annotations
 
@@ -27,15 +29,23 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.blocks import unit_layout
 from repro_torch.optim.adamw import AdamWState
 
 
 def _layout(cfg: ArchConfig):
-    """(n_units, n_tail, the unit's keys ``<j>_<kind>``) of the JAX
-    tree."""
+    """(n_units, n_tail, the unit's sub-blocks as (JAX key ``<j>_<kind>``,
+    unit position j, the port's module ``layers`` or ``ffns``))."""
     U = len(cfg.unit)
-    return (cfg.n_layers // U, cfg.n_layers % U,
-            [f"{j}_{kind}" for j, kind in enumerate(cfg.unit)])
+    subs = [(name, int(name.split("_")[0]),
+             "ffns" if kind == "mlp" else "layers")
+            for name, kind in unit_layout(cfg)]
+    return cfg.n_layers // U, cfg.n_layers % U, subs
+
+
+def _top(cfg: ArchConfig):
+    return ("embed", "final_norm") + (() if cfg.tie_embeddings
+                                      else ("head",))
 
 
 def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
@@ -43,50 +53,49 @@ def params_from_jax(tree, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
     def t(a):
         return torch.as_tensor(np.array(a), device=device)
 
-    n_units, n_tail, names = _layout(cfg)
-    U = len(names)
-    out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
-           "head": t(tree["head"])}
-    for j, name in enumerate(names if n_units else ()):
+    n_units, n_tail, subs = _layout(cfg)
+    U = len(cfg.unit)
+    out = {k: t(tree[k]) for k in _top(cfg)}
+    for name, j, mod in (subs if n_units else ()):
         for k, v in tree["units"][name].items():
             v = np.asarray(v)
             if v.shape[0] != n_units:
                 raise ValueError(f"units leaf {name}.{k} has {v.shape[0]} "
                                  f"units, config {cfg.name} has {n_units}")
             for u in range(n_units):
-                out[f"layers.{u * U + j}.{k}"] = t(v[u])
-    for j, name in enumerate(names[:n_tail]):
-        for k, v in tree["tail"][name].items():
-            out[f"layers.{n_units * U + j}.{k}"] = t(v)
+                out[f"{mod}.{u * U + j}.{k}"] = t(v[u])
+    for name, j, mod in subs:
+        if j < n_tail:
+            for k, v in tree["tail"][name].items():
+                out[f"{mod}.{n_units * U + j}.{k}"] = t(v)
     return out
 
 
 def to_jax_tree(named: Dict[str, torch.Tensor], cfg: ArchConfig):
     """The inverse map: ``{"embed", "units": {"<j>_<kind>": {leaf:
     (n_units, …)}}, ["tail": {"<j>_<kind>": {leaf: …}},] "final_norm",
-    "head"}`` of f32 numpy arrays, the unit axis stacked back. Takes any
+    ["head"]}`` of f32 numpy arrays, the unit axis stacked back. Takes any
     dict keyed like ``LM.named_parameters()`` (e.g. the gradients of a
     train step)."""
     def a(t):
         return t.detach().float().cpu().numpy()
 
-    def leaves(i):
-        pre = f"layers.{i}."
+    def leaves(mod, i):
+        pre = f"{mod}.{i}."
         return sorted(k[len(pre):] for k in named if k.startswith(pre))
 
-    n_units, n_tail, names = _layout(cfg)
-    U = len(names)
-    out = {"embed": a(named["embed"]), "final_norm": a(named["final_norm"]),
-           "head": a(named["head"])}
+    n_units, n_tail, subs = _layout(cfg)
+    U = len(cfg.unit)
+    out = {k: a(named[k]) for k in _top(cfg)}
     if n_units:
         out["units"] = {name: {leaf: np.stack(
-            [a(named[f"layers.{u * U + j}.{leaf}"]) for u in range(n_units)])
-            for leaf in leaves(j)} for j, name in enumerate(names)}
+            [a(named[f"{mod}.{u * U + j}.{leaf}"]) for u in range(n_units)])
+            for leaf in leaves(mod, j)} for name, j, mod in subs}
     if n_tail:
-        out["tail"] = {name: {leaf: a(named[f"layers.{n_units * U + j}."
+        out["tail"] = {name: {leaf: a(named[f"{mod}.{n_units * U + j}."
                                             f"{leaf}"])
-                              for leaf in leaves(n_units * U + j)}
-                       for j, name in enumerate(names[:n_tail])}
+                              for leaf in leaves(mod, n_units * U + j)}
+                       for name, j, mod in subs if j < n_tail}
     return out
 
 

@@ -303,6 +303,7 @@ class ServeEngine:
         if bucket_policy not in ("smallest_fit", "ttft"):
             raise ValueError(f"bucket_policy must be 'smallest_fit' or "
                              f"'ttft', got {bucket_policy!r}")
+        model.check_serves()
         self.model = model
         self.device = model.device
         # metrics are always on; spans record only under Obs.on()

@@ -9,8 +9,10 @@ Shapes (per assignment):
   long_500k    seq 524,288 global_batch 1     → serve_step (sub-quadratic only)
 
 Skip rules: encoder-only archs have no decode; long_500k runs only for
-sub-quadratic archs. Every config the port has is a recurrent decoder, so
-each of the four shapes runs on each of them.
+sub-quadratic archs. Every Mamba and xLSTM config the port has is a
+recurrent decoder, so each of the four shapes runs on each of them. The
+hybrid family trains only, so its prefill and decode cells skip, naming
+ROADMAP item 5c-ii (its serving path).
 
 The cells run through the port's own entry points: train through
 ``train.trainer.make_train_step`` and ``AdamW``, prefill through
@@ -53,6 +55,9 @@ RECURRENT_KINDS = {"mamba", "mamba2", "mlstm", "slstm"}
 
 def cell_supported(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
     s = SHAPES[shape_name]
+    if cfg.family == "hybrid" and s["kind"] != "train":
+        return False, ("serving cell: the hybrid family's serving path is "
+                       "ROADMAP item 5c-ii")
     if s["kind"] == "decode" and shape_name == "long_500k" and \
             not set(cfg.unit) <= RECURRENT_KINDS:
         return False, "full attention: 500k decode is quadratic-regime"

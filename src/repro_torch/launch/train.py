@@ -1,23 +1,29 @@
 """Training launcher of the port (``repro.launch.train`` on one card):
 packed training of a Mamba-1 or Mamba-2 model with the scan and conv
-kernels, or of xlstm-125m (the conv kernels in its mLSTM layers; its
-mLSTM and sLSTM recurrences are plain PyTorch).
+kernels, of xlstm-125m (the conv kernels in its mLSTM layers; its mLSTM
+and sLSTM recurrences are plain PyTorch), or of recurrentgemma-2b (the
+conv kernels in its RG-LRU layers; the RG-LRU scan, the local attention
+and the MLPs are plain PyTorch).
 
   python -m repro_torch.launch.train --arch mamba-1.4b --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --arch mamba2-370m --rows 8 --seq-len 4096
   python -m repro_torch.launch.train --arch xlstm-125m --rows 2 --seq-len 4096
+  python -m repro_torch.launch.train --arch recurrentgemma-2b --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --tiny --device cpu --steps 3 \\
       --rows 2 --seq-len 256 --ckpt-dir /tmp/ckpt --ckpt-every 1 \\
       --obs-trace /tmp/train_trace.json
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--tiny`` is the JAX
 launcher's: 4 layers of d_model 128, so for xlstm-125m 4 tail mLSTM
-layers (fewer than its 6-layer unit) and no sLSTM. ``--scan-tune auto``
+layers (fewer than its 6-layer unit) and no sLSTM, and for
+recurrentgemma-2b one unit and a tail rec layer (its head, MLP and
+recurrent widths stand). ``--scan-tune auto``
 (the process-default ``TUNE_CACHE_torch.json``) or ``--scan-tune <path>``
 sweeps the scan's schedules forward + backward at the run's (rows,
 seq-len) before the first step, unless the cache holds that key, and the
-model then runs the measured winner; a config with no scan (xLSTM) has
-nothing to sweep, and the flag does nothing, as in the JAX launcher.
+model then runs the measured winner; a config with no selective scan
+(xLSTM, the hybrid) has nothing to sweep, and the flag does nothing, as
+in the JAX launcher.
 
 ``--ckpt-dir`` saves every ``--ckpt-every`` steps (default 50) and, on
 SIGTERM or SIGINT, once more before stopping; a launch whose directory
@@ -54,6 +60,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="mamba-110m")
     ap.add_argument("--tiny", action="store_true",
                     help="shrink the model for a CPU demo / smoke run")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (width "
+                         "stands; whole units first, as the config's "
+                         "own depth)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=4096)
@@ -96,6 +106,8 @@ def main(argv=None):
     if args.tiny:               # the JAX launcher's --tiny config
         cfg = dataclasses.replace(cfg, d_model=128, n_layers=4, vocab=512,
                                   dtype="float32", scan_chunk=64)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.dtype or args.param_dtype:
         cfg = dataclasses.replace(
             cfg, dtype=args.dtype or cfg.dtype,

@@ -1,9 +1,15 @@
-"""The Mamba-1, Mamba-2, mLSTM and sLSTM blocks (port of the ``mamba``,
-``mamba2``, ``mlstm`` and ``slstm`` parts of ``repro.models.blocks``).
+"""The Mamba-1, Mamba-2, mLSTM, sLSTM, RG-LRU and local-attention blocks
+and the gated MLP (port of the ``mamba``, ``mamba2``, ``mlstm``,
+``slstm``, ``rec``, ``attn`` and ``mlp`` parts of
+``repro.models.blocks``).
 
 ``init_<kind>`` makes a block's parameters, ``apply_<kind>`` runs it over
 a packed (B, L) buffer and ``step_<kind>`` over one decode token
-(``KINDS`` holds them by kind, ``layer_kinds`` gives each layer's).
+(``KINDS`` holds them by kind, ``layer_kinds`` gives each layer's,
+``unit_layout`` the JAX sub-block names of one pattern unit). The hybrid
+family's ``rec`` and ``attn`` blocks train only: their decode state (the
+RG-LRU's and the attention's K/V ring) is ROADMAP item 5c-ii, and the
+LM's serving entries refuse the family.
 Parameter names and layouts are the JAX package's: dense weights are (din,
 dout) and applied as ``x @ W`` (the transpose of ``nn.Linear.weight``),
 and every weight is cast to the activation dtype at use.
@@ -33,8 +39,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ssm as core_ssm
+from repro_torch.core.attention import attention, rope
 from repro_torch.core.conv import conv1d_pack_update
-from repro_torch.core.recurrence import NEG, mlstm, mlstm_step, slstm
+from repro_torch.core.recurrence import (NEG, RGLRU_C, mlstm, mlstm_step,
+                                         rglru, slstm)
 from repro_torch.kernels import ops as kops
 
 
@@ -727,6 +735,153 @@ def chunk_slstm(p, x, cache, ctx: Ctx, cfg: ArchConfig):
     return _slstm_out(p, x, y), {"c": c, "n": n, "m": m, "h": hh}
 
 
+# ===========================================================================
+# hybrid (RecurrentGemma) blocks: RG-LRU, local attention, gated MLP
+# ===========================================================================
+# The RG-LRU block's conv is ``conv1d_pack`` (kernels #1 and #2 on the
+# card); its scan, the attention and the MLP are plain PyTorch, as the JAX
+# package runs them in XLA with no Pallas kernel. Serving them (the
+# RG-LRU's decode state, the attention's K/V ring) is ROADMAP item 5c-ii.
+
+SERVING_5C_II = ("the hybrid family's serving path (the RG-LRU decode "
+                 "state and the attention's K/V ring) is ROADMAP item "
+                 "5c-ii; the port trains it only")
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _act(name: str):
+    return _gelu if name == "geglu" else F.silu
+
+
+def mlp_param_shapes(cfg: ArchConfig):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"norm": (d,), "w_gate": (d, ff), "w_up": (d, ff),
+            "w_down": (ff, d)}
+
+
+def init_mlp(cfg: ArchConfig, generator: torch.Generator,
+             device) -> Dict[str, torch.Tensor]:
+    d, ff = cfg.d_model, cfg.d_ff
+    s = mlp_param_shapes(cfg)
+    return {"norm": torch.ones(s["norm"], device=device),
+            "w_gate": _randn(generator, s["w_gate"], device) * d ** -0.5,
+            "w_up": _randn(generator, s["w_up"], device) * d ** -0.5,
+            "w_down": _randn(generator, s["w_down"], device) * ff ** -0.5}
+
+
+def apply_mlp(p, x, ctx: Ctx, cfg: ArchConfig):
+    """x + W_down(act(h W_gate) ⊙ h W_up), h the RMS-normed x."""
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    g = _act(cfg.act)(h @ p["w_gate"].to(h.dtype))
+    u = h @ p["w_up"].to(h.dtype)
+    return x + (g * u) @ p["w_down"].to(x.dtype)
+
+
+def rec_param_shapes(cfg: ArchConfig):
+    d, W, nb = cfg.d_model, cfg.conv_width, cfg.lru_gate_blocks
+    lw = cfg.lru_width or d
+    if lw % nb:
+        raise ValueError(f"lru_width {lw} % gate blocks {nb} != 0")
+    c = lw // nb
+    return {"norm": (d,), "w_x": (d, lw), "w_y": (d, lw), "conv_w": (W, lw),
+            "conv_b": (lw,), "w_r": (nb, c, c), "w_i": (nb, c, c),
+            "a_param": (lw,), "wo": (lw, d)}
+
+
+def init_rec(cfg: ArchConfig, generator: torch.Generator,
+             device) -> Dict[str, torch.Tensor]:
+    """One block's f32 parameters, from the distributions of the JAX
+    package's ``init_rec``: Λ such that a = exp(−c·softplus(Λ)) lies in
+    [0.9, 0.999]."""
+    d, W = cfg.d_model, cfg.conv_width
+    s = rec_param_shapes(cfg)
+    lw, c = s["w_x"][1], s["w_r"][1]
+    u = 0.9 + 0.099 * torch.rand(s["a_param"], generator=generator,
+                                 device=device)
+    return {
+        "norm": torch.ones(s["norm"], device=device),
+        "w_x": _randn(generator, s["w_x"], device) * d ** -0.5,
+        "w_y": _randn(generator, s["w_y"], device) * d ** -0.5,
+        "conv_w": _randn(generator, s["conv_w"], device) * W ** -0.5,
+        "conv_b": torch.zeros(s["conv_b"], device=device),
+        "w_r": _randn(generator, s["w_r"], device) * c ** -0.5,
+        "w_i": _randn(generator, s["w_i"], device) * c ** -0.5,
+        "a_param": torch.log(torch.expm1(-torch.log(u) / RGLRU_C)),
+        "wo": _randn(generator, s["wo"], device) * lw ** -0.5,
+    }
+
+
+def _gate_blockdiag(x_c, w, nb):
+    """x_c (B, L, lw) → its block-diagonal projection by w (nb, c, c)."""
+    Bz, L, lw = x_c.shape
+    xb = x_c.reshape(Bz, L, nb, lw // nb)
+    return torch.einsum("blnc,ncd->blnd", xb, w).reshape(Bz, L, lw)
+
+
+def apply_rec(p, x, ctx: Ctx, cfg: ArchConfig):
+    """x (B, L, d) → x + block(x): the RG-LRU over the conv of the x
+    branch, gated by the tanh-GeLU y branch. The conv is ``conv1d_pack``
+    (#1 forward, #2 dx backward on the card), the scan ``core.recurrence.
+    rglru`` (chunked, chunk ``scan_chunk``)."""
+    nb, dt = cfg.lru_gate_blocks, x.dtype
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    y_branch = _gelu(h @ p["w_y"].to(dt))
+    x_branch = h @ p["w_x"].to(dt)
+    x_c = kops.conv1d_pack(x_branch, p["conv_w"].to(dt), p["conv_b"].to(dt),
+                           ctx.positions)
+    r = torch.sigmoid(_gate_blockdiag(x_c, p["w_r"].to(dt), nb))
+    i = torch.sigmoid(_gate_blockdiag(x_c, p["w_i"].to(dt), nb))
+    lru, _ = rglru(x_c, r, i, p["a_param"], ctx.positions,
+                   chunk=cfg.scan_chunk)
+    return x + (lru * y_branch) @ p["wo"].to(dt)
+
+
+def attn_param_shapes(cfg: ArchConfig):
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"norm": (d,), "wq": (d, H * hd), "wkv": (d, 2 * Hkv * hd),
+            "wo": (H * hd, d)}
+
+
+def init_attn(cfg: ArchConfig, generator: torch.Generator,
+              device) -> Dict[str, torch.Tensor]:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    s = attn_param_shapes(cfg)
+    return {"norm": torch.ones(s["norm"], device=device),
+            "wq": _randn(generator, s["wq"], device) * d ** -0.5,
+            "wkv": _randn(generator, s["wkv"], device) * d ** -0.5,
+            "wo": _randn(generator, s["wo"], device) * (H * hd) ** -0.5}
+
+
+def _apply_rope(cfg: ArchConfig, q, k, ctx: Ctx):
+    """Plain RoPE over the intra-sequence positions (M-RoPE is 5e's)."""
+    if ctx.positions is not None:
+        q = rope(q, ctx.positions, cfg.rope_theta)
+        k = rope(k, ctx.positions, cfg.rope_theta)
+    return q, k
+
+
+def apply_attn(p, x, ctx: Ctx, cfg: ArchConfig):
+    """x (B, L, d) → x + block(x): causal local attention under the
+    segment mask, RoPE on intra-sequence positions."""
+    Bz, L, _ = x.shape
+    H, Hkv, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.hd, x.dtype
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    q = (h @ p["wq"].to(dt)).reshape(Bz, L, H, hd)
+    kv = (h @ p["wkv"].to(dt)).reshape(Bz, L, 2, Hkv, hd)
+    q, k = _apply_rope(cfg, q, kv[:, :, 0], ctx)
+    chunk = cfg.attn_chunk
+    if chunk is None and L > 4096:
+        chunk = 1024                       # online softmax for long rows
+    o = attention(q, k, kv[:, :, 1], segment_ids_q=ctx.segment_ids,
+                  segment_ids_kv=ctx.segment_ids, causal=True,
+                  window=cfg.attn_window, chunk_kv=chunk)
+    return x + o.reshape(Bz, L, H * hd) @ p["wo"].to(dt)
+
+
 CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2, "mlstm": chunk_mlstm,
          "slstm": chunk_slstm}
 
@@ -741,9 +896,17 @@ KINDS = {
               step_mlstm),
     "slstm": (init_slstm, slstm_param_shapes, apply_slstm, init_slstm_cache,
               step_slstm),
+    # training only: no decode cache or step until ROADMAP 5c-ii (the LM's
+    # serving entries refuse the family first, ``LM.check_serves``)
+    "rec": (init_rec, rec_param_shapes, apply_rec, None, None),
+    "attn": (init_attn, attn_param_shapes, apply_attn, None, None),
 }
+# the MLP sub-block that follows each hybrid layer's block when d_ff > 0:
+# (init, parameter shapes, apply)
+MLP = (init_mlp, mlp_param_shapes, apply_mlp)
 # the layer kinds of each family the port has
-FAMILY_KINDS = {"mamba": {"mamba", "mamba2"}, "xlstm": {"mlstm", "slstm"}}
+FAMILY_KINDS = {"mamba": {"mamba", "mamba2"}, "xlstm": {"mlstm", "slstm"},
+                "hybrid": {"rec", "attn"}}
 
 
 def layer_kinds(cfg: ArchConfig):
@@ -754,13 +917,30 @@ def layer_kinds(cfg: ArchConfig):
     if not set(unit) <= FAMILY_KINDS.get(cfg.family, set()):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, unit {unit}; the port has "
-            f"the Mamba-1 and Mamba-2 blocks and the xLSTM (mLSTM, sLSTM) "
-            f"blocks only")
+            f"the Mamba-1 and Mamba-2 blocks, the xLSTM (mLSTM, sLSTM) "
+            f"blocks and the hybrid (RG-LRU, local attention) blocks only")
     if cfg.family == "xlstm" and cfg.d_ff:
         raise NotImplementedError(
             f"{cfg.name}: d_ff = {cfg.d_ff} on an xLSTM unit; the port has "
-            f"no MLP sub-block yet")
+            f"no MLP wired for that family yet")
     return tuple(unit[i % len(unit)] for i in range(cfg.n_layers))
+
+
+def has_mlp(cfg: ArchConfig) -> bool:
+    """True when every layer ends in the gated MLP (a hybrid with d_ff)."""
+    return cfg.family == "hybrid" and cfg.d_ff > 0
+
+
+def unit_layout(cfg: ArchConfig):
+    """(param_name, kind) pairs of one pattern unit, the JAX package's
+    ``unit_layout``: ``<j>_<kind>`` for the block at unit position j, then
+    ``<j>_ffn`` (kind ``mlp``) when the layer has an MLP."""
+    out = []
+    for j, kind in enumerate(cfg.unit):
+        out.append((f"{j}_{kind}", kind))
+        if has_mlp(cfg):
+            out.append((f"{j}_ffn", "mlp"))
+    return tuple(out)
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,19 @@
 """The language model (port of ``repro.models.lm`` for the families
-``mamba`` and ``xlstm``): embedding → ``n_layers`` blocks → RMSNorm →
-head. Layer ``i`` is of kind ``cfg.unit[i % len(cfg.unit)]``
-(``blocks.layer_kinds``): every layer a Mamba-1 or a Mamba-2 block, or
-xLSTM's pattern unit of five mLSTM layers and one sLSTM, as in the JAX
-package (whole units, then tail layers that reuse the unit's prefix).
+``mamba``, ``xlstm`` and ``hybrid``): embedding → ``n_layers`` blocks →
+RMSNorm → head. Layer ``i`` is of kind ``cfg.unit[i % len(cfg.unit)]``
+(``blocks.layer_kinds``): every layer a Mamba-1 or a Mamba-2 block,
+xLSTM's pattern unit of five mLSTM layers and one sLSTM, or
+RecurrentGemma's (rec, rec, attn) unit, each hybrid layer its block and
+then a gated MLP, as in the JAX package (whole units, then tail layers
+that reuse the unit's prefix).
 
 ``LM`` is an ``nn.Module`` that holds its parameters under the JAX
-package's names (``embed``, ``layers.<i>.<block leaf>``, ``final_norm``,
-``head``); ``interop.params_from_jax`` maps a JAX tree onto them.
+package's names (``embed``, ``layers.<i>.<block leaf>``, a hybrid layer's
+MLP as ``ffns.<i>.<leaf>``, ``final_norm``, and ``head`` unless the
+embedding is tied: then the head is ``embed.T`` and the embedding is
+scaled by √d_model); ``interop.params_from_jax`` maps a JAX tree onto
+them. The hybrid family trains (``loss``, ``forward``); its serving
+entries raise, naming ROADMAP item 5c-ii.
 
 Training: ``loss`` is the packed next-token cross-entropy; the parameters
 track gradients, ``remat="unit"`` recomputes each layer in the backward
@@ -80,8 +86,13 @@ class LM(nn.Module):
             nn.ParameterDict({k: param(s) for k, s in
                               B.KINDS[kind][1](cfg).items()})
             for kind in self.kinds)
+        self.ffns = nn.ModuleList(
+            nn.ParameterDict({k: param(s) for k, s in
+                              B.MLP[1](cfg).items()})
+            for _ in self.kinds) if B.has_mlp(cfg) else None
         self.final_norm = param((cfg.d_model,))
-        self.head = param((cfg.d_model, cfg.vocab))
+        self.head = (None if cfg.tie_embeddings
+                     else param((cfg.d_model, cfg.vocab)))
 
     # ------------------------------------------------------- layer views
     def _layer_state(self, tree, i):
@@ -115,13 +126,23 @@ class LM(nn.Module):
         generator must live on the model's device."""
         cfg, dev = self.cfg, self.device
         self.embed.copy_(B._randn(generator, self.embed.shape, dev) * 0.02)
-        for kind, layer in zip(self.kinds, self.layers):
+        for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
             for k, v in B.KINDS[kind][0](cfg, generator, dev).items():
                 layer[k].copy_(v)
+            if self.ffns is not None:
+                for k, v in B.MLP[0](cfg, generator, dev).items():
+                    self.ffns[i][k].copy_(v)
         self.final_norm.fill_(1.0)
-        self.head.copy_(B._randn(generator, self.head.shape, dev)
-                        * cfg.d_model ** -0.5)
+        if self.head is not None:
+            self.head.copy_(B._randn(generator, self.head.shape, dev)
+                            * cfg.d_model ** -0.5)
         return self
+
+    def check_serves(self):
+        """Raises where the family has no serving path in the port yet."""
+        if self.cfg.family == "hybrid":
+            raise NotImplementedError(f"{self.cfg.name}: "
+                                      f"{B.SERVING_5C_II}")
 
     # ------------------------------------------------------------- embedding
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -130,25 +151,42 @@ class LM(nn.Module):
                 for k, v in batch.items()}
 
     def _embed(self, tokens) -> torch.Tensor:
-        return self.embed[tokens.long()].to(getattr(torch, self.cfg.dtype))
+        dt = getattr(torch, self.cfg.dtype)
+        x = self.embed[tokens.long()].to(dt)
+        if self.cfg.tie_embeddings:
+            # the scale rounded to the compute dtype first, as JAX's
+            # jnp.asarray(d ** 0.5, dt): 50.5 in bf16 at d = 2560
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=dt,
+                                 device=x.device)
+        return x
 
     def _ctx(self, batch) -> Ctx:
         return Ctx(positions=batch.get("positions"),
                    segment_ids=batch.get("segment_ids"))
 
     def _logits(self, x) -> torch.Tensor:
-        return (x @ self.head.to(x.dtype)).float()
+        w = self.embed.t() if self.head is None else self.head
+        return (x @ w.to(x.dtype)).float()
 
     # ----------------------------------------------------------- forward
+    def _layer(self, i):
+        """Layer ``i``'s forward ``(x, ctx) -> x``: its block, then its MLP
+        when it has one."""
+        cfg, p = self.cfg, self.layers[i]
+        apply = B.KINDS[self.kinds[i]][2]
+        if self.ffns is None:
+            return lambda x, ctx: apply(p, x, ctx, cfg)
+        f = self.ffns[i]
+        return lambda x, ctx: B.MLP[2](f, apply(p, x, ctx, cfg), ctx, cfg)
+
     def _stack(self, x, ctx) -> torch.Tensor:
         remat = self.cfg.remat == "unit" and torch.is_grad_enabled()
-        for kind, p in zip(self.kinds, self.layers):
-            apply = B.KINDS[kind][2]
+        for i in range(len(self.kinds)):
+            layer = self._layer(i)
             if remat:
-                x = checkpoint(apply, p, x, ctx, self.cfg,
-                               use_reentrant=False)
+                x = checkpoint(layer, x, ctx, use_reentrant=False)
             else:
-                x = apply(p, x, ctx, self.cfg)
+                x = layer(x, ctx)
         return B._norm(self.final_norm, x, self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -163,6 +201,7 @@ class LM(nn.Module):
         """Serving prefill to the logits at each row's last valid position
         (B, V) f32, handing off no cache: the dry run's prefill cell (the
         JAX ``LM.prefill_logits``)."""
+        self.check_serves()
         batch = self._batch(batch)
         x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
         lens = (batch["segment_ids"] > 0).sum(-1)
@@ -220,6 +259,7 @@ class LM(nn.Module):
         (segment_ids mark validity): one forward that also hands off every
         layer's decode cache. Returns (last_logits (B, V), cache,
         cache_len (B,))."""
+        self.check_serves()
         batch = self._batch(batch)
         lens = (batch["segment_ids"] > 0).sum(-1).to(torch.int32)
         x, cache = self._collect(self._embed(batch["tokens"]),
@@ -238,6 +278,7 @@ class LM(nn.Module):
         states in the cache layout with (B, S) in place of the slot axis,
         e.g. {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
         di, N)} for Mamba-1; seg_lens (B, S) int32, 0 where absent)."""
+        self.check_serves()
         batch = self._batch(batch)
         ends = torch.as_tensor(ends, device=self.device)
         ctx = self._ctx(batch)
@@ -269,6 +310,7 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------- decode
     def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        self.check_serves()
         out = {}
         for j, (prefix, kind) in enumerate(self._groups):
             n = len(range(j, self.cfg.n_layers, len(self.cfg.unit)))
@@ -283,6 +325,7 @@ class LM(nn.Module):
     def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None):
         """tokens_t (B, 1); reset (B,) bool or None. Advances every layer's
         cache in place; returns (logits (B, V) f32, cache)."""
+        self.check_serves()
         tokens_t = torch.as_tensor(tokens_t, device=self.device)
         x = self._embed(tokens_t)
         ctx = Ctx(reset_t=reset)
@@ -429,6 +472,7 @@ class LM(nn.Module):
         exact no-op); ``cache_len`` (B,) counts the tokens consumed before.
         Returns (logits (B, V) f32 at each row's last valid slab token,
         cache, cache_len + the slab's valid tokens)."""
+        self.check_serves()
         batch = self._batch(batch)
         x = self._embed(batch["tokens"])
         ctx = self._ctx(batch)

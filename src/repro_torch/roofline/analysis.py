@@ -125,13 +125,19 @@ def model_flops_per_step(cfg, kind: str, batch: int, seq: int) -> float:
 
 
 def active_params(cfg) -> float:
-    """Parameter count from each layer's block shapes (``models/blocks.py``
-    ``layer_kinds``, ``KINDS``) plus the embedding, the final norm and the
-    head: no device, no allocation. The JAX version scales expert weights
-    to the top-k active set; the port has no experts until slice 7
-    (ROADMAP queue 1), and that scaling belongs here when they come."""
+    """Parameter count from each layer's sub-blocks' shapes
+    (``models/blocks.py`` ``layer_kinds``, ``KINDS``, and ``MLP`` where
+    the layer has one) plus the embedding, the final norm and the head (a
+    tied embedding counted once): no device, no allocation. The JAX
+    version scales expert weights to the top-k active set; the port has no
+    experts until slice 7 (ROADMAP queue 1), and that scaling belongs here
+    when they come."""
     from repro_torch.models import blocks
-    per_kind = {k: sum(math.prod(s) for s in blocks.KINDS[k][1](cfg).values())
-                for k in set(cfg.unit)}
-    return float(sum(per_kind[k] for k in blocks.layer_kinds(cfg))
-                 + 2 * cfg.vocab * cfg.d_model + cfg.d_model)
+
+    def count(shapes):
+        return sum(math.prod(s) for s in shapes(cfg).values())
+    per_kind = {k: count(blocks.KINDS[k][1]) for k in set(cfg.unit)}
+    mlp = count(blocks.MLP[1]) if blocks.has_mlp(cfg) else 0
+    embed = (1 if cfg.tie_embeddings else 2) * cfg.vocab * cfg.d_model
+    return float(sum(per_kind[k] + mlp for k in blocks.layer_kinds(cfg))
+                 + embed + cfg.d_model)

@@ -1,7 +1,9 @@
 """Shared parts of the xLSTM training parity files
 (``tests/test_torch_xlstm_train*.py``): the two configs, the packed batch,
 the JAX side's compile options, the reference's effective decay rule and
-the per-leaf measure. Not a test module (no ``test_`` prefix)."""
+the per-leaf measure; the hybrid's files (``tests/test_torch_hybrid*.py``)
+take the batch, the compile options, the decay rule and the measure too.
+Not a test module (no ``test_`` prefix)."""
 import dataclasses
 
 import numpy as np
@@ -21,14 +23,6 @@ GRAD_TOL = 1e-3
 SEGMENTS = ((20, 30, 14), (5, 40, 19))
 
 
-def one_thread():
-    """The sLSTM loop runs thousands of tiny ops: one intra-op thread keeps
-    them from spinning on the cores of the suite's other workers (use as
-    a module-scoped autouse fixture)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def configs(n_layers, chunk=8):
@@ -57,11 +51,12 @@ def packed_batch(seed=0, segments=SEGMENTS, vocab=128):
 def jax_decay(cfg):
     """The JAX AdamW's rule as it acts on the JAX tree (ROADMAP §3): the
     leaves of whole units are stacked (n_units, …), so every one has rank
-    ≥ 2 and is decayed; a tail leaf keeps its own rank."""
+    ≥ 2 and is decayed; a tail leaf keeps its own rank. A layer's blocks
+    are ``layers.<i>`` and, in the hybrid, its MLP ``ffns.<i>``."""
     in_units = cfg.n_layers // len(cfg.unit) * len(cfg.unit)
 
     def decay(name, p):
-        if name.startswith("layers."):
+        if name.startswith(("layers.", "ffns.")):
             return int(name.split(".")[1]) < in_units or p.dim() >= 2
         return p.dim() >= 2
     return decay

@@ -24,6 +24,9 @@ from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.obs.check import check_trace  # noqa: E402
 from repro_torch.optim.adamw import AdamW, AdamWConfig, AdamWState  # noqa
 from repro_torch.optim.adamw import constant_schedule  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 def _tree(rng):

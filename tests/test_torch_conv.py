@@ -22,6 +22,9 @@ from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.ref import conv1d_pack_ref as tref  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 CONV_SHAPES = [(1, 8, 4, 2), (2, 24, 10, 4), (1, 64, 16, 4), (3, 17, 5, 3)]
 DT = {"float32": (torch.float32, jnp.float32),

@@ -20,6 +20,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

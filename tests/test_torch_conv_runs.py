@@ -33,6 +33,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 # (B, L, D, W): L 997, L shorter than the 64-row run, L = 1
 CASES = [(2, 997, 100, 4), (2, 997, 3, 3), (2, 45, 100, 2), (2, 1, 3, 4),

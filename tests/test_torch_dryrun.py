@@ -199,6 +199,28 @@ def test_cpu_step_count_equals_its_meta_dry_run(arch, kind, schedule):
         assert np.isfinite(out[1]["loss"].item())
 
 
+def test_hybrid_train_count_equals_its_meta_dry_run_and_serving_skips():
+    """recurrentgemma-2b.reduced() at 8 layers (two units and the two tail
+    rec layers): a CPU train step's count equals its meta dry run, #1
+    twice and #2 once in each of its 6 RG-LRU layers; its serving cells
+    are skipped, naming ROADMAP item 5c-ii."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              n_layers=8, attn_window=8)
+    meta = shapes.make_cell(cfg, "train", 2, 64, "meta")
+    _, want = count_call(meta.fn, *meta.args, device="meta")
+    cpu = shapes.make_cell(cfg, "train", 2, 64, "cpu")
+    _fill(cpu, cfg, "train")
+    out, got = count_call(cpu.fn, *cpu.args, device="cpu")
+    assert {k: got[k] for k in EXACT} == {k: want[k] for k in EXACT}
+    assert want["kernels"] == dict(zip(CONV_KERNELS, (12, 6)))
+    assert np.isfinite(out[1]["loss"].item())
+    full = get_config("recurrentgemma-2b")
+    assert shapes.cell_supported(full, "train_4k") == (True, "")
+    for s in ("prefill_32k", "decode_32k", "long_500k"):
+        ok, why = shapes.cell_supported(full, s)
+        assert not ok and "5c-ii" in why
+
+
 @pytest.mark.parametrize("knobs,kernels,chunk", [
     ({"backend": "pallas", "schedule": "step", "pchunk": 64},
      SCAN_KERNELS["step"], 64),
@@ -294,10 +316,15 @@ def test_cli_lists_and_names_no_mesh(capsys):
     dryrun.main(["--paper", "--list", "--shape", "train_4k", "long_500k"])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 2 * 14
-    # the four paper configs and xlstm-125m run; the other nine are skips
-    assert sum("RUN" in ln for ln in lines) == 2 * 5
+    # the four paper configs and xlstm-125m run both; recurrentgemma-2b
+    # runs its train cell (its serving cells wait for ROADMAP 5c-ii); the
+    # other eight are skips
+    assert sum("RUN" in ln for ln in lines) == 2 * 5 + 1
     assert sum(ln.startswith("xlstm-125m") and "RUN" in ln
                for ln in lines) == 2
+    rg = [ln for ln in lines if ln.startswith("recurrentgemma-2b")]
+    assert "train_4k" in rg[0] and "RUN" in rg[0]
+    assert "long_500k" in rg[1] and "5c-ii" in rg[1]
     with pytest.raises(SystemExit):
         dryrun.main(["--help"])
     assert "--mesh has no counterpart" in " ".join(

@@ -1539,23 +1539,22 @@ def test_xlstm_engine_streams_cold_equal_warm(cuda):
 XLSTM_TRAIN_SHAPE = (2, 4096, 1536)     # xlstm-125m's training step
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dx"])
-def test_conv_kernels_at_the_xlstm_training_shape(cuda, kernel):
-    """#1 and #2 at xlstm-125m's training shape (2, 4096, 1536) in bf16, on
-    packed rows (one carried): the plain version's output within one bf16
-    rounding (#1) or 1e-5 · (1 + |ref|) (#2, f32 on both sides), and twice
-    bitwise equal."""
-    Bz, L, D = XLSTM_TRAIN_SHAPE
+def _conv_kernels_at(cuda, shape, kernel, dtype):
+    """#1 or #2 at ``shape`` on packed rows (one carried): the plain
+    version's output within one bf16 rounding (#1; 1e-5 in f32) or 1e-5 ·
+    (1 + |ref|) (#2, f32 on both sides), and twice bitwise equal."""
+    Bz, L, D = shape
     rng = np.random.default_rng(L)
-    f = dict(device=cuda, dtype=torch.bfloat16)
-    x = torch.as_tensor(rng.normal(size=XLSTM_TRAIN_SHAPE)).to(**f)
+    f = dict(device=cuda, dtype=dtype)
+    x = torch.as_tensor(rng.normal(size=shape)).to(**f)
     w = torch.as_tensor(rng.normal(size=(4, D)) * 0.5).to(**f)
     b = torch.as_tensor(rng.normal(size=(D,))).to(**f)
     pos = torch.as_tensor(_positions(Bz, L, L), device=cuda)
     if kernel == "fwd":
         out, again = (kconv.conv1d_pack(x, w, b, pos) for _ in range(2))
         want = kconv.conv1d_pack_plain(x.float(), w.float(), b.float(), pos)
-        tol = dict(atol=1e-5, rtol=2.0 ** -8)
+        tol = dict(atol=1e-5, rtol=2.0 ** -8 if dtype == torch.bfloat16
+                   else 1e-5)
     else:
         out, again = (kconv.conv1d_pack_bwd_dx(x, w, pos) for _ in range(2))
         want = kconv.conv1d_pack_bwd_dx_plain(x, w, pos)
@@ -1565,22 +1564,27 @@ def test_conv_kernels_at_the_xlstm_training_shape(cuda, kernel):
     torch.testing.assert_close(out.float(), want, **tol)
 
 
-def test_xlstm_train_step_kernels_against_the_plain_path(cuda, monkeypatch):
-    """xlstm-125m.reduced() (12 layers: 10 mLSTM, 2 sLSTM) in f32 at 2 × 256
-    with resets: the loss within 1e-5 and every gradient leaf within 1e-3 ·
-    max |ref| (chip_smoke.py's ``TRAIN_PARITY_TOL``) of the plain path's
-    (autograd through the plain conv), #1 launched exactly 20 times
-    (forward and ``remat`` recompute) and #2 10, nothing else; the plain
-    path launches nothing."""
+@pytest.mark.parametrize("kernel", ["fwd", "dx"])
+def test_conv_kernels_at_the_xlstm_training_shape(cuda, kernel):
+    """#1 and #2 at xlstm-125m's training shape (2, 4096, 1536) in bf16
+    (``_conv_kernels_at``)."""
+    _conv_kernels_at(cuda, XLSTM_TRAIN_SHAPE, kernel, torch.bfloat16)
+
+
+def _train_parity(cuda, monkeypatch, cfg, seq, want):
+    """``cfg`` in f32 at 2 × ``seq`` with resets and a carried row: the
+    loss within 1e-5 and every gradient leaf within 1e-3 · max |ref|
+    (chip_smoke.py's ``TRAIN_PARITY_TOL``) of the plain path's (autograd
+    through the plain conv), the kernel path's launches exactly ``want``,
+    the plain path's none."""
     import types
 
     from repro_torch.core import conv as core_conv
-    cfg = get_config("xlstm-125m").reduced()
     model = LM(cfg, cuda)
     model.init(torch.Generator(device=cuda).manual_seed(0))
     rng = np.random.default_rng(9)
-    pos = _positions(2, 256, 9)
-    batch = {"tokens": rng.integers(1, cfg.vocab, (2, 256)).astype(np.int32),
+    pos = _positions(2, seq, 9)
+    batch = {"tokens": rng.integers(1, cfg.vocab, (2, seq)).astype(np.int32),
              "positions": pos,
              "segment_ids": (np.cumsum(pos == 0, axis=1) + 1).astype(
                  np.int32)}
@@ -1595,7 +1599,7 @@ def test_xlstm_train_step_kernels_against_the_plain_path(cuda, monkeypatch):
             k: v for k, v in tops.read_launches().items() if v}
 
     k_loss, k_grads, k_ran = loss_and_grads()
-    assert k_ran == {"conv1d_pack_fwd": 20, "conv1d_pack_bwd_dx": 10}
+    assert k_ran == want
     monkeypatch.setattr(B, "kops", types.SimpleNamespace(
         conv1d_pack=core_conv.conv1d_pack))
     p_loss, p_grads, p_ran = loss_and_grads()
@@ -1605,3 +1609,40 @@ def test_xlstm_train_step_kernels_against_the_plain_path(cuda, monkeypatch):
         assert torch.isfinite(k_grads[k]).all(), k
         err = (k_grads[k] - ref).abs().max().item()
         assert err <= 1e-3 * ref.abs().max().item(), (k, err)
+
+
+def test_xlstm_train_step_kernels_against_the_plain_path(cuda, monkeypatch):
+    """xlstm-125m.reduced() (12 layers: 10 mLSTM, 2 sLSTM) in f32 at 2 × 256
+    (``_train_parity``): #1 launched exactly 20 times (forward and
+    ``remat`` recompute) and #2 10, nothing else."""
+    _train_parity(cuda, monkeypatch, get_config("xlstm-125m").reduced(), 256,
+                  {"conv1d_pack_fwd": 20, "conv1d_pack_bwd_dx": 10})
+
+
+# ---------------------------------------------------------------------------
+# hybrid training (#1 forward and recompute, #2 backward in its RG-LRU
+# layers)
+# ---------------------------------------------------------------------------
+
+HYBRID_TRAIN_SHAPE = (2, 4096, 2560)    # recurrentgemma-2b's training step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fwd", "dx"])
+def test_conv_kernels_at_the_hybrid_training_shape(cuda, kernel, dtype):
+    """#1 and #2 at recurrentgemma-2b's training shape (2, 4096, 2560)
+    (``_conv_kernels_at``)."""
+    _conv_kernels_at(cuda, HYBRID_TRAIN_SHAPE, kernel, dtype)
+
+
+def test_hybrid_unit_train_step_kernels_against_the_plain_path(
+        cuda, monkeypatch):
+    """One whole unit of recurrentgemma-2b (rec, rec, attn, each with its
+    GeGLU MLP) at full width, f32 at 2 × 256 (``_train_parity``): #1
+    launched exactly 4 times (2 RG-LRU layers, forward and recompute) and
+    #2 2, nothing else."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=3,
+                              dtype="float32")
+    _train_parity(cuda, monkeypatch, cfg, 256,
+                  {"conv1d_pack_fwd": 4, "conv1d_pack_bwd_dx": 2})
+

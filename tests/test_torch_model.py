@@ -23,6 +23,9 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ATOL = 1e-4
 PLENS = (9, 14, 5, 11)

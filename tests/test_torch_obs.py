@@ -20,6 +20,9 @@ from repro_torch.obs import (NULL_TRACER, Counter, Gauge, Histogram,  # noqa
                              percentiles, profiler_session, step_region)
 from repro_torch.obs.check import check_trace  # noqa: E402
 from repro_torch.obs.check import main as check_main  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 
 # ---------------------------------------------------------------- percentiles

@@ -5,8 +5,11 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _threads import one_thread  # noqa: E402
 from repro.core import packing as jpk  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 POLICIES = ["sequential", "sorted_greedy", "first_fit",
             "first_fit_decreasing"]

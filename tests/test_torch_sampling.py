@@ -23,6 +23,9 @@ from repro.models import blocks as JB  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import blocks as B  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 DRAWS = 4096
 P_MIN = 1e-3            # chi-square p-value bar (deterministic seeds)

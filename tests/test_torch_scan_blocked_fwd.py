@@ -36,6 +36,9 @@ from tests.test_torch_scan_step_bwd import N, TL, _inputs  # noqa: E402
 from tests.test_torch_scan_step_bwd import _lane_edges  # noqa: E402
 from tests.test_torch_scan_step_bwd import _port_args  # noqa: E402
 from tests.test_torch_scan_step_fwd import _close_y  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 BLOCK_D = 16

@@ -34,6 +34,9 @@ from repro.kernels import selective_scan as jsk  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import selective_scan_heads as kh  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 FWD_TOL = dict(atol=1e-4, rtol=1e-4)
 BWD_TOL = dict(atol=1e-4, rtol=1e-3)

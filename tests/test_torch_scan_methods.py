@@ -20,6 +20,9 @@ from repro.core import scan as jscan  # noqa: E402
 from repro.core import ssm as jssm  # noqa: E402
 from repro_torch.core import scan as tscan  # noqa: E402
 from repro_torch.core import ssm as tssm  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ATOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3

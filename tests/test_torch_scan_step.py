@@ -44,6 +44,9 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import selective_scan as ksc  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 BWD_TOL = dict(atol=1e-4, rtol=1e-3)

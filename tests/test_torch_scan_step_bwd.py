@@ -29,6 +29,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import selective_scan as jsk  # noqa: E402
 from repro_torch.core import packing as tpk  # noqa: E402
 from repro_torch.kernels import selective_scan as ksc  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 BWD_TOL = dict(atol=1e-4, rtol=1e-3)
 N, TL = 16, 64

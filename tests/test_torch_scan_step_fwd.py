@@ -33,6 +33,9 @@ from repro.kernels import selective_scan as jsk  # noqa: E402
 from repro_torch.kernels import selective_scan as ksc  # noqa: E402
 from tests.test_torch_scan_step_bwd import N, TL, _inputs  # noqa: E402
 from tests.test_torch_scan_step_bwd import _port_args  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 FWD_TOL = dict(atol=1e-5, rtol=1e-5)
 BLOCK_D = 16

@@ -28,6 +28,9 @@ from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.kernels import conv1d_pack as kconv  # noqa: E402
 from repro_torch.launch.serve import ServeEngine, main  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ENGINE_KW = dict(num_slots=3, max_len=64, prefill_rows=2, buckets=(16, 32),
                  max_segments=2, refill_threshold=1)

@@ -25,6 +25,9 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ATOL, RTOL = 1e-5, 1e-4
 LENS = (37, 20)             # row 1 runs out of tokens two slabs early

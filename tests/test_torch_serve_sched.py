@@ -36,6 +36,9 @@ from repro_torch.launch.serve import ServeEngine, ServeStats, main  # noqa
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.obs.check import check_trace  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 TIE_GAP = 1e-5
 COUNTERS = ("prefills", "chunk_rounds", "chunk_tokens", "chunked_prefills",

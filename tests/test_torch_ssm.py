@@ -18,6 +18,9 @@ from repro.kernels.ref import selective_scan_ref as jref  # noqa: E402
 from repro_torch.core import scan as tscan  # noqa: E402
 from repro_torch.core import ssm as tssm  # noqa: E402
 from repro_torch.kernels.ref import selective_scan_ref as tref  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 ATOL = 1e-5
 METHODS = [("sequential", None), ("blocked", "assoc"), ("blocked", "matmul")]

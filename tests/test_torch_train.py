@@ -46,6 +46,9 @@ from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.trainer import make_train_step  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 SMALL = dict(vocab=128, seed=0, len_min=5, len_max=40, mu=3.0, sigma=0.5)
 LR = 1e-3

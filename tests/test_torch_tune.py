@@ -43,6 +43,9 @@ from repro_torch.tune import cache as tcache  # noqa: E402
 from repro_torch.tune import runner as trunner  # noqa: E402
 from repro_torch.tune import space as tspace  # noqa: E402
 from repro_torch.tune.timing import interleaved_min_of_rounds  # noqa: E402
+from _threads import one_thread  # noqa: E402
+
+_one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 
 FP_JAX = {"schema": 1, "device_kind": "cpu", "platform": "cpu", "jax": "1"}
 FP_A = {"schema": 1, "device_kind": "cpu", "platform": "cpu",

@@ -26,7 +26,8 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from _xlstm_train import LAYERS, check_loss_and_grads, one_thread  # noqa
+from _threads import one_thread  # noqa: E402
+from _xlstm_train import LAYERS, check_loss_and_grads  # noqa: E402
 
 _one_thread = pytest.fixture(autouse=True, scope="module")(one_thread)
 

@@ -35,7 +35,8 @@ torch = pytest.importorskip("torch")
 
 import torch.nn.functional as F  # noqa: E402
 
-from _xlstm_train import (LAYERS, configs, leaf_gaps, one_thread,  # noqa
+from _threads import one_thread  # noqa: E402
+from _xlstm_train import (LAYERS, configs, leaf_gaps,  # noqa: E402
                           packed_batch, port_model)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.data.dataset import CorpusConfig, SyntheticCorpus  # noqa

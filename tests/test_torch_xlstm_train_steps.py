@@ -33,8 +33,8 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
-from _xlstm_train import (JIT, configs, jax_decay,  # noqa: E402
-                          one_thread, port_model)
+from _threads import one_thread  # noqa: E402
+from _xlstm_train import JIT, configs, jax_decay, port_model  # noqa: E402
 from repro.data.dataset import CorpusConfig as JCorpusConfig  # noqa: E402
 from repro.data.dataset import SyntheticCorpus as JCorpus  # noqa: E402
 from repro.data.packing_loader import LoaderConfig as JLoaderConfig  # noqa
