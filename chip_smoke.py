@@ -227,10 +227,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               ``Trainer``, AdamW): a warm-up run of one step at 2 × 64,
               then a run of 2 timed steps (#1 10 and #2 5 a step, nothing
               else; ms/step, real tok/s, MFU, peak memory); one
-              step at 2 × 64 profiled with each layer's forward, recompute
-              and backward marked (``layer_ranges``): the sLSTM and mLSTM
-              layers' host and device ms, their shares of the step and
-              their device events; one card step at 2 × 128 counted and
+              step at 2 × 64 (the same 6 layers) profiled
+              with each layer's forward, recompute and backward marked
+              (``layer_ranges``): the sLSTM and mLSTM layers' host and
+              device ms, their shares of the step and their device
+              events; one card step at 2 × 128 (6 layers) counted and
               held to the meta dry run of the same cell. All beside the
               card's name and power limit (``xlstm_train`` line).
 
@@ -253,6 +254,26 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               step at 2 × 128 counted and held to the meta dry run of the
               same cell. All beside the card's name and power limit
               (``hybrid_train`` line).
+18. hybrid  — recurrentgemma-2b served (``phase_hybrid``; its 26 layers:
+              18 RG-LRU and 8 local attention, each with its GeGLU MLP;
+              bf16, random weights from seed 0): #1 at its packed
+              prefill's (2, 256, 2560) and its chunk slab's (1, 259,
+              2560) against the plain version, twice bitwise, timed
+              beside cuDNN and the bound (``kernels`` lines); packed
+              against per-prompt prefill on an f32 copy (every state
+              leaf, the K/V rings too, and the end logits, within 1e-5
+              of max(1, max |ref|); the worst of each layer on a
+              ``parity_layers`` line first); phase 5's engine at max_len
+              2560 with a 2300-token prompt through the chunk lane, so
+              the attention's 2048-slot ring wraps (#1 exactly 18 ×
+              (prefills + chunk rounds), nothing else; each stream equal
+              to the request's greedy ``prefill`` + ``decode_step``
+              alone; tok/s, TTFT, prefill and decode ms, a slot's cache
+              row bytes, peak memory); one decode step and one packed
+              prefill round profiled with each sub-block kind marked;
+              the prefix cache cold, warm and rerun on 4 requests behind
+              phase 14's shared prompt; speculative decode at K 3
+              against off, streams bitwise equal (``hybrid`` line).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -353,11 +374,12 @@ XLSTM_PREFIX_REQUESTS = 4  # #1 at the suffix
 # warm-up, the profile and the count run shorter rows of the same model
 XLSTM_TRAIN_SHAPE = (2, 4096, 1536)  # (rows, L, up-projection): #1 and #2
 XLSTM_TRAIN_STEPS = 2
-XLSTM_TRAIN_LAYERS = 6   # the timed steps' depth: one whole unit (5 mLSTM
-#                          + 1 sLSTM) of the 12, so the script stays within
-#                          its 1200 s budget with phase 17 (a 12-layer
-#                          step takes 38–64 s on an H100, the sLSTM
-#                          loop's)
+XLSTM_TRAIN_LAYERS = 6   # the timed, traced and counted steps' depth: one
+#                          whole unit (5 mLSTM + 1 sLSTM) of the 12, so the
+#                          script stays within its 1200 s budget with
+#                          phases 17 and 18 (a 12-layer step takes 38–64 s
+#                          on an H100, the sLSTM loop's; a 12-layer 2 × 64
+#                          trace ≈ 33k kernels, ≈ 19 s to read)
 XLSTM_SHORT_SEQ = 64     # the warm-up's and the profile's rows (a trace's
 #                          post-processing grows with its ≈ 360 events a
 #                          time step)
@@ -371,10 +393,24 @@ HYBRID_PROFILE_SEQ = 512  # the traced step's rows: on an H100 host, at
 #                           to read, at 1024 its 33k took 71 s over three
 #                           traces
 HYBRID_COUNT_SEQ = 128
+HYBRID_SERVE_SHAPES = ((2, 256, 2560), (1, 3 + SERVE_CHUNK, 2560))  # #1 in
+#   a packed prefill's rows and over a chunk slab (the carried tail first)
+HYBRID_LONG = 2300       # the chunk lane's prompt: past the attention's
+#   2048-slot ring, so the ring wraps in ``chunk_attn`` and in decode
+HYBRID_MAX_LEN = 2560    # the engine's slots: a ring of min(2560, 2048)
+HYBRID_PARITY_TOL = 1e-5  # max |Δ| / max(1, max |ref|), f32: the bar of the
+#   CPU tests (tests/test_torch_hybrid_serve.py, the JAX package's own)
+HYBRID_PREFIX_REQUESTS = 4
+HYBRID_SPEC_K = 3
+
+
+T_START = time.perf_counter()
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - T_START}), flush=True)
 
 
 def eager_ms(fn, iters=100, warmup=10):
@@ -1278,7 +1314,10 @@ def profile_call(fn, launches_per_call, setup=None):
     H100 one mamba2-370m step's trace held 18609 to 18629 device events
     between runs of the same program, and once one #7 launch too few), so
     a trace that lacks a launch the counters saw is set aside, with what
-    it lacked, and the call traced again, up to ``PROFILE_TRACES`` times;
+    it lacked, and the call traced again, up to ``PROFILE_TRACES`` times,
+    or until two traces in a row lack the same records (a loss that
+    repeats, as the hybrid's and xLSTM's training steps lose one #1
+    record in every trace, would repeat in a third);
     ``records_complete`` says whether the trace reported names every
     launch. Where ``fn`` runs in ``layer_ranges``, ``by_layer_kind``
     gives each kind's host and device ms (``trace_call``'s marks) and
@@ -1309,6 +1348,8 @@ def profile_call(fn, launches_per_call, setup=None):
         if not lacks:
             break
         set_aside.append({"kernels": len(kernels), "lacks": lacks})
+        if len(set_aside) > 1 and set_aside[-2]["lacks"] == lacks:
+            break          # the same records lost twice: a systematic loss
     by_name, by_group, calls, by_stream = {}, {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -1512,10 +1553,12 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     return out
 
 
-def phase_parity(model_bf16, cfg, tol=PARITY_TOL):
+def phase_parity(model_bf16, cfg, tol=PARITY_TOL, layers=None):
     """An f32 copy's ``prefill_packed`` end logits and every state leaf of
-    4 prompts against per-prompt ``prefill``: the worst max |Δ| / max(1,
-    max |ref|) of each, within ``tol``."""
+    4 prompts against per-prompt ``prefill`` (a cache of 128 tokens): the
+    worst max |Δ| / max(1, max |ref|) of each, within ``tol``. With
+    ``layers`` (a dict), each state leaf's worst layer by layer is put in
+    it and printed (a ``parity_layers`` line) before the check."""
     import numpy as np
     import torch
     from repro_torch.core import packing
@@ -1529,8 +1572,9 @@ def phase_parity(model_bf16, cfg, tol=PARITY_TOL):
     ends = packing.segment_ends(pb, 4)
     logits, states, seg_lens = f32.prefill_packed(
         {"tokens": pb.tokens, "positions": pb.positions,
-         "segment_ids": pb.segment_ids}, ends)
+         "segment_ids": pb.segment_ids}, ends, 128)
     worst = dict.fromkeys(["logits", *states], 0.0)
+    by_layer = {k: [0.0] * len(v) for k, v in states.items()}
     for r, ids in enumerate(pb.seq_ids):
         for s, i in enumerate(ids):
             n = len(prompts[i])
@@ -1538,16 +1582,24 @@ def phase_parity(model_bf16, cfg, tol=PARITY_TOL):
             lg, cache, _ = f32.prefill(
                 {"tokens": prompts[i][None],
                  "positions": np.arange(n, dtype=np.int32)[None],
-                 "segment_ids": np.ones((1, n), np.int32)})
+                 "segment_ids": np.ones((1, n), np.int32)}, 128)
             pairs = [("logits", logits[r, s], lg[0])] + [
                 (k, v[:, r, s], cache[k][:, 0]) for k, v in states.items()]
             for k, got, ref in pairs:
                 e = ((got - ref).abs().max() /
                      ref.abs().max().clamp(min=1.0)).item()
                 worst[k] = max(worst[k], e)
+                for j in range(len(by_layer.get(k, ()))):
+                    by_layer[k][j] = max(by_layer[k][j], (
+                        (got[j] - ref[j]).abs().max()
+                        / ref[j].abs().max().clamp(min=1.0)).item())
     assert torch.isfinite(logits).all()
     del f32
     torch.cuda.empty_cache()
+    if layers is not None:
+        layers.update(by_layer)
+        emit("parity_layers", arch=cfg.name, tolerance=tol,
+             worst_by_layer=by_layer)
     if max(worst.values()) > tol:
         raise AssertionError(f"packed prefill differs from per-prompt "
                              f"prefill: {worst} > {tol}")
@@ -1570,11 +1622,14 @@ def conv_launches(cfg, steps=1):
                                    n)))
 
 
-def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0, long=0):
+def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0, long=0,
+                 max_len=None, check=None):
     """The engine on ``n_requests`` greedy prompts of 16–200 tokens (and,
     with ``long``, one of ``long`` tokens after the eighth, through the
-    chunk lane), 8 slots: #1 exactly ``conv_layers(cfg)`` × (prefills +
-    chunk rounds), no other kernel, every logit finite."""
+    chunk lane), 8 slots of ``max_len`` (by default 2048 with ``long``,
+    else 512): #1 exactly ``conv_layers(cfg)`` × (prefills + chunk
+    rounds), no other kernel, every logit finite. ``check(prompts,
+    outputs)``, where given, runs after and its dict joins the result."""
     import torch
     finite = []
 
@@ -1592,18 +1647,22 @@ def phase_engine(model, cfg, n_requests=12, new_tokens=16, seed=0, long=0):
     for name in checks:
         setattr(model, name, checked(name))
     try:
-        return _engine_run(model, cfg, n_requests, new_tokens, seed, long,
-                           finite)
+        out, prompts, outs = _engine_run(model, cfg, n_requests, new_tokens,
+                                         seed, long, max_len, finite)
     finally:
         for name in checks:
             delattr(model, name)
+    if check is not None:
+        out.update(check(prompts, outs))
+    return out
 
 
-def _engine_run(model, cfg, n_requests, new_tokens, seed, long, finite):
+def _engine_run(model, cfg, n_requests, new_tokens, seed, long, max_len,
+                finite):
     import numpy as np
     import torch
     from repro_torch.launch.serve import ServeEngine
-    kw = dict(num_slots=8, max_len=2048 if long else 512,
+    kw = dict(num_slots=8, max_len=max_len or (2048 if long else 512),
               buckets=(64, 128, 256), prefill_rows=2, max_segments=4)
     rng = np.random.default_rng(seed)
     warm = ServeEngine(model, **kw)               # cuBLAS and allocator warm-up
@@ -1644,7 +1703,8 @@ def _engine_run(model, cfg, n_requests, new_tokens, seed, long, finite):
         raise AssertionError(f"conv1d_pack launched {launches} times for "
                              f"{forwards} forwards × {conv_layers(cfg)} "
                              f"layers")
-    return {"requests": len(lens), "prompt_lens": [int(n) for n in lens],
+    return {"requests": len(lens), "max_len": kw["max_len"],
+            "prompt_lens": [int(n) for n in lens],
             "generated": st.generated, "wall_s": wall,
             "tok_per_s": st.generated / wall,
             "ttft_p50_ms": st.ttft_percentiles()["p50"],
@@ -1656,7 +1716,7 @@ def _engine_run(model, cfg, n_requests, new_tokens, seed, long, finite):
             "host_ms": st.host_ms,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2 ** 30,
-            "conv1d_pack_launches": launches}
+            "conv1d_pack_launches": launches}, prompts, outs
 
 
 def phase_tune_sweep(cache, spec):
@@ -2752,7 +2812,7 @@ def phase_prefix_cache(model, cfg, smi, n=PREFIX_REQUESTS, full=True):
                                                 row_finite)
     t_phase = time.perf_counter()
     prompts = prefix_mix(cfg, n)
-    one = model.init_cache(1)
+    one = model.init_cache(1, engine_kw()["max_len"])
     entry_bytes = sum(t.numel() * t.element_size() for t in one.values()) \
         + cfg.vocab * 4
     del one
@@ -3114,7 +3174,8 @@ def phase_xlstm(smi, peaks):
 def layer_ranges():
     """While on, a training step marks its layers for ``torch.profiler``
     by kind (``trace_call`` reads the marks; a hybrid layer's MLP as
-    ``mlp``): each block's forward, its
+    ``mlp``), and so do a serving forward (a block's ``collect`` apply)
+    and a decode step (its step): each block's forward, its
     ``remat`` recompute included, in a ``record_function`` range
     ``LAYER_MARK`` + kind, and each layer's backward, from the gradient
     reaching its output to its input's, in another of the same name,
@@ -3147,6 +3208,8 @@ def layer_ranges():
         def marked(p, x, ctx, cfg, *a, **k):
             with record_function(LAYER_MARK + kind):
                 out = apply(p, x, ctx, cfg, *a, **k)
+            if isinstance(out, tuple):                 # serving: (x, state)
+                return out
             if bwd[0] is None and out.requires_grad:   # not a recompute
                 if x.requires_grad and not any(x is o for o in outs):
                     x.register_hook(edge(None))        # the bottom input
@@ -3156,7 +3219,8 @@ def layer_ranges():
         return marked
 
     for kind, entry in saved.items():
-        blocks.KINDS[kind] = (*entry[:2], wrap(kind, entry[2]), *entry[3:])
+        blocks.KINDS[kind] = (*entry[:2], wrap(kind, entry[2]), entry[3],
+                              wrap(kind, entry[4]))
     mlp = blocks.MLP
     blocks.MLP = (*mlp[:2], wrap("mlp", mlp[2]))
     try:
@@ -3199,8 +3263,9 @@ def phase_xlstm_train(smi, peaks):
     step takes 38–64 s on an H100), then a run of ``XLSTM_TRAIN_STEPS``
     timed steps at 2 × 4096 with the
     launch counters (exactly ``conv_launches``) and nothing else in them;
-    then a model of its own in this process takes one step at 2 ×
-    ``XLSTM_SHORT_SEQ`` and profiles the next in ``layer_ranges``: the
+    then a model of its own in this process, at the same depth, takes one
+    step at 2 × ``XLSTM_SHORT_SEQ`` and profiles the next in
+    ``layer_ranges``: the
     sLSTM and mLSTM layers' host and device ms and shares, from that one
     trace. The launch counters over the traced step must equal
     ``conv_launches``; the trace's own records of #1 and #2 are not held
@@ -3251,12 +3316,13 @@ def phase_xlstm_train(smi, peaks):
     real = sum(h["real_tokens"] for h in hist)
     flops = model_flops_per_step(cut, "train", B, L)
 
-    # the device's view, at a short row: one step of a model of its own,
-    # after one untimed step, traced with its layers marked
-    model = LM(cfg)
+    # the device's view, at a short row: one step of a model of its own
+    # (the timed steps' depth), after one untimed step, traced with its
+    # layers marked
+    model = LM(cut)
     model.init(torch.Generator(device="cuda").manual_seed(0))
     trainer = Trainer(model, AdamW(cosine_schedule(3e-4, 1, 4)),
-                      train_loader(cfg, "pack", XLSTM_SHORT_SEQ, B),
+                      train_loader(cut, "pack", XLSTM_SHORT_SEQ, B),
                       TrainerConfig(steps=1))
     state, _ = trainer.train(torch.Generator(device="cuda").manual_seed(0),
                              verbose=False)
@@ -3269,7 +3335,7 @@ def phase_xlstm_train(smi, peaks):
 
     with layer_ranges():
         _, prof = profile_call(one_step, dict(
-            {k: 0 for k in launches}, **conv_launches(cfg)))
+            {k: 0 for k in launches}, **conv_launches(cut)))
     n_kind = {k: model.kinds.count(k) for k in set(model.kinds)}
     by_kind = prof.get("by_layer_kind", {})
     if sorted(by_kind) != sorted(n_kind):
@@ -3277,19 +3343,20 @@ def phase_xlstm_train(smi, peaks):
                              f"where the model has {n_kind}")
 
     # the count of one card step at a short row, held to the meta dry run
-    cbatch = train_loader(cfg, "pack", XLSTM_COUNT_SEQ, B).batch(0)
+    cbatch = train_loader(cut, "pack", XLSTM_COUNT_SEQ, B).batch(0)
     work = count_card_step(trainer.step_fn, state, cbatch)
-    dry = count_step(cfg, "train", B, XLSTM_COUNT_SEQ, peaks)
+    dry = count_step(cut, "train", B, XLSTM_COUNT_SEQ, peaks)
     card = {k: work[k] for k in ("flops_by_unit", "bytes", "kernels")}
     meta = {"flops_by_unit": dry["flops_by_unit"],
             "bytes": dry["bytes_per_device"], "kernels": dry["kernels"]}
     if card != meta or not work["kernels"] == work["launches"] == \
-            conv_launches(cfg):
+            conv_launches(cut):
         raise AssertionError(f"xlstm-125m at {B} × {XLSTM_COUNT_SEQ}: the "
                              f"card step counted {card} with launches "
                              f"{work['launches']}, the meta dry run {meta}")
     out = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "traced_and_counted_layers": cut.n_layers,
         "kinds": n_kind, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
         "remat": cfg.remat, "card": smi, "kernel_rows": [
             {k: r[k] for k in ("kernel", "shape", "kernel_ms",
@@ -3481,6 +3548,173 @@ def phase_hybrid_train(smi, peaks):
                   "phase_s": count_s},
         "phase_wall_s": time.perf_counter() - t_phase,
         "phase_budget_s": 150}, rows
+
+
+def greedy_reference(model, prompt, n, max_len):
+    """Greedy ``prefill`` + ``decode_step`` of one request alone (a cache
+    of one row, ``max_len`` long): its ``n`` tokens and the smallest top-2
+    margin of the logits it chose from."""
+    import numpy as np
+    import torch
+    m = len(prompt)
+    lg, cache, clen = model.prefill(
+        {"tokens": np.asarray(prompt, np.int32)[None],
+         "positions": np.arange(m, dtype=np.int32)[None],
+         "segment_ids": np.ones((1, m), np.int32)}, max_len)
+    out, margin = [], float("inf")
+    for _ in range(n):
+        top = torch.topk(lg[0], 2).values
+        margin = min(margin, (top[0] - top[1]).item())
+        out.append(int(torch.argmax(lg[0])))
+        lg, cache = model.decode_step(
+            cache, torch.tensor([[out[-1]]], dtype=torch.int32,
+                                device=model.device), cache_len=clen)
+        clen = clen + 1
+    return out, margin
+
+
+def phase_hybrid(smi, peaks):
+    """Phase 18: recurrentgemma-2b served (26 layers: 18 RG-LRU and 8 local
+    attention with a K/V ring of min(max_len, 2048) slots, each layer
+    with its GeGLU MLP; d_model 2560, vocab 256000 tied; bf16, random
+    weights from seed 0). #1 at its packed prefill's (2, 256, 2560) and
+    its chunk slab's (1, 259, 2560) against the plain version, twice
+    bitwise, timed; packed against per-prompt prefill on an f32 copy
+    (every state leaf, the rings too, and the end logits; the worst of
+    each layer printed first); the engine (8 slots of ``HYBRID_MAX_LEN``,
+    12 greedy prompts of 16–200 tokens and one of ``HYBRID_LONG`` through
+    the chunk lane, so the 2048-slot ring wraps; #1 exactly 18 × (prefills
+    + chunk rounds), nothing else), each stream equal to the request's
+    greedy ``prefill`` + ``decode_step`` alone; one decode step and one
+    packed prefill round profiled with each sub-block kind marked
+    (``layer_ranges``); the prefix cache cold, warm and rerun on
+    ``HYBRID_PREFIX_REQUESTS`` requests behind phase 14's shared prompt,
+    streams bitwise equal; speculative decode at ``HYBRID_SPEC_K`` against
+    off, streams bitwise equal. Returns (the phase's line, the two
+    ``kernels`` rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import packing
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    rows = [phase_conv_slab(peaks, shape, packed=shape[0] == 2)
+            for shape in HYBRID_SERVE_SHAPES]
+    cfg = get_config("recurrentgemma-2b")
+    model = LM(cfg)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    if conv_layers(cfg) != 18:
+        raise AssertionError(f"recurrentgemma-2b: {model.kinds}")
+    t0 = time.perf_counter()
+    by_layer = {}
+    parity = phase_parity(model, cfg, HYBRID_PARITY_TOL, by_layer)
+    parity_s = time.perf_counter() - t0
+
+    def against_reference(prompts, outs):
+        refs = [greedy_reference(model, p, len(outs[r]), HYBRID_MAX_LEN)
+                for r, p in zip(sorted(outs), prompts)]
+        differ = [r for r, (ref, _) in zip(sorted(outs), refs)
+                  if outs[r] != ref]
+        if differ:
+            raise AssertionError(f"recurrentgemma-2b: the engine's streams "
+                                 f"differ from the per-request reference "
+                                 f"for {differ}")
+        return {"streams_equal_per_request_reference": True,
+                "reference_min_top2_margin": min(m for _, m in refs)}
+
+    t0 = time.perf_counter()
+    eng = phase_engine(model, cfg, long=HYBRID_LONG, max_len=HYBRID_MAX_LEN,
+                       check=against_reference)
+    eng["ring_slots"] = model.ring_size(HYBRID_MAX_LEN)
+    one = model.init_cache(1, HYBRID_MAX_LEN)
+    eng["cache_row_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in one.values())
+    eng["ring_row_bytes"] = sum(t.numel() * t.element_size()
+                                for k, t in one.items() if "attn" in k)
+    del one
+    engine_s = time.perf_counter() - t0
+
+    # where a decode step's and a prefill round's time goes: one of each,
+    # traced with each sub-block kind marked
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    deng = ServeEngine(model, num_slots=8, max_len=HYBRID_MAX_LEN,
+                       buckets=(64, 128, 256), overlap=False,
+                       refill_threshold=1)
+    for n in rng.integers(16, 201, size=8):
+        deng.submit(rng.integers(1, cfg.vocab, size=int(n)), 8)
+    while deng.queue or deng.stats.decode_steps < 2:
+        deng.step()
+    none = {name: 0 for name in read_launches()}
+    with layer_ranges():
+        _, step_prof = profile_call(deng._decode_step, none)
+    del deng
+    prompts = [rng.integers(1, cfg.vocab, size=n) for n in
+               (60, 70, 50, 76, 64, 64, 64, 64)]
+    pb = packing.pack(prompts, 256, policy="first_fit", num_rows=2)
+    ends = torch.as_tensor(packing.segment_ends(pb, 4), device="cuda")
+    batch = {"tokens": pb.tokens, "positions": pb.positions,
+             "segment_ids": pb.segment_ids}
+    model.prefill_packed(batch, ends, HYBRID_MAX_LEN)          # warm
+    with layer_ranges():
+        _, round_prof = profile_call(
+            lambda: model.prefill_packed(batch, ends, HYBRID_MAX_LEN),
+            dict(none, conv1d_pack_fwd=conv_layers(cfg)))
+    profile_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pc = phase_prefix_cache(model, cfg, smi, n=HYBRID_PREFIX_REQUESTS,
+                            full=False)
+    prefix_s = time.perf_counter() - t0
+
+    # speculative decode: 6 greedy prompts and 2 of a repeated block,
+    # spec_k on against off on the engine of the run above
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    sprompts = [rng.integers(1, cfg.vocab, size=int(n))
+                for n in rng.integers(16, 201, size=6)] + [
+        np.tile(rng.integers(1, cfg.vocab, size=n), 4) for n in (8, 16)]
+
+    def submit(e):
+        for p in sprompts:
+            e.submit(p, SERVE_NEW)
+
+    spec, streams = {}, {}
+    for k in (0, HYBRID_SPEC_K):
+        e = ServeEngine(model, num_slots=8, max_len=HYBRID_MAX_LEN,
+                        buckets=(64, 128, 256), spec_k=k)
+        streams[k], spec[k] = timed_engine(model, cfg, e, submit)
+        spec[k].update(spec_k=k, rounds=e._spec_rounds.value,
+                       proposed=e._spec_proposed.value,
+                       accepted=e._spec_accepted.value)
+        del e
+    differ = [r for r in streams[0]
+              if streams[0][r] != streams[HYBRID_SPEC_K][r]]
+    if differ or not spec[HYBRID_SPEC_K]["rounds"]:
+        raise AssertionError(f"recurrentgemma-2b spec decode: streams "
+                             f"differ for {differ}; {spec[HYBRID_SPEC_K]}")
+    spec_s = time.perf_counter() - t0
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "kinds": {k: model.kinds.count(k) for k in set(model.kinds)},
+           "attn_window": cfg.attn_window, "conv_layers": conv_layers(cfg),
+           "card": smi,
+           "parity": {"dtype": "float32", "tf32": "off",
+                      "tolerance": HYBRID_PARITY_TOL, "max_rel_err": parity,
+                      "worst_by_layer": by_layer, "seconds": parity_s},
+           "engine": eng, "engine_s": engine_s,
+           "decode_step_profile": step_prof, "prefill_round_profile":
+           round_prof, "profile_s": profile_s,
+           "prefix_cache": pc, "prefix_cache_s": prefix_s,
+           "spec_decode": {"spec_k": HYBRID_SPEC_K, "off": spec[0],
+                           "on": spec[HYBRID_SPEC_K],
+                           "streams_bitwise_equal": True, "seconds": spec_s},
+           "phase_wall_s": time.perf_counter() - t_phase}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
 
 
 def main():
@@ -3676,6 +3910,13 @@ def main():
         emit("kernels", **row)
     emit("hybrid_train", **ht)
 
+    # recurrentgemma-2b served: #1 at its shapes, parity, the engine with
+    # the chunk lane past the ring, profiles, the prefix cache, speculation
+    hs, hs_rows = phase_hybrid(smi, peaks)
+    for row in hs_rows:
+        emit("kernels", **row)
+    emit("hybrid", **hs)
+
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)
                     and r["dtype"] == "bfloat16")
@@ -3760,7 +4001,14 @@ def main():
               xlstm_train_shape=xt["kernel_rows"][0],
               launches_hybrid_train=ht["launches_per_step"][
                   "conv1d_pack_fwd"] * ht["timed_steps"],
-              hybrid_train_shape=ht["kernel_rows"][0]),
+              hybrid_train_shape=ht["kernel_rows"][0],
+              launches_hybrid=hs["engine"]["conv1d_pack_launches"],
+              launches_hybrid_prefix_cache=hs["prefix_cache"]["warm"][
+                  "conv1d_pack_launches"],
+              hybrid_shapes=[{k: r[k] for k in (
+                  "shape", "kernel_ms", "kernel_eager_ms", "plain_ms",
+                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                  for r in hs_rows]),
         entry("conv1d_pack_bwd_dx", "conv1d_pack.cu",
               "src/repro/kernels/conv1d_pack.py:83",
               main_row(dx_rows, TRAIN_SHAPE),

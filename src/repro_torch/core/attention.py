@@ -1,5 +1,5 @@
 """Packed (segment-masked) attention (port of ``rope_freqs``, ``rope``,
-``_pair_mask``, ``_gqa_scores`` and ``attention`` of
+``_pair_mask``, ``_gqa_scores``, ``attention`` and ``decode_attention`` of
 ``repro.core.attention``).
 
 For attention the paper's technique is the block-diagonal mask: sequences
@@ -12,6 +12,7 @@ attention kernel, so the CPU tests hold the arithmetic the card runs. The
 JAX package runs it in XLA, with no Pallas kernel.
 
 Layouts: q (B, Lq, H, Dh); k, v (B, Lkv, Hkv, Dh) with H % Hkv == 0.
+``decode_attention`` is one query token over a (B, S, Hkv, Dh) K/V cache.
 """
 from __future__ import annotations
 
@@ -126,3 +127,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                         min=1e-20), 0.0)
     o = o.movedim(-2, 1)                                   # (B,Lq,Hkv,G,Dh)
     return o.reshape(B, Lq, H, Dh).to(q.dtype)
+
+
+def decode_attention(q_t: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode over a linear cache. q_t (B, H, Dh); caches (B, S,
+    Hkv, Dh); cache_len (B,) the new token's index (entries 0..cache_len
+    are valid, the last ``window`` of them with a window). QKᵀ in f32 from
+    the caches' dtype, the softmax in f32, P cast to V's dtype before PV,
+    as the JAX einsums. Returns (B, H, Dh)."""
+    B, S, Hkv, Dh = k_cache.shape
+    H = q_t.shape[1]
+    s = _gqa_scores(q_t.reshape(B, 1, Hkv, H // Hkv, Dh), k_cache,
+                    Dh ** -0.5)[:, :, :, 0]                # (B,Hkv,G,S)
+    idx = torch.arange(S, device=q_t.device)[None, :]
+    cur = cache_len.long()[:, None]
+    valid = idx <= cur
+    if window is not None:
+        valid = valid & ((cur - idx) < window)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, H, Dh)

@@ -5,8 +5,9 @@ each.
 
 * RG-LRU (RecurrentGemma) is a diagonal recurrence with state (D,):
   a_t = exp(−c·softplus(Λ)·r_t), h_t = a_t h_{t−1} + √(1−a_t²)·(i_t ⊙ x_t),
-  one ``core.scan.segmented_scan``. The JAX package runs that scan in XLA
-  with no Pallas kernel; the plain chunked scan is its counterpart here.
+  one ``core.scan.segmented_scan``; ``rglru_step`` is one decode token.
+  The JAX package runs that scan in XLA with no Pallas kernel; the plain
+  chunked scan is its counterpart here.
 
 * mLSTM keeps a matrix state C (dk×dv) per head with a *scalar* per-head
   decay. ``mlstm`` is the chunkwise-parallel form (inter-chunk state +
@@ -44,17 +45,21 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.scan import segmented_scan
+from repro_torch.core.scan import gather_state_ends, segmented_scan
 
 NEG = -1e30
 RGLRU_C = 8.0
 
 
 def rglru(x, r_gate, i_gate, a_param, positions: Optional[torch.Tensor] = None,
-          h0: Optional[torch.Tensor] = None, chunk: int = 256):
+          h0: Optional[torch.Tensor] = None, chunk: int = 256,
+          collect_ends: Optional[torch.Tensor] = None):
     """x, r_gate, i_gate (B, L, D), the gates already sigmoided; a_param
     (D,); h0 (B, D) or None. The scan is ``segmented_scan``'s chunked
-    method, in f32. Returns (h (B, L, D) in x's dtype, h_last (B, D) f32).
+    method, in f32. Returns (h (B, L, D) in x's dtype, h_last (B, D) f32),
+    and with ``collect_ends`` (B, S) (segment-end indices, −1 = absent)
+    also h_ends (B, S, D): the state trajectory IS the output, so each
+    segment's handoff is a gather of the f32 trajectory, before the cast.
 
     The √(1−a²) input normaliser uses the gate's own a, as an unpacked
     sequence sees it at its step 0 with h_{−1} = 0: the reset zeroes only
@@ -68,7 +73,23 @@ def rglru(x, r_gate, i_gate, a_param, positions: Optional[torch.Tensor] = None,
     reset = (positions == 0) if positions is not None else None
     h, h_last = segmented_scan(a, b, reset=reset, h0=h0, method="chunked",
                                chunk=chunk)
+    if collect_ends is not None:
+        return h.to(x.dtype), h_last, gather_state_ends(h, collect_ends)
     return h.to(x.dtype), h_last
+
+
+def rglru_step(h, x_t, r_t, i_t, a_param,
+               reset_t: Optional[torch.Tensor] = None):
+    """One decode token. h (B, D) f32; x_t, r_t, i_t (B, D). A reset
+    zeroes the multiplicative a only, never the b term (as ``rglru``).
+    Returns (y_t (B, D) in x_t's dtype, the new h (B, D) f32)."""
+    a = torch.exp(-RGLRU_C * F.softplus(a_param.float()) * r_t.float())
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * (i_t.float()
+                                                         * x_t.float())
+    if reset_t is not None:
+        a = torch.where(reset_t[:, None], 0.0, a)
+    h_new = a * h + b
+    return h_new.to(x_t.dtype), h_new
 
 
 def _segment_starts(reset: Optional[torch.Tensor], B: int, L: int, device):

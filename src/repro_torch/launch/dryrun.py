@@ -25,10 +25,11 @@ parameters and the inputs otherwise); ``temp_size_in_bytes`` is the peak of
 the live bytes the step creates, as the counter tracks them.
 
 The JAX ``ASSIGNED`` configs the port lacks wait for slice 7 (ROADMAP
-queue 1 item 5): their cells get a ``skip`` record, not an error. Of the
-ones it has, xlstm-125m is counted like the Mamba configs, and
-recurrentgemma-2b's ``train_4k`` is; its serving cells skip, naming
-ROADMAP item 5c-ii (``shapes.cell_supported``). Its sLSTM is a
+queue 1 item 5): their cells get a ``skip`` record, not an error. The
+ones it has, xlstm-125m and recurrentgemma-2b, are counted like the Mamba
+configs, each of the four shapes (``shapes.cell_supported``: a windowed
+attention is sub-quadratic, so recurrentgemma-2b's ``long_500k`` runs, its
+decode step on a K/V ring of 2048 slots). xlstm-125m's sLSTM is a
 Python loop over time, and the meta device runs each of its ops through
 Python, so its train and prefill cells take minutes of host time, where
 a Mamba cell takes seconds. Unlike the JAX module, this one sets no

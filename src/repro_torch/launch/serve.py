@@ -4,9 +4,10 @@ prefill, chunked prefill of long prompts, and per-request batched sampling.
 Port of ``repro.launch.serve.ServeEngine``'s scheduler. Queued prompts are
 packed back to back into a (prefill_rows, bucket) buffer
 (``core/packing.py``); ONE forward (``LM.prefill_packed``) harvests every
-segment's final conv/SSM state at its segment end, the states land in
-per-request decode slots (``LM.scatter_into_cache``), and decode runs one
-step over all slots per token. A slot that emits its EOS or spends its
+segment's final decode state at its segment end (the conv/SSM state, and a
+hybrid's K/V ring), the states land in per-request decode slots
+(``LM.scatter_into_cache``), and decode runs one step over all slots per
+token, each slot at its own ``cache_len``. A slot that emits its EOS or spends its
 budget is released and refilled mid-flight.
 
 * **Overlap** (``overlap=True``, the default): on the card each packed
@@ -112,6 +113,13 @@ Every part of the JAX engine is ported.
       --deadline-ms 60000 --max-queue 64
   python -m repro_torch.launch.serve --arch mamba-1.4b --cache-mb 512 \
       --shared-prefix 1024 --max-len 2048 --spec-k 4
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --max-len 2560
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --tiny \
+      --device cpu --buckets 16,32 --max-len 96
+
+A hybrid's slot also holds its attention's K/V ring, min(max_len,
+attn_window) slots a layer; a ``chunk_size`` longer than the ring is
+refused at construction.
 """
 from __future__ import annotations
 
@@ -303,7 +311,6 @@ class ServeEngine:
         if bucket_policy not in ("smallest_fit", "ttft"):
             raise ValueError(f"bucket_policy must be 'smallest_fit' or "
                              f"'ttft', got {bucket_policy!r}")
-        model.check_serves()
         self.model = model
         self.device = model.device
         # metrics are always on; spans record only under Obs.on()
@@ -357,6 +364,13 @@ class ServeEngine:
         if self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.chunk_enabled = chunk_rows > 0 and model.supports_chunked_prefill
+        ring = model.ring_size(max_len)
+        if self.chunk_enabled and ring is not None and self.chunk_size > ring:
+            # a slab longer than the K/V ring would evict its own keys
+            # (``blocks.chunk_attn`` raises mid-run): refuse it here
+            raise ValueError(f"chunk_size {self.chunk_size} exceeds the "
+                             f"attention's K/V ring of {ring} slots at "
+                             f"max_len {max_len}")
         # A decode step costs the same whether a slot is active or idle, so
         # single-slot refills waste a prefill: refill once this many slots
         # are free (or nothing is decoding), unless the TTFT target fires.
@@ -379,7 +393,7 @@ class ServeEngine:
             warm_for_config(model.cfg, shapes, device=model.device)
 
         dev = self.device
-        self.cache = model.init_cache(num_slots)
+        self.cache = model.init_cache(num_slots, max_len)
         self.cache_len = torch.zeros(num_slots, dtype=torch.int32, device=dev)
         self.cur_tok = torch.zeros((num_slots, 1), dtype=torch.int32,
                                    device=dev)
@@ -396,7 +410,7 @@ class ServeEngine:
         # the chunk lane: a side cache of chunk_rows long prompts; the main
         # cache cannot host a partial prompt (decode would advance it)
         if self.chunk_enabled:
-            self.chunk_cache = model.init_cache(self.chunk_rows)
+            self.chunk_cache = model.init_cache(self.chunk_rows, max_len)
             self.chunk_clen = torch.zeros(self.chunk_rows, dtype=torch.int32,
                                           device=dev)
         self.chunk_req: List[Optional[Request]] = [None] * self.chunk_rows
@@ -804,7 +818,8 @@ class ServeEngine:
                 ("stream", B.request_streams(self.sample_seed, rids)),
                 ("temp", temp), ("topk", topk), ("topp", topp))}
             logits, states, seg_lens = self.model.prefill_packed(
-                {k: self._h2d(a) for k, a in batch.items()}, self._h2d(ends))
+                {k: self._h2d(a) for k, a in batch.items()}, self._h2d(ends),
+                self.max_len)
             if poison:
                 states = poison_states(states, poison,
                                        self.faults.poison_value)
@@ -1334,7 +1349,8 @@ class ServeEngine:
         rsid = self._tr.start("spec_round", track="engine", step=step_idx,
                               active=len(active), k=K)
         toks, fins, traj = self.model.decode_verify(
-            self.cache, self.cur_tok, self._h2d(draft))
+            self.cache, self.cur_tok, self._h2d(draft),
+            cache_len=self.cache_len)
         # syncs the current stream only; the probe in the same copy
         toks_np, fin_np = self._to_host(toks, fins if self.guard else None)
         self._synced()
@@ -1442,20 +1458,21 @@ class ServeEngine:
                     self.model.decode_step_sample_guarded(
                         self.cache, self.cur_tok, self.slot_stream,
                         self.slot_ctr, self.slot_temp, self.slot_topk,
-                        self.slot_topp, poison)
+                        self.slot_topp, poison, cache_len=self.cache_len)
             else:
                 tok, self.cache, finite = \
                     self.model.decode_step_greedy_guarded(
-                        self.cache, self.cur_tok, poison)
+                        self.cache, self.cur_tok, poison,
+                        cache_len=self.cache_len)
         elif sampling:
             tok, _, self.cache, self.slot_ctr = \
                 self.model.decode_step_sample(
                     self.cache, self.cur_tok, self.slot_stream,
                     self.slot_ctr, self.slot_temp, self.slot_topk,
-                    self.slot_topp)
+                    self.slot_topp, cache_len=self.cache_len)
         else:
-            logits, self.cache = self.model.decode_step(self.cache,
-                                                        self.cur_tok)
+            logits, self.cache = self.model.decode_step(
+                self.cache, self.cur_tok, cache_len=self.cache_len)
             tok = B.greedy_tokens(logits)
         self.cache_len += act
         self.cur_tok = tok[:, None]
@@ -1532,8 +1549,8 @@ class ServeEngine:
 
     # ------------------------------------------------------- crash recovery
     def _device_state(self) -> Dict[str, object]:
-        """The engine's whole device state as one tree: each slot's O(1)
-        conv/SSM state and its cursor, next token, sampling stream, counter
+        """The engine's whole device state as one tree: each slot's decode
+        state (the K/V ring too) and its cursor, next token, sampling stream, counter
         and knobs; the chunk lane's rows when it is on."""
         state = {"cache": self.cache, "cache_len": self.cache_len,
                  "cur_tok": self.cur_tok, "slot_stream": self.slot_stream,
@@ -1691,8 +1708,9 @@ class ServeEngine:
             seg[b, :len(p)] = 1
             pos[b, :len(p)] = np.arange(len(p))
         seg[len(prompts):, 0] = 1              # idle slots: 1-token dummy
-        logits, cache, _ = self.model.prefill(
-            {"tokens": grid, "positions": pos, "segment_ids": seg})
+        logits, cache, clen = self.model.prefill(
+            {"tokens": grid, "positions": pos, "segment_ids": seg},
+            self.max_len)
         for k, c in self.cache.items():
             c.copy_(cache[k])
         del cache
@@ -1724,11 +1742,13 @@ class ServeEngine:
                 break
             if sampling:
                 tok, _, self.cache, ctr = self.model.decode_step_sample(
-                    self.cache, tok[:, None], stream, ctr, temp, topk, topp)
+                    self.cache, tok[:, None], stream, ctr, temp, topk, topp,
+                    cache_len=clen)
             else:
-                lg, self.cache = self.model.decode_step(self.cache,
-                                                        tok[:, None])
+                lg, self.cache = self.model.decode_step(
+                    self.cache, tok[:, None], cache_len=clen)
                 tok = B.greedy_tokens(lg)
+            clen = clen + 1
         return outs[:len(prompts)]
 
 
@@ -1770,7 +1790,7 @@ def main(argv=None):
                     help="hard bound on accepted prompt length")
     ap.add_argument("--cache-mb", type=float, default=None,
                     help="turn the prefix state cache on with this budget "
-                         "(MB): a repeated prefix restores its O(1) state "
+                         "(MB): a repeated prefix restores its decode state "
                          "instead of being prefilled again")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every request the same N-token system "

@@ -8,17 +8,19 @@ Shapes (per assignment):
   decode_32k   seq 32,768  global_batch 128   → serve_step (1 token)
   long_500k    seq 524,288 global_batch 1     → serve_step (sub-quadratic only)
 
-Skip rules: encoder-only archs have no decode; long_500k runs only for
-sub-quadratic archs. Every Mamba and xLSTM config the port has is a
-recurrent decoder, so each of the four shapes runs on each of them. The
-hybrid family trains only, so its prefill and decode cells skip, naming
-ROADMAP item 5c-ii (its serving path).
+Skip rules (the JAX ``cell_supported``): encoder-only archs have no
+decode; long_500k runs only for sub-quadratic archs, whose decode state
+is O(1) in the context or bounded by an attention window. Every config
+the port has is a decoder of that kind (Mamba and xLSTM recurrent,
+recurrentgemma-2b's attention windowed at 2048), so each of the four
+shapes runs on each of them.
 
 The cells run through the port's own entry points: train through
 ``train.trainer.make_train_step`` and ``AdamW``, prefill through
 ``LM.prefill_logits``, decode through ``LM.decode_step`` on
-``LM.init_cache`` (the port's decode state is O(1) in the context, so the
-step takes no cache length: a reset flag, None here, replaces it).
+``LM.init_cache(batch, seq)`` with a ``cache_len`` (B,) of zeros, as the
+JAX ``serve_step`` (a hybrid's K/V ring is min(seq, attn_window) slots;
+the other kinds' states do not depend on ``seq``).
 Gradient accumulation is not counted: ``make_train_step``'s ``accum`` > 1
 splits the batch through numpy, which a meta tensor cannot enter, so a
 train cell's step takes ``accum`` = 1, the JAX ``run_cell``'s default.
@@ -50,16 +52,19 @@ SHAPES = {
     "long_500k": dict(kind="decode", seq=524288, batch=1),
 }
 # layer kinds whose decode state is O(1) in the context length
-RECURRENT_KINDS = {"mamba", "mamba2", "mlstm", "slstm"}
+RECURRENT_KINDS = {"mamba", "mamba2", "rec", "mlstm", "slstm"}
+
+
+def sub_quadratic(cfg: ArchConfig) -> bool:
+    """The JAX ``ArchConfig.sub_quadratic``: every kind recurrent, or the
+    attention windowed."""
+    return set(cfg.unit) <= RECURRENT_KINDS or cfg.attn_window is not None
 
 
 def cell_supported(cfg: ArchConfig, shape_name: str) -> Tuple[bool, str]:
     s = SHAPES[shape_name]
-    if cfg.family == "hybrid" and s["kind"] != "train":
-        return False, ("serving cell: the hybrid family's serving path is "
-                       "ROADMAP item 5c-ii")
     if s["kind"] == "decode" and shape_name == "long_500k" and \
-            not set(cfg.unit) <= RECURRENT_KINDS:
+            not sub_quadratic(cfg):
         return False, "full attention: 500k decode is quadratic-regime"
     return True, ""
 
@@ -86,13 +91,15 @@ def input_specs(cfg: ArchConfig, shape_name: str,
     s = SHAPES[shape_name]
     if s["kind"] in ("train", "prefill"):
         return train_batch_specs(cfg, s["batch"], s["seq"], device)
-    return _decode_inputs(LM(_serving(cfg), device), s["batch"])
+    return _decode_inputs(LM(_serving(cfg), device), s["batch"], s["seq"])
 
 
-def _decode_inputs(model: LM, batch: int) -> Dict[str, Any]:
-    return {"cache": model.init_cache(batch),
+def _decode_inputs(model: LM, batch: int, seq: int) -> Dict[str, Any]:
+    return {"cache": model.init_cache(batch, seq),
             "tokens_t": torch.empty((batch, 1), dtype=torch.int32,
-                                    device=model.device)}
+                                    device=model.device),
+            "cache_len": torch.zeros((batch,), dtype=torch.int32,
+                                     device=model.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -182,9 +189,13 @@ def prefill_cell(cfg: ArchConfig, batch: int, seq: int,
 def decode_cell(cfg: ArchConfig, batch: int, seq: int,
                 device="meta") -> Cell:
     model = LM(_serving(cfg), device)
-    ins = _decode_inputs(model, batch)
-    args = (ins["cache"], ins["tokens_t"])
-    return Cell(fn=model.decode_step, args=args,
+    ins = _decode_inputs(model, batch, seq)
+    args = (ins["cache"], ins["tokens_t"], ins["cache_len"])
+
+    def serve_step(cache, tokens_t, cache_len):
+        return model.decode_step(cache, tokens_t, cache_len=cache_len)
+
+    return Cell(fn=serve_step, args=args,
                 meta={"kind": "decode", "batch": batch, "seq": seq,
                       "fn_name": "serve_step",
                       "argument_bytes": _argument_bytes(

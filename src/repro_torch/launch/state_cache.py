@@ -1,15 +1,20 @@
-"""Prefix state cache: the serving payoff of the O(1) SSM state (port of
-``repro.launch.state_cache``; its own copy, so the port never imports
+"""Prefix state cache: the serving payoff of a bounded decode state (port
+of ``repro.launch.state_cache``; its own copy, so the port never imports
 ``repro``).
 
-After ``P`` prompt tokens a Mamba model's whole context is one fixed-size
-state a layer (the conv tail and the SSM state), whatever ``P`` is. So a
-prefix cache needs no paged region: ONE decode-cache row (every layer's
-state, in the ``LM.init_cache`` layout that ``snapshot()`` persists) and
-the end-of-prefix logits are the whole artifact. A later request whose
-prompt starts with the same tokens restores that row and prefills only its
-suffix, or, when the whole prompt is stored, starts decoding with no
-forward at all.
+After ``P`` prompt tokens a Mamba or xLSTM model's whole context is one
+fixed-size state a layer (the conv tail and the recurrent state), whatever
+``P`` is; a hybrid's attention layers add their K/V ring, min(max_len,
+attn_window) slots a layer, bounded by the window, not by ``P``: at
+recurrentgemma-2b's width and ``max_len`` ≥ 2048 the ring alone is 16 MiB
+a row (8 layers × k and v × 2048 × 256 × bf16). So a prefix cache needs no paged region: ONE decode-cache row
+(every layer's state, in the ``LM.init_cache`` layout that ``snapshot()``
+persists) and the end-of-prefix logits are the whole artifact, and
+``nbytes`` counts every leaf. A later request whose prompt starts with the
+same tokens restores that row (the engine sets its ``cache_len`` to the
+prefix's length, where the ring's next slot and RoPE start) and prefills
+only its suffix, or, when the whole prompt is stored, starts decoding with
+no forward at all.
 
 ``StateCache`` is a host-side LRU keyed by a hash of the prefix tokens and
 bounded by bytes. It knows nothing of the engine: the ``ServeEngine``
@@ -27,8 +32,9 @@ evictions (counters), bytes and entries (gauges).
 Layout of one stored row (``LM.init_cache`` with one slot):
 ``{"conv": (n_layers, 1, W-1, d_inner), "ssm": (n_layers, 1, d_inner, N)}``
 (Mamba-1) or ``"ssm": (n_layers, 1, H, P, N)`` (Mamba-2); a pattern
-config's groups, e.g. xlstm-125m's ``"0_mlstm.C"`` (2, 1, H, dh, dh), the
-same way (layer axis first, the row second).
+config's groups, e.g. xlstm-125m's ``"0_mlstm.C"`` (2, 1, H, dh, dh) or
+recurrentgemma-2b's ``"2_attn.k"`` (8, 1, S, Hkv, hd), the same way (layer
+axis first, the row second).
 """
 from __future__ import annotations
 

@@ -6,10 +6,10 @@ and the gated MLP (port of the ``mamba``, ``mamba2``, ``mlstm``,
 ``init_<kind>`` makes a block's parameters, ``apply_<kind>`` runs it over
 a packed (B, L) buffer and ``step_<kind>`` over one decode token
 (``KINDS`` holds them by kind, ``layer_kinds`` gives each layer's,
-``unit_layout`` the JAX sub-block names of one pattern unit). The hybrid
-family's ``rec`` and ``attn`` blocks train only: their decode state (the
-RG-LRU's and the attention's K/V ring) is ROADMAP item 5c-ii, and the
-LM's serving entries refuse the family.
+``unit_layout`` the JAX sub-block names of one pattern unit). Every
+decode state is O(1) in the context but the local attention's: a K/V ring
+of S = min(max_len, attn_window) slots (``init_attn_cache``), slot
+``t % S`` holding token t, written at ``Ctx.cache_len``.
 Parameter names and layouts are the JAX package's: dense weights are (din,
 dout) and applied as ``x @ W`` (the transpose of ``nn.Linear.weight``),
 and every weight is cast to the activation dtype at use.
@@ -39,10 +39,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import ssm as core_ssm
-from repro_torch.core.attention import attention, rope
+from repro_torch.core.attention import (NEG_INF, _gqa_scores,
+                                         attention, decode_attention,
+                                         rope)
 from repro_torch.core.conv import conv1d_pack_update
 from repro_torch.core.recurrence import (NEG, RGLRU_C, mlstm, mlstm_step,
-                                         rglru, slstm)
+                                         rglru, rglru_step, slstm)
 from repro_torch.kernels import ops as kops
 
 
@@ -52,6 +54,7 @@ class Ctx:
     positions: Optional[torch.Tensor] = None      # (B, L) intra-seq positions
     segment_ids: Optional[torch.Tensor] = None    # (B, L)
     reset_t: Optional[torch.Tensor] = None        # (B,) new-sequence flag
+    cache_len: Optional[torch.Tensor] = None      # (B,) tokens consumed
 
 
 def _norm(scale, x, eps):
@@ -739,13 +742,10 @@ def chunk_slstm(p, x, cache, ctx: Ctx, cfg: ArchConfig):
 # hybrid (RecurrentGemma) blocks: RG-LRU, local attention, gated MLP
 # ===========================================================================
 # The RG-LRU block's conv is ``conv1d_pack`` (kernels #1 and #2 on the
-# card); its scan, the attention and the MLP are plain PyTorch, as the JAX
-# package runs them in XLA with no Pallas kernel. Serving them (the
-# RG-LRU's decode state, the attention's K/V ring) is ROADMAP item 5c-ii.
-
-SERVING_5C_II = ("the hybrid family's serving path (the RG-LRU decode "
-                 "state and the attention's K/V ring) is ROADMAP item "
-                 "5c-ii; the port trains it only")
+# card) in training, a packed prefill and a chunk slab; its decode step's
+# conv is ``conv1d_pack_update`` (plain, as in the JAX package). Its scan,
+# the attention and the MLP are plain PyTorch, as the JAX package runs
+# them in XLA with no Pallas kernel.
 
 
 def _gelu(x):
@@ -822,11 +822,17 @@ def _gate_blockdiag(x_c, w, nb):
     return torch.einsum("blnc,ncd->blnd", xb, w).reshape(Bz, L, lw)
 
 
-def apply_rec(p, x, ctx: Ctx, cfg: ArchConfig):
-    """x (B, L, d) → x + block(x): the RG-LRU over the conv of the x
-    branch, gated by the tanh-GeLU y branch. The conv is ``conv1d_pack``
-    (#1 forward, #2 dx backward on the card), the scan ``core.recurrence.
-    rglru`` (chunked, chunk ``scan_chunk``)."""
+def apply_rec(p, x, ctx: Ctx, cfg: ArchConfig, collect: int = 0,
+              collect_ends=None):
+    """x (B, L, d) → x + block(x) [, state]: the RG-LRU over the conv of
+    the x branch, gated by the tanh-GeLU y branch. The conv is
+    ``conv1d_pack`` (#1 forward, #2 dx backward on the card), the scan
+    ``core.recurrence.rglru`` (chunked, chunk ``scan_chunk``). With
+    ``collect`` the decode state {"conv": the x branch's last W-1 inputs,
+    "h": the f32 RG-LRU state} is handed off per row (frozen across the
+    padding: r = i = 0 there, so a = 1 and b = 0, and the padding's
+    positions never fire the reset) or, with ``collect_ends``, per segment
+    (a gather of the f32 trajectory at each segment end)."""
     nb, dt = cfg.lru_gate_blocks, x.dtype
     h = _norm(p["norm"], x, cfg.norm_eps)
     y_branch = _gelu(h @ p["w_y"].to(dt))
@@ -835,9 +841,79 @@ def apply_rec(p, x, ctx: Ctx, cfg: ArchConfig):
                            ctx.positions)
     r = torch.sigmoid(_gate_blockdiag(x_c, p["w_r"].to(dt), nb))
     i = torch.sigmoid(_gate_blockdiag(x_c, p["w_i"].to(dt), nb))
-    lru, _ = rglru(x_c, r, i, p["a_param"], ctx.positions,
-                   chunk=cfg.scan_chunk)
-    return x + (lru * y_branch) @ p["wo"].to(dt)
+    if collect and collect_ends is not None:
+        lru, _, h_ends = rglru(x_c, r, i, p["a_param"], ctx.positions,
+                               chunk=cfg.scan_chunk,
+                               collect_ends=collect_ends)
+        state = {"conv": _conv_tail_ends(x_branch, collect_ends,
+                                         _ends_lens(ctx, collect_ends),
+                                         cfg.conv_width),
+                 "h": h_ends}
+        return x + (lru * y_branch) @ p["wo"].to(dt), state
+    pos = ctx.positions
+    if collect:
+        vmask = _valid(ctx, x)
+        valid = vmask[..., None].to(r.dtype)
+        r, i = r * valid, i * valid
+        pos = torch.where(vmask, ctx.positions, 1)
+    lru, h_last = rglru(x_c, r, i, p["a_param"], pos, chunk=cfg.scan_chunk)
+    out = x + (lru * y_branch) @ p["wo"].to(dt)
+    if collect:
+        return out, {"conv": _conv_tail(x_branch, _valid(ctx, x).sum(-1),
+                                        cfg.conv_width),
+                     "h": h_last}
+    return out
+
+
+def init_rec_cache(cfg: ArchConfig, batch: int, dtype, device):
+    """conv (B, W-1, lru_width) in the activation dtype, h (B, lru_width)
+    f32."""
+    lw = cfg.lru_width or cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, lw), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, lw), dtype=torch.float32,
+                             device=device)}
+
+
+def step_rec(p, x_t, cache, ctx: Ctx, cfg: ArchConfig):
+    """x_t (B, 1, d); the conv is ``conv1d_pack_update`` (plain, as in the
+    JAX package). Returns (x_t + block(x_t), new cache)."""
+    nb, dt = cfg.lru_gate_blocks, x_t.dtype
+    h = _norm(p["norm"], x_t, cfg.norm_eps)
+    y_branch = _gelu(h[:, 0] @ p["w_y"].to(dt))
+    x_branch = h[:, 0] @ p["w_x"].to(dt)
+    x_c, conv_state = conv1d_pack_update(
+        x_branch, cache["conv"], p["conv_w"].to(dt), p["conv_b"].to(dt),
+        ctx.reset_t)
+    r = torch.sigmoid(_gate_blockdiag(x_c[:, None], p["w_r"].to(dt),
+                                      nb)[:, 0])
+    i = torch.sigmoid(_gate_blockdiag(x_c[:, None], p["w_i"].to(dt),
+                                      nb)[:, 0])
+    y, hn = rglru_step(cache["h"], x_c, r, i, p["a_param"], ctx.reset_t)
+    out = (y * y_branch) @ p["wo"].to(dt)
+    return x_t + out[:, None], {"conv": conv_state, "h": hn}
+
+
+def chunk_rec(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One RG-LRU block over a resumed slab: #1 through ``_conv_resume``
+    (the carried tail at W-1 leading zero positions), the scan from
+    ``h0 = cache["h"]``, frozen across the slab's padding."""
+    nb, dt, W = cfg.lru_gate_blocks, x.dtype, cfg.conv_width
+    h = _norm(p["norm"], x, cfg.norm_eps)
+    y_branch = _gelu(h @ p["w_y"].to(dt))
+    x_branch = h @ p["w_x"].to(dt)
+    x_c, ext = _conv_resume(x_branch, cache["conv"], p["conv_w"].to(dt),
+                            p["conv_b"].to(dt), ctx.positions)
+    r = torch.sigmoid(_gate_blockdiag(x_c, p["w_r"].to(dt), nb))
+    i = torch.sigmoid(_gate_blockdiag(x_c, p["w_i"].to(dt), nb))
+    vmask = _valid(ctx, x)
+    valid = vmask[..., None].to(r.dtype)
+    lru, h_last = rglru(x_c, r * valid, i * valid, p["a_param"],
+                        torch.where(vmask, ctx.positions, 1), h0=cache["h"],
+                        chunk=cfg.scan_chunk)
+    state = {"conv": _conv_tail(ext, (W - 1) + vmask.sum(-1), W),
+             "h": h_last}
+    return x + (lru * y_branch) @ p["wo"].to(dt), state
 
 
 def attn_param_shapes(cfg: ArchConfig):
@@ -864,29 +940,191 @@ def _apply_rope(cfg: ArchConfig, q, k, ctx: Ctx):
     return q, k
 
 
-def apply_attn(p, x, ctx: Ctx, cfg: ArchConfig):
-    """x (B, L, d) → x + block(x): causal local attention under the
-    segment mask, RoPE on intra-sequence positions."""
+def _attn_qkv(p, x, ctx: Ctx, cfg: ArchConfig):
+    """q (B, L, H, hd) and k, v (B, L, Hkv, hd), RoPE on q and k."""
     Bz, L, _ = x.shape
     H, Hkv, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.hd, x.dtype
     h = _norm(p["norm"], x, cfg.norm_eps)
     q = (h @ p["wq"].to(dt)).reshape(Bz, L, H, hd)
     kv = (h @ p["wkv"].to(dt)).reshape(Bz, L, 2, Hkv, hd)
     q, k = _apply_rope(cfg, q, kv[:, :, 0], ctx)
+    return q, k, kv[:, :, 1]
+
+
+def ring_size(cfg: ArchConfig, max_len: int) -> int:
+    """The K/V ring's slots: the window bounds the decode state."""
+    return max_len if cfg.attn_window is None else \
+        min(max_len, cfg.attn_window)
+
+
+def apply_attn(p, x, ctx: Ctx, cfg: ArchConfig, collect: int = 0,
+               collect_ends=None):
+    """x (B, L, d) → x + block(x) [, state]: causal local attention under
+    the segment mask, RoPE on intra-sequence positions. ``collect`` is
+    the cache's ``max_len``: the post-RoPE K/V are laid into a ring of
+    ``ring_size`` slots per row (``_ring_fill``) or, with
+    ``collect_ends``, per segment (``_ring_fill_ends``)."""
+    Bz, L, _ = x.shape
+    q, k, v = _attn_qkv(p, x, ctx, cfg)
     chunk = cfg.attn_chunk
     if chunk is None and L > 4096:
         chunk = 1024                       # online softmax for long rows
-    o = attention(q, k, kv[:, :, 1], segment_ids_q=ctx.segment_ids,
+    o = attention(q, k, v, segment_ids_q=ctx.segment_ids,
                   segment_ids_kv=ctx.segment_ids, causal=True,
                   window=cfg.attn_window, chunk_kv=chunk)
-    return x + o.reshape(Bz, L, H * hd) @ p["wo"].to(dt)
+    out = x + o.reshape(Bz, L, -1) @ p["wo"].to(x.dtype)
+    if not collect:
+        return out
+    S = ring_size(cfg, collect)
+    if collect_ends is not None:
+        return out, _ring_fill_ends(k, v, collect_ends,
+                                    _ends_lens(ctx, collect_ends), S)
+    return out, _ring_fill(k, v, _valid(ctx, x).sum(-1), S)
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                    device):
+    """k, v (B, S, Hkv, hd) in the activation dtype, S = ``ring_size``."""
+    shape = (batch, ring_size(cfg, max_len), cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _ring_slots(nb, S):
+    """For a prefix of ``nb`` tokens (…, 1): the token t ≡ s (mod S) each
+    ring slot s holds (the last such t < nb), and whether it holds one."""
+    s = torch.arange(S, device=nb.device)
+    t = s + torch.div(nb - 1 - s, S, rounding_mode="floor") * S
+    return t, (s < nb) & (t >= 0)
+
+
+def _ring_fill(k, v, lens, S):
+    """A prefill's K/V (B, L, Hkv, hd) in the ring layout ``step_attn``
+    uses: slot s holds the last token t < len with t ≡ s (mod S); slots
+    that hold none are zero."""
+    L = k.shape[1]
+    t, ok = _ring_slots(lens.long()[:, None], S)           # (B, S)
+    rows = _rows(k)[:, None]
+    tcl = t.clamp(0, L - 1)
+    m = ok[..., None, None]
+    return {"k": torch.where(m, k[rows, tcl], 0.0),
+            "v": torch.where(m, v[rows, tcl], 0.0)}
+
+
+def _ring_fill_ends(k, v, ends, lens, S):
+    """Per SEGMENT ring fill: slot s of segment (b, g) holds that segment's
+    last token whose intra-segment position is ≡ s (mod S); zeros where it
+    has none and for absent segments (``ends`` −1). Returns K/V (B, Sg, S,
+    Hkv, hd)."""
+    L = k.shape[1]
+    nb = lens.long()[..., None]                            # (B, Sg, 1)
+    pos, ok = _ring_slots(nb, S)                           # (B, Sg, S)
+    e = ends.long()[..., None]
+    ok = ok & (e >= 0)
+    t = (e - (nb - 1) + pos).clamp(0, L - 1)               # buffer index
+    rows = _rows(k)[:, None, None]
+    m = ok[..., None, None]
+    return {"k": torch.where(m, k[rows, t], 0.0),
+            "v": torch.where(m, v[rows, t], 0.0)}
+
+
+def step_attn(p, x_t, cache, ctx: Ctx, cfg: ArchConfig):
+    """x_t (B, 1, d); cache {"k", "v"} (B, S, Hkv, hd). RoPE at
+    ``ctx.cache_len``, the token's K/V written into slot cache_len % S of
+    the given cache (in place), then attention over the ring
+    (``_ring_decode``; ``core.attention.decode_attention`` without a
+    window). Returns (x_t + block(x_t), the cache)."""
+    Bz = x_t.shape[0]
+    q, k, v = _attn_qkv(p, x_t, Ctx(positions=ctx.cache_len[:, None]), cfg)
+    kc, vc = cache["k"], cache["v"]
+    rows = _rows(x_t)
+    slot = ctx.cache_len.long() % kc.shape[1]
+    kc[rows, slot] = k[:, 0]
+    vc[rows, slot] = v[:, 0]
+    if cfg.attn_window is not None:
+        o = _ring_decode(q[:, 0], kc, vc, ctx.cache_len, cfg.attn_window)
+    else:
+        o = decode_attention(q[:, 0], kc, vc, ctx.cache_len)
+    o = o.reshape(Bz, 1, -1) @ p["wo"].to(x_t.dtype)
+    return x_t + o, {"k": kc, "v": vc}
+
+
+def _ring_decode(q_t, kc, vc, cur, window):
+    """Decode attention over a ring of S slots: slot s is ``(cur % S − s)
+    % S`` tokens old and valid when that age is under the window and at
+    most ``cur`` (so the slots a fill left empty, or a fresh tenant's, are
+    masked whatever they hold); masked scores are −1e30, as JAX's."""
+    Bz, S, Hkv, hd = kc.shape
+    H = q_t.shape[1]
+    cur = cur.long()[:, None]
+    idx = torch.arange(S, device=q_t.device)[None, :]
+    age = torch.remainder(torch.remainder(cur, S) - idx, S)
+    valid = (age < window) & (age <= cur)
+    s = _gqa_scores(q_t.reshape(Bz, 1, Hkv, H // Hkv, hd), kc,
+                    hd ** -0.5)[:, :, :, 0]                # (B,Hkv,G,S)
+    s = torch.where(valid[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(vc.dtype), vc)
+    return o.reshape(Bz, H, hd)
+
+
+def chunk_attn(p, x, cache, ctx: Ctx, cfg: ArchConfig):
+    """One attention block over a resumed slab (B, T): one joint softmax
+    over the cached prefix ring and the slab's causal keys, THEN the slab's
+    post-RoPE K/V written into their ring slots (the write may evict
+    prefix slots the slab itself still attends to, so the order matters).
+    Valid tokens land at position % S (distinct, since T ≤ S); padding is
+    never written. Raises when T > S."""
+    Bz, T, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = cache["k"].shape[1]
+    if T > S:
+        raise ValueError(f"chunk length {T} exceeds attention cache/window "
+                         f"{S} — use a chunk size ≤ the attention window")
+    q, k, v = _attn_qkv(p, x, ctx, cfg)
+    valid = _valid(ctx, x)
+    pos = ctx.positions.long()
+    t_s, pref_ok = _ring_slots(ctx.cache_len.long()[:, None], S)  # (B, S)
+    qr = q.reshape(Bz, T, Hkv, H // Hkv, hd)
+    scale = hd ** -0.5
+    sc_pre = torch.einsum("btkgd,bskd->btkgs", qr.float(),
+                          cache["k"].float()) * scale
+    m_pre = pref_ok[:, None, :]                            # (B, 1, S)
+    if cfg.attn_window is not None:
+        m_pre = m_pre & (t_s[:, None, :] > pos[:, :, None] - cfg.attn_window)
+    sc_pre = torch.where(m_pre[:, :, None, None, :], sc_pre, NEG_INF)
+    sc_in = torch.einsum("btkgd,bjkd->btkgj", qr.float(), k.float()) * scale
+    ar = torch.arange(T, device=x.device)
+    m_in = (pos[:, :, None] >= pos[:, None, :]) & valid[:, None, :] & \
+        (ar[None, :, None] >= ar[None, None, :])
+    if cfg.attn_window is not None:
+        m_in = m_in & (pos[:, None, :] > pos[:, :, None] - cfg.attn_window)
+    sc_in = torch.where(m_in[:, :, None, None, :], sc_in, NEG_INF)
+    pr = torch.softmax(torch.cat([sc_pre, sc_in], dim=-1),
+                       dim=-1).to(v.dtype)
+    o = torch.einsum("btkgs,bskd->btkgd", pr[..., :S], cache["v"]) + \
+        torch.einsum("btkgj,bjkd->btkgd", pr[..., S:], v)
+    out = x + o.reshape(Bz, T, H * hd) @ p["wo"].to(x.dtype)
+    # the write, after attending: slot s takes the slab token that lands
+    # there (src[b, s], −1 for none); padding goes to the dropped column S
+    slot = torch.where(valid, pos % S, S)
+    src = torch.full((Bz, S + 1), -1, dtype=torch.long, device=x.device)
+    src.scatter_(1, slot, ar.expand(Bz, T).contiguous())
+    src = src[:, :S]
+    m = (src >= 0)[..., None, None]
+    rows = _rows(x)[:, None]
+    take = src.clamp(min=0)
+    return out, {"k": torch.where(m, k[rows, take], cache["k"]),
+                 "v": torch.where(m, v[rows, take], cache["v"])}
 
 
 CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2, "mlstm": chunk_mlstm,
-         "slstm": chunk_slstm}
+         "slstm": chunk_slstm, "rec": chunk_rec, "attn": chunk_attn}
 
 
-# Per layer kind: (init, parameter shapes, apply, decode cache, decode step)
+# Per layer kind: (init, parameter shapes, apply, decode cache, decode
+# step); the attention's decode cache also takes ``max_len``
+# (``init_attn_cache``)
 KINDS = {
     "mamba": (init_mamba, mamba_param_shapes, apply_mamba, init_mamba_cache,
               step_mamba),
@@ -896,10 +1134,9 @@ KINDS = {
               step_mlstm),
     "slstm": (init_slstm, slstm_param_shapes, apply_slstm, init_slstm_cache,
               step_slstm),
-    # training only: no decode cache or step until ROADMAP 5c-ii (the LM's
-    # serving entries refuse the family first, ``LM.check_serves``)
-    "rec": (init_rec, rec_param_shapes, apply_rec, None, None),
-    "attn": (init_attn, attn_param_shapes, apply_attn, None, None),
+    "rec": (init_rec, rec_param_shapes, apply_rec, init_rec_cache, step_rec),
+    "attn": (init_attn, attn_param_shapes, apply_attn, init_attn_cache,
+             step_attn),
 }
 # the MLP sub-block that follows each hybrid layer's block when d_ff > 0:
 # (init, parameter shapes, apply)

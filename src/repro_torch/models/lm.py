@@ -12,8 +12,8 @@ package's names (``embed``, ``layers.<i>.<block leaf>``, a hybrid layer's
 MLP as ``ffns.<i>.<leaf>``, ``final_norm``, and ``head`` unless the
 embedding is tied: then the head is ``embed.T`` and the embedding is
 scaled by √d_model); ``interop.params_from_jax`` maps a JAX tree onto
-them. The hybrid family trains (``loss``, ``forward``); its serving
-entries raise, naming ROADMAP item 5c-ii.
+them. Every family trains and serves; on each serving path a hybrid
+layer runs its block and then its MLP (``_mlp``), as in training.
 
 Training: ``loss`` is the packed next-token cross-entropy; the parameters
 track gradients, ``remat="unit"`` recomputes each layer in the backward
@@ -36,7 +36,20 @@ prefill's states carry ``(n_layers, B, S, …)``. A pattern config keeps
 one group per unit position ``j``: ``"<j>_<kind>.<leaf>"`` holds layers
 j, j + len(unit), … (tail layers included), e.g. xlstm-125m's
 ``"0_mlstm.C"`` (2, slots, H, dh, dh) and ``"5_slstm.h"`` (2, slots, H,
-dh). Leaves named ``m`` are log-domain stabilisers, empty at −1e30.
+dh); recurrentgemma-2b's are ``"0_rec.conv"`` (9, slots, W-1, lru_width)
+and ``"0_rec.h"`` (9, slots, lru_width) f32, ``"1_rec.conv"`` and
+``"1_rec.h"`` (9, …), and ``"2_attn.k"``, ``"2_attn.v"`` (8, slots, S,
+Hkv, hd): the local attention's K/V ring of S = min(max_len, attn_window)
+slots, the one decode state that grows with the context (up to the
+window). Leaves named ``m`` are log-domain stabilisers, empty at −1e30.
+
+The ring needs the cache's ``max_len`` (``init_cache``, ``prefill``,
+``prefill_packed``) and each row's ``cache_len``, the tokens it has
+consumed (``decode_step`` and its variants, ``decode_verify``;
+``prefill_chunk`` takes it already): RoPE is applied at it and the token
+written at slot ``cache_len % S``. A family with ``attn`` layers raises
+where one is missing; the others take and ignore them, so their results
+do not depend on them.
 ``decode_step``, ``prefill_chunk``, ``reset_cache_rows``,
 ``scatter_into_cache`` and ``spec_rollback`` update the cache in place
 (JAX's versions return a new one), so the engine holds one cache's worth
@@ -102,11 +115,15 @@ class LM(nn.Module):
         return {k[len(prefix):]: v[r] for k, v in tree.items()
                 if k.startswith(prefix)}
 
-    def _store(self, cache, i, state):
-        """Write layer ``i``'s new state into ``cache``, in place."""
+    def _store(self, cache, i, state, given):
+        """Write layer ``i``'s new state into ``cache``, in place. A leaf
+        that is the very tensor the step was given (``given``: the layer's
+        views, which ``step_attn`` writes its ring slot into) is there
+        already."""
         prefix, r = self._where[i]
         for k, v in state.items():
-            cache[prefix + k][r].copy_(v)
+            if v is not given[k]:
+                cache[prefix + k][r].copy_(v)
 
     def _stack_states(self, per_layer):
         """Per-layer state dicts → the flat dict, each group's leaves
@@ -138,11 +155,22 @@ class LM(nn.Module):
                             * cfg.d_model ** -0.5)
         return self
 
-    def check_serves(self):
-        """Raises where the family has no serving path in the port yet."""
-        if self.cfg.family == "hybrid":
-            raise NotImplementedError(f"{self.cfg.name}: "
-                                      f"{B.SERVING_5C_II}")
+    @property
+    def has_ring(self) -> bool:
+        """True when a layer keeps a K/V ring (an ``attn`` layer)."""
+        return "attn" in self.kinds
+
+    def ring_size(self, max_len: int) -> Optional[int]:
+        """The K/V ring's slots at ``max_len``, None without a ring."""
+        return B.ring_size(self.cfg, max_len) if self.has_ring else None
+
+    def _needs(self, **args):
+        """Raise where the K/V ring needs an argument the caller left out."""
+        missing = [k for k, v in args.items() if v is None]
+        if self.has_ring and missing:
+            raise ValueError(f"{self.cfg.name}: {', '.join(missing)} is "
+                             f"required: its attention layers keep a K/V "
+                             f"ring")
 
     # ------------------------------------------------------------- embedding
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -169,15 +197,19 @@ class LM(nn.Module):
         return (x @ w.to(x.dtype)).float()
 
     # ----------------------------------------------------------- forward
+    def _mlp(self, i, x, ctx):
+        """Layer ``i``'s MLP after its block, where it has one: every path
+        (training, the prefills, a chunk slab, a decode step) runs it."""
+        if self.ffns is None:
+            return x
+        return B.MLP[2](self.ffns[i], x, ctx, self.cfg)
+
     def _layer(self, i):
         """Layer ``i``'s forward ``(x, ctx) -> x``: its block, then its MLP
         when it has one."""
         cfg, p = self.cfg, self.layers[i]
         apply = B.KINDS[self.kinds[i]][2]
-        if self.ffns is None:
-            return lambda x, ctx: apply(p, x, ctx, cfg)
-        f = self.ffns[i]
-        return lambda x, ctx: B.MLP[2](f, apply(p, x, ctx, cfg), ctx, cfg)
+        return lambda x, ctx: self._mlp(i, apply(p, x, ctx, cfg), ctx)
 
     def _stack(self, x, ctx) -> torch.Tensor:
         remat = self.cfg.remat == "unit" and torch.is_grad_enabled()
@@ -201,7 +233,6 @@ class LM(nn.Module):
         """Serving prefill to the logits at each row's last valid position
         (B, V) f32, handing off no cache: the dry run's prefill cell (the
         JAX ``LM.prefill_logits``)."""
-        self.check_serves()
         batch = self._batch(batch)
         x = self._stack(self._embed(batch["tokens"]), self._ctx(batch))
         lens = (batch["segment_ids"] > 0).sum(-1)
@@ -244,45 +275,50 @@ class LM(nn.Module):
         loss = tot / cnt.clamp(min=1.0)
         return loss, {"ce": loss.detach(), "tokens": cnt}
 
-    def _collect(self, x, ctx, ends=None):
+    def _collect(self, x, ctx, max_len, ends=None):
+        """Every layer's forward, its block handing off its state (``collect``
+        is ``max_len``: the attention's ring size comes from it)."""
+        self._needs(max_len=max_len)
         states = []
-        for kind, p in zip(self.kinds, self.layers):
-            x, st = B.KINDS[kind][2](p, x, ctx, self.cfg, collect=True,
+        for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
+            x, st = B.KINDS[kind][2](p, x, ctx, self.cfg,
+                                     collect=max_len or True,
                                      collect_ends=ends)
+            x = self._mlp(i, x, ctx)
             states.append(st)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         return x, self._stack_states(states)
 
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, max_len: Optional[int] = None):
         """Serving prefill of left-aligned prompts, one per row
         (segment_ids mark validity): one forward that also hands off every
-        layer's decode cache. Returns (last_logits (B, V), cache,
-        cache_len (B,))."""
-        self.check_serves()
+        layer's decode cache (``max_len``: the cache's, which sizes the K/V
+        ring). Returns (last_logits (B, V), cache, cache_len (B,))."""
         batch = self._batch(batch)
         lens = (batch["segment_ids"] > 0).sum(-1).to(torch.int32)
         x, cache = self._collect(self._embed(batch["tokens"]),
-                                 self._ctx(batch))
+                                 self._ctx(batch), max_len)
         xlast = x[torch.arange(x.shape[0], device=x.device),
                   (lens.long() - 1).clamp(min=0)]
         return self._logits(xlast), cache, lens
 
     @torch.no_grad()
-    def prefill_packed(self, batch, ends):
+    def prefill_packed(self, batch, ends, max_len: Optional[int] = None):
         """Packed multi-prompt prefill: ONE forward over packed rows that
         hands off a decode state for every segment. ``ends`` (B, S) is each
-        segment's last-token index in its row (−1 = absent).
+        segment's last-token index in its row (−1 = absent); ``max_len``
+        the decode cache's (the K/V ring's size).
 
         Returns (logits (B, S, V) at segment ends, zeros where absent;
         states in the cache layout with (B, S) in place of the slot axis,
         e.g. {"conv": (n_layers, B, S, W-1, di), "ssm": (n_layers, B, S,
         di, N)} for Mamba-1; seg_lens (B, S) int32, 0 where absent)."""
-        self.check_serves()
         batch = self._batch(batch)
         ends = torch.as_tensor(ends, device=self.device)
         ctx = self._ctx(batch)
-        x, states = self._collect(self._embed(batch["tokens"]), ctx, ends)
+        x, states = self._collect(self._embed(batch["tokens"]), ctx, max_len,
+                                  ends)
         L = x.shape[1]
         xe = x[torch.arange(x.shape[0], device=x.device)[:, None],
                ends.long().clamp(0, L - 1)]
@@ -309,43 +345,56 @@ class LM(nn.Module):
         return cache
 
     # ----------------------------------------------------------- decode
-    def init_cache(self, batch_size: int) -> Dict[str, torch.Tensor]:
-        self.check_serves()
+    def init_cache(self, batch_size: int,
+                   max_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The empty decode cache of ``batch_size`` rows (``max_len``: the
+        longest context a row holds, which sizes the K/V ring)."""
+        self._needs(max_len=max_len)
+        dt = getattr(torch, self.cfg.dtype)
         out = {}
         for j, (prefix, kind) in enumerate(self._groups):
             n = len(range(j, self.cfg.n_layers, len(self.cfg.unit)))
-            one = B.KINDS[kind][3](self.cfg, batch_size,
-                                   getattr(torch, self.cfg.dtype),
-                                   self.device)
+            if kind == "attn":
+                one = B.init_attn_cache(self.cfg, batch_size, max_len, dt,
+                                        self.device)
+            else:
+                one = B.KINDS[kind][3](self.cfg, batch_size, dt, self.device)
             out.update({prefix + k: v[None].repeat((n,) + (1,) * v.dim())
                         for k, v in one.items()})
         return out
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None):
-        """tokens_t (B, 1); reset (B,) bool or None. Advances every layer's
-        cache in place; returns (logits (B, V) f32, cache)."""
-        self.check_serves()
+    def decode_step(self, cache, tokens_t, reset: Optional[torch.Tensor] = None,
+                    *, cache_len=None):
+        """tokens_t (B, 1); reset (B,) bool or None; cache_len (B,) int,
+        the tokens each row has consumed (the new token's position).
+        Advances every layer's cache in place; returns (logits (B, V) f32,
+        cache)."""
+        self._needs(cache_len=cache_len)
         tokens_t = torch.as_tensor(tokens_t, device=self.device)
         x = self._embed(tokens_t)
-        ctx = Ctx(reset_t=reset)
+        ctx = Ctx(reset_t=reset, cache_len=None if cache_len is None else
+                  torch.as_tensor(cache_len, device=self.device))
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
-            x, st = B.KINDS[kind][4](p, x, self._layer_state(cache, i), ctx,
-                                     self.cfg)
-            self._store(cache, i, st)
+            given = self._layer_state(cache, i)
+            x, st = B.KINDS[kind][4](p, x, given, ctx, self.cfg)
+            x = self._mlp(i, x, ctx)
+            self._store(cache, i, st, given)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         return self._logits(x[:, 0]), cache
 
     @torch.no_grad()
     def decode_step_sample(self, cache, tokens_t, stream, ctr, temperature,
-                           top_k, top_p, reset: Optional[torch.Tensor] = None):
+                           top_k, top_p, reset: Optional[torch.Tensor] = None,
+                           *, cache_len=None):
         """One decode + batched-sampling step over all slots: the sampled
         token never goes to the host between the forward and the sample.
         stream, ctr (B,) int64 per-slot noise stream and token counter;
         temperature/top_k/top_p (B,) per-slot knobs (``blocks.
-        sample_from_logits``). Returns (tokens (B,) int32, logits (B, V)
-        f32, cache, ctr + 1)."""
-        logits, cache = self.decode_step(cache, tokens_t, reset)
+        sample_from_logits``); cache_len as ``decode_step``'s. Returns
+        (tokens (B,) int32, logits (B, V) f32, cache, ctr + 1)."""
+        logits, cache = self.decode_step(cache, tokens_t, reset,
+                                         cache_len=cache_len)
         tok, ctr = B.sample_from_logits(logits, stream, ctr, temperature,
                                         top_k, top_p)
         return tok, logits, cache, ctr
@@ -353,7 +402,8 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step_sample_guarded(self, cache, tokens_t, stream, ctr,
                                    temperature, top_k, top_p, poison,
-                                   reset: Optional[torch.Tensor] = None):
+                                   reset: Optional[torch.Tensor] = None, *,
+                                   cache_len=None):
         """``decode_step_sample`` with the engine's guard rail: a per-slot
         finiteness probe of the decode logits (one (B, V) ``isfinite`` and
         an all-reduce a row), so a slot is caught the step it goes bad.
@@ -362,7 +412,8 @@ class LM(nn.Module):
         a bitwise no-op on every finite logit, so guarded streams equal
         unguarded ones. Returns (tokens (B,) int32, logits (B, V) f32,
         cache, ctr + 1, finite (B,) bool)."""
-        logits, cache = self.decode_step(cache, tokens_t, reset)
+        logits, cache = self.decode_step(cache, tokens_t, reset,
+                                         cache_len=cache_len)
         logits = logits + poison[:, None]
         finite = torch.isfinite(logits).all(-1)
         tok, ctr = B.sample_from_logits(logits, stream, ctr, temperature,
@@ -371,32 +422,38 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step_greedy_guarded(self, cache, tokens_t, poison,
-                                   reset: Optional[torch.Tensor] = None):
+                                   reset: Optional[torch.Tensor] = None, *,
+                                   cache_len=None):
         """The plain argmax step with the same guard rail and poison seam
         (the JAX engine's ``greedy_step_guarded``). Returns (tokens (B,)
         int32, cache, finite (B,) bool)."""
-        logits, cache = self.decode_step(cache, tokens_t, reset)
+        logits, cache = self.decode_step(cache, tokens_t, reset,
+                                         cache_len=cache_len)
         logits = logits + poison[:, None]
         return (B.greedy_tokens(logits), cache,
                 torch.isfinite(logits).all(-1))
 
     # ------------------------------------------------- speculative decode
     @torch.no_grad()
-    def decode_verify(self, cache, tokens_t, draft):
+    def decode_verify(self, cache, tokens_t, draft, *, cache_len=None):
         """Score K draft tokens with K+1 chained greedy decode steps,
         keeping the cache after each step for rollback.
 
         ``tokens_t`` (B, 1) is each slot's last committed token, ``draft``
-        (B, K) the proposed continuation. Step j feeds input j of
-        [tokens_t, draft] and takes the argmax: exactly what K+1 sequential
-        ``decode_step`` + ``greedy_tokens`` compute, so a draft token is
-        accepted iff it equals the argmax before it and the committed
-        stream is the plain greedy one bit for bit. ``cache`` is read, not
-        advanced: the steps run on the trajectory's own buffers.
+        (B, K) the proposed continuation, ``cache_len`` (B,) as
+        ``decode_step``'s. Step j feeds input j of [tokens_t, draft] at
+        position ``cache_len + j`` and takes the argmax: exactly what K+1
+        sequential ``decode_step`` + ``greedy_tokens`` compute, so a draft
+        token is accepted iff it equals the argmax before it and the
+        committed stream is the plain greedy one bit for bit. ``cache`` is
+        read, not advanced: the steps run on the trajectory's own
+        buffers.
 
         Returns (tokens (B, K+1) int32, finite (B, K+1) bool: the guard's
         per-step probe of the logits, traj: the cache's leaves with a
-        leading (K+1,) axis, entry j the cache after j+1 inputs)."""
+        leading (K+1,) axis, entry j the cache after j+1 inputs; with a
+        K/V ring, K+1 copies of it)."""
+        self._needs(cache_len=cache_len)
         inputs = torch.cat([torch.as_tensor(tokens_t, device=self.device),
                             torch.as_tensor(draft, device=self.device)
                             .to(torch.int32)], dim=1)        # (B, K+1)
@@ -407,8 +464,9 @@ class LM(nn.Module):
         for j in range(steps):
             for k, v in traj.items():
                 v[j].copy_(cache[k] if j == 0 else v[j - 1])
-            logits, _ = self.decode_step({k: v[j] for k, v in traj.items()},
-                                         inputs[:, j:j + 1])
+            logits, _ = self.decode_step(
+                {k: v[j] for k, v in traj.items()}, inputs[:, j:j + 1],
+                cache_len=None if cache_len is None else cache_len + j)
             toks.append(B.greedy_tokens(logits))
             fins.append(torch.isfinite(logits).all(-1))
         return torch.stack(toks, 1), torch.stack(fins, 1), traj
@@ -417,10 +475,10 @@ class LM(nn.Module):
     def spec_rollback(self, cache, traj, idx):
         """Per-row rollback over a verify trajectory, in place: row ``b`` of
         ``cache`` becomes row ``b`` of ``traj`` entry ``idx[b]`` (idx (B,)
-        in [0, K]). The O(1) state makes rejecting draft tokens a select,
-        not a replay; writing INTO ``cache`` keeps every holder of its
-        tensors (an in-flight prefill's landing, a snapshot) current.
-        Returns the cache."""
+        in [0, K]). Rejecting draft tokens is a select, not a replay (with
+        a K/V ring, a select of one of its K+1 copies); writing INTO
+        ``cache`` keeps every holder of its tensors (an in-flight
+        prefill's landing, a snapshot) current. Returns the cache."""
         idx = torch.as_tensor(idx, device=self.device).long()
         rows = torch.arange(idx.shape[0], device=self.device)
         for k, c in cache.items():
@@ -466,25 +524,26 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill_chunk(self, cache, batch, cache_len):
         """Advance a DECODE-layout cache by one (B, T) slab of long prompts,
-        in place: resumable prefill from the carried O(1) state. ``batch``
+        in place: resumable prefill from the carried decode state. ``batch``
         holds the slab's tokens/positions/segment_ids (positions GLOBAL,
         segment_ids 0 marks trailing padding; an all-padding row is an
         exact no-op); ``cache_len`` (B,) counts the tokens consumed before.
         Returns (logits (B, V) f32 at each row's last valid slab token,
         cache, cache_len + the slab's valid tokens)."""
-        self.check_serves()
         batch = self._batch(batch)
         x = self._embed(batch["tokens"])
-        ctx = self._ctx(batch)
+        cache_len = torch.as_tensor(cache_len, device=self.device)
+        ctx = Ctx(positions=batch.get("positions"),
+                  segment_ids=batch.get("segment_ids"), cache_len=cache_len)
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
-            x, st = B.CHUNK[kind](p, x, self._layer_state(cache, i), ctx,
-                                  self.cfg)
-            self._store(cache, i, st)
+            given = self._layer_state(cache, i)
+            x, st = B.CHUNK[kind](p, x, given, ctx, self.cfg)
+            x = self._mlp(i, x, ctx)
+            self._store(cache, i, st, given)
         x = B._norm(self.final_norm, x, self.cfg.norm_eps)
         nvalid = (batch["segment_ids"] > 0).sum(-1)
         xlast = x[torch.arange(x.shape[0], device=x.device),
                   (nvalid - 1).clamp(min=0)]
-        cache_len = torch.as_tensor(cache_len, device=self.device)
         return (self._logits(xlast), cache,
                 (cache_len + nvalid).to(torch.int32))
 
@@ -492,9 +551,9 @@ class LM(nn.Module):
     def reset_cache_rows(self, cache, fresh):
         """Set the rows ``fresh`` (B,) bool of a decode-layout cache back
         to their ``init_cache`` values, in place (the engine claims a chunk
-        row for a new request: no stale conv tail or state leaks across
-        tenants): 0, and −1e30 on the stabilisers (leaves named ``m``).
-        Returns the cache."""
+        row for a new request: no stale conv tail, state or K/V ring leaks
+        across tenants): 0, and −1e30 on the stabilisers (leaves named
+        ``m``). Returns the cache."""
         fresh = torch.as_tensor(fresh, device=self.device)
         for k, c in cache.items():
             m = fresh.reshape((1, -1) + (1,) * (c.dim() - 2))

@@ -1,9 +1,10 @@
-"""Shared parts of the hybrid family's LM and training parity files
+"""Shared parts of the hybrid family's LM, training and serving files
 (``tests/test_torch_hybrid_*.py``): the port's and the JAX package's
 recurrentgemma-2b.reduced() at a given depth with the attention window at
-8 (the reduced config keeps 2048, which never binds at test lengths), and
-the weights carried from the port's ``init`` into the JAX tree. Not a test
-module (no ``test_`` prefix)."""
+8 (the reduced config keeps 2048, which never binds at test lengths), the
+weights carried from the port's ``init`` into the JAX tree, and a JAX
+cache or harvest in the port's flat layout and back. Not a test module
+(no ``test_`` prefix)."""
 import dataclasses
 
 import torch
@@ -38,3 +39,37 @@ def jax_params(model, cfg):
     import jax.numpy as jnp
     return jax.tree.map(jnp.array, to_jax_tree(
         {k: p.detach() for k, p in model.named_parameters()}, cfg))
+
+
+def flat(tree):
+    """A JAX cache or packed harvest ({"units": {name: {leaf: (n_units,
+    …)}}, "tail": {name: {leaf: …}}}) in the port's flat layout,
+    ``name.leaf`` with the units' and the tail's layers stacked."""
+    import numpy as np
+    out = {}
+    for name, leaves in tree.get("units", {}).items():
+        for k, v in leaves.items():
+            out[f"{name}.{k}"] = np.asarray(v)
+    for name, leaves in tree.get("tail", {}).items():
+        for k, v in leaves.items():
+            key, v = f"{name}.{k}", np.asarray(v)[None]
+            out[key] = np.concatenate([out[key], v]) if key in out else v
+    return out
+
+
+def tree(cache, cfg):
+    """The inverse of ``flat`` for a decode cache: the port's flat cache as
+    a JAX ``init_cache`` tree (copies: the port updates its cache in
+    place)."""
+    import jax.numpy as jnp
+    n_units = cfg.n_layers // len(cfg.unit)
+    out = {"units": {}}
+    if cfg.n_layers % len(cfg.unit):
+        out["tail"] = {}
+    for key, v in cache.items():
+        name, leaf = key.split(".")
+        v = v.detach().numpy()
+        out["units"].setdefault(name, {})[leaf] = jnp.array(v[:n_units])
+        if "tail" in out and len(v) > n_units:
+            out["tail"].setdefault(name, {})[leaf] = jnp.array(v[n_units])
+    return out

@@ -202,8 +202,10 @@ def test_cpu_step_count_equals_its_meta_dry_run(arch, kind, schedule):
 def test_hybrid_train_count_equals_its_meta_dry_run_and_serving_skips():
     """recurrentgemma-2b.reduced() at 8 layers (two units and the two tail
     rec layers): a CPU train step's count equals its meta dry run, #1
-    twice and #2 once in each of its 6 RG-LRU layers; its serving cells
-    are skipped, naming ROADMAP item 5c-ii."""
+    twice and #2 once in each of its 6 RG-LRU layers. Its serving cells
+    run since the hybrid's serving path was ported (the name is the
+    training slice's, when they skipped): ``cell_supported`` is the JAX
+    rule's, a windowed attention being sub-quadratic."""
     cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
                               n_layers=8, attn_window=8)
     meta = shapes.make_cell(cfg, "train", 2, 64, "meta")
@@ -215,10 +217,35 @@ def test_hybrid_train_count_equals_its_meta_dry_run_and_serving_skips():
     assert want["kernels"] == dict(zip(CONV_KERNELS, (12, 6)))
     assert np.isfinite(out[1]["loss"].item())
     full = get_config("recurrentgemma-2b")
-    assert shapes.cell_supported(full, "train_4k") == (True, "")
-    for s in ("prefill_32k", "decode_32k", "long_500k"):
-        ok, why = shapes.cell_supported(full, s)
-        assert not ok and "5c-ii" in why
+    for s in shapes.SHAPES:
+        assert shapes.cell_supported(full, s) == (True, "") == \
+            jshapes.cell_supported(jget_config("recurrentgemma-2b"), s)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_hybrid_serving_count_equals_its_meta_dry_run(kind):
+    """A reduced hybrid's prefill cell and decode cell (the cache at seq
+    64: a K/V ring of min(64, 8) = 8 slots, ``cache_len`` given) counted
+    on the CPU equal their meta dry runs; the prefill runs #1 once in
+    each RG-LRU layer, the decode step no counted kernel."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              n_layers=8, attn_window=8)
+    B, L = (3, 64) if kind == "decode" else (2, 64)
+    meta = shapes.make_cell(cfg, kind, B, L, "meta")
+    _, want = count_call(meta.fn, *meta.args, device="meta")
+    cpu = shapes.make_cell(cfg, kind, B, L, "cpu")
+    _fill(cpu, cfg, kind)
+    out, got = count_call(cpu.fn, *cpu.args, device="cpu")
+    assert {k: got[k] for k in EXACT} == {k: want[k] for k in EXACT}
+    assert want["kernels"] == ({CONV_KERNELS[0]: 6} if kind == "prefill"
+                               else {})
+    assert want["flops_by_unit"]["bf16"] > 0
+    logits = out if kind == "prefill" else out[0]
+    assert logits.shape == (B, cfg.vocab) and torch.isfinite(logits).all()
+    if kind == "decode":
+        ring = cpu.args[0]["2_attn.k"]
+        assert ring.shape[:3] == (2, B, 8)
+        assert tuple(cpu.args[2].shape) == (B,)
 
 
 @pytest.mark.parametrize("knobs,kernels,chunk", [
@@ -316,15 +343,15 @@ def test_cli_lists_and_names_no_mesh(capsys):
     dryrun.main(["--paper", "--list", "--shape", "train_4k", "long_500k"])
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 2 * 14
-    # the four paper configs and xlstm-125m run both; recurrentgemma-2b
-    # runs its train cell (its serving cells wait for ROADMAP 5c-ii); the
-    # other eight are skips
-    assert sum("RUN" in ln for ln in lines) == 2 * 5 + 1
+    # the four paper configs and xlstm-125m run both, and so does
+    # recurrentgemma-2b (its windowed attention makes long_500k
+    # sub-quadratic); the other eight are skips
+    assert sum("RUN" in ln for ln in lines) == 2 * 5 + 2
     assert sum(ln.startswith("xlstm-125m") and "RUN" in ln
                for ln in lines) == 2
     rg = [ln for ln in lines if ln.startswith("recurrentgemma-2b")]
     assert "train_4k" in rg[0] and "RUN" in rg[0]
-    assert "long_500k" in rg[1] and "5c-ii" in rg[1]
+    assert "long_500k" in rg[1] and "RUN" in rg[1]
     with pytest.raises(SystemExit):
         dryrun.main(["--help"])
     assert "--mesh has no counterpart" in " ".join(

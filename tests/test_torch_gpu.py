@@ -1465,14 +1465,11 @@ def test_counted_card_step_with_a_tuning_winner(cuda):
 # xLSTM (xlstm-125m's mLSTM layers run #1)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 256, 1536), (1, 259, 1536)])
-def test_conv_fwd_kernel_at_the_xlstm_shapes(cuda, shape, dtype):
-    """#1 at xlstm-125m's packed prefill (2, 256, 1536: packed rows, one
-    carried) and chunk slab (1, 259, 1536: the carried tail at three
-    leading zero positions, then global positions 512..), on the mLSTM's
-    contiguous up-projection: the plain version's output within one
-    rounding of the dtype, and twice bitwise equal."""
+def _conv_fwd_at_serving_shape(cuda, shape, dtype):
+    """#1 at a packed prefill's rows (Bz 2: packed, one carried) or a chunk
+    slab (Bz 1: the carried tail at three leading zero positions, then
+    global positions 512..), on a contiguous input: the plain version's
+    output within one rounding of the dtype, and twice bitwise equal."""
     tdt = getattr(torch, dtype)
     Bz, L, D = shape
     rng = np.random.default_rng(L)
@@ -1494,6 +1491,15 @@ def test_conv_fwd_kernel_at_the_xlstm_shapes(cuda, shape, dtype):
     torch.testing.assert_close(
         y.float(), want, atol=1e-5,
         rtol=1e-5 if dtype == "float32" else 2.0 ** -8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 1536), (1, 259, 1536)])
+def test_conv_fwd_kernel_at_the_xlstm_shapes(cuda, shape, dtype):
+    """#1 at xlstm-125m's packed prefill (2, 256, 1536) and chunk slab (1,
+    259, 1536), on the mLSTM's contiguous up-projection
+    (``_conv_fwd_at_serving_shape``)."""
+    _conv_fwd_at_serving_shape(cuda, shape, dtype)
 
 
 def test_xlstm_engine_streams_cold_equal_warm(cuda):
@@ -1646,3 +1652,90 @@ def test_hybrid_unit_train_step_kernels_against_the_plain_path(
     _train_parity(cuda, monkeypatch, cfg, 256,
                   {"conv1d_pack_fwd": 4, "conv1d_pack_bwd_dx": 2})
 
+
+
+# ---------------------------------------------------------------------------
+# hybrid serving (#1 in its RG-LRU layers' packed prefills and chunk slabs;
+# the attention's K/V ring)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 256, 2560), (1, 259, 2560)])
+def test_conv_fwd_kernel_at_the_hybrid_serving_shapes(cuda, shape, dtype):
+    """#1 at recurrentgemma-2b's packed prefill (2, 256, 2560) and chunk
+    slab (1, 259, 2560) (``_conv_fwd_at_serving_shape``)."""
+    _conv_fwd_at_serving_shape(cuda, shape, dtype)
+
+
+def test_hybrid_packed_prefill_equals_per_prompt(cuda):
+    """Two units of recurrentgemma-2b (rec, rec, attn, each with its GeGLU
+    MLP) at full width in f32: a packed prefill's end logits and every
+    state leaf (the K/V rings too) against each prompt's own ``prefill``
+    within 1e-5 of max(1, max |ref|), the CPU tests' bar; #1 once per
+    RG-LRU layer and forward."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=6,
+                              dtype="float32")
+    model = LM(cfg, cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (37, 90, 18, 61)]
+    pb = tpk.pack(prompts, 128, policy="first_fit", num_rows=2)
+    ends = tpk.segment_ends(pb, 4)
+    n0 = kconv.LAUNCHES
+    logits, states, _ = model.prefill_packed(
+        {"tokens": pb.tokens, "positions": pb.positions,
+         "segment_ids": pb.segment_ids}, ends, 128)
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES - n0 == 4
+    for r, ids in enumerate(pb.seq_ids):
+        for s, i in enumerate(ids):
+            n = len(prompts[i])
+            lg, cache, _ = model.prefill(
+                {"tokens": prompts[i][None],
+                 "positions": np.arange(n, dtype=np.int32)[None],
+                 "segment_ids": np.ones((1, n), np.int32)}, 128)
+            pairs = [(logits[r, s], lg[0])] + [
+                (v[:, r, s], cache[k][:, 0]) for k, v in states.items()]
+            for got, ref in pairs:
+                err = (got - ref).abs().max().item()
+                assert err <= 1e-5 * max(1.0, ref.abs().max().item())
+
+
+def test_hybrid_engine_wraps_the_ring(cuda):
+    """recurrentgemma-2b.reduced() (two units and the tail) with the
+    window at 8, f32 on the card: a 37-token prompt through the chunk
+    lane in slabs of 8 and short prompts through the packed lane wrap
+    every slot's 8-slot ring; each stream equals the request's greedy
+    ``prefill`` + ``decode_step`` alone, and #1 runs once per RG-LRU layer
+    and forward."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b").reduced(),
+                              n_layers=8, attn_window=8)
+    model = LM(cfg, cuda)
+    model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 12, 30, 9, 37, 17)]
+    eng = ServeEngine(model, num_slots=4, max_len=96, prefill_rows=2,
+                      buckets=(16, 32), max_segments=2, chunk_size=8)
+    for p in prompts:
+        eng.submit(p, 6)
+    n0 = kconv.LAUNCHES
+    outs = eng.run()
+    torch.cuda.synchronize()
+    assert eng.stats.chunk_rounds == 5
+    assert kconv.LAUNCHES - n0 == 6 * (eng.stats.prefills
+                                       + eng.stats.chunk_rounds)
+    for rid, p in enumerate(prompts):
+        lg, cache, clen = model.prefill(
+            {"tokens": p[None], "positions": np.arange(
+                len(p), dtype=np.int32)[None],
+             "segment_ids": np.ones((1, len(p)), np.int32)}, 96)
+        ref = []
+        for _ in range(6):
+            ref.append(int(torch.argmax(lg[0])))
+            lg, cache = model.decode_step(
+                cache, torch.tensor([[ref[-1]]], dtype=torch.int32,
+                                    device=cuda), cache_len=clen)
+            clen = clen + 1
+        assert outs[rid] == ref, rid

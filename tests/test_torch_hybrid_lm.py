@@ -18,8 +18,9 @@ same packed batch.
 * The layout: ``unit_layout`` names, units and tail (the JAX
   ``tests/test_models.py::test_pattern_units``), and the interop round
   trip both ways.
-* Serving entries (and ``ServeEngine``) refuse the family, naming ROADMAP
-  item 5c-ii.
+* The serving entries (and ``ServeEngine``) serve the family
+  (tests/test_torch_hybrid_serve.py and tests/test_torch_hybrid_engine.py
+  hold them to the JAX LM and to per-request references).
 * The launcher's ``--tiny`` hybrid trains on the CPU, its depth cut by
   ``--layers``.
 """
@@ -182,19 +183,31 @@ def test_layout_and_interop_round_trip():
 
 
 def test_serving_entries_refuse_naming_5c_ii():
+    """The seven serving entries that refused the family before its
+    serving path (ROADMAP 5c-ii) was ported now serve it: each returns
+    finite values of the expected shapes, and the chunk lane is on."""
     cfg = get_config("recurrentgemma-2b").reduced()
     model = port_model(cfg, 0)
     b = packed_batch(0)
-    calls = [lambda: model.prefill(b), lambda: model.prefill_logits(b),
-             lambda: model.prefill_packed(b, np.zeros((2, 1), np.int32)),
-             lambda: model.init_cache(2),
-             lambda: model.decode_step({}, np.ones((2, 1), np.int32)),
-             lambda: model.prefill_chunk({}, b, np.zeros(2, np.int32)),
-             lambda: ServeEngine(model, 2, 64)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="5c-ii"):
-            call()
-    assert not model.supports_chunked_prefill
+    ends = np.array([[19, 49], [4, 44]], np.int32)      # segment ends
+    lg, cache, clen = model.prefill(b, 64)
+    assert lg.shape == (2, cfg.vocab) and clen.tolist() == [64, 64]
+    assert model.prefill_logits(b).shape == (2, cfg.vocab)
+    plg, states, lens = model.prefill_packed(b, ends, 64)
+    assert plg.shape == (2, 2, cfg.vocab) and lens.tolist() == [[20, 30],
+                                                                [5, 40]]
+    assert sorted(model.init_cache(2, 64)) == sorted(cache) == \
+        sorted(states)
+    dlg, cache = model.decode_step(cache, np.ones((2, 1), np.int32),
+                                   cache_len=clen)
+    chunk = model.init_cache(2, 64)
+    clg, chunk, cl = model.prefill_chunk(
+        chunk, {k: v[:, :8] for k, v in b.items()}, np.zeros(2, np.int32))
+    assert cl.tolist() == [8, 8]
+    for t in (lg, plg, dlg, clg, *cache.values(), *states.values()):
+        assert torch.isfinite(t).all()
+    eng = ServeEngine(model, 2, 64, buckets=(16, 32), chunk_size=16)
+    assert eng.chunk_enabled and model.supports_chunked_prefill
 
 
 @pytest.mark.parametrize("layers", [None, 3])
