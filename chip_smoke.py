@@ -127,11 +127,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               name and power limit: the checkpoint's bytes, the snapshot
               ms (the loop's device → host stall), the async write, the
               emergency save and the restore seconds, each run's ms/step.
-              Then ``python -m repro_torch.launch.train --tiny --steps 3
+              ``python -m repro_torch.launch.train --tiny --steps 3
               --ckpt-dir D --ckpt-every 1 --obs-trace T --profile-dir P``
-              as a subprocess on the card: it must exit 0, D must hold
-              steps 1–3, T pass ``obs.check`` and P hold a trace naming a
-              ``conv1d_pack`` kernel.
+              as a subprocess on the card (``phase_launchers``, after
+              phase 14, beside phase 12's two serve launcher runs): it
+              must exit 0, D must hold steps 1–3, T pass ``obs.check``
+              and P hold a trace naming a ``conv1d_pack`` kernel.
 
 12. serve   — the serving engine's scheduler v2 on the card: #1 at the
               chunk lane's slab (1, 3 + 256, 4096) bf16 (the carried conv
@@ -153,9 +154,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               prompts; one profiled decode step (greedy, sampled), one
               profiled prefill round, an overlapped run's first steps
               profiled (each stream's kernels, the time two streams ran
-              at once). Then ``python -m repro_torch.launch.serve --tiny
+              at once). ``python -m repro_torch.launch.serve --tiny
               --temperature 0.8 --top-k 40 --buckets 16,32 --obs-trace T
-              --profile-dir P`` as a subprocess: exit 0 with chunk rounds,
+              --profile-dir P`` as a subprocess (after phase 14, beside
+              the training launcher's run): exit 0 with chunk rounds,
               T passes ``obs.check`` with the serve spans, P names a
               ``conv1d_pack`` kernel; with ``--guard --deadline-ms 60000
               --max-queue 64`` its lifecycle counters must read 0.
@@ -217,7 +219,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               its training shape (2, 4096, 1536) bf16 against their plain
               versions, twice bitwise, timed (``kernels`` lines); the
               training parity of one whole unit (6 layers: 5 mLSTM + 1
-              sLSTM) at full width, f32, 2 × 2048 (#1 exactly 10: forward
+              sLSTM) at full width, f32, 2 × 512 (#1 exactly 10: forward
               and ``remat`` recompute; #2 5; nothing else); the training
               main path at full width, 6 of its 12 layers (one whole unit:
               the depth cut keeps the whole script within its 1200 s
@@ -225,13 +227,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               through the training launcher (``repro_torch.launch.train.
               main --arch xlstm-125m --layers 6``, in this process:
               ``Trainer``, AdamW): a warm-up run of one step at 2 × 64,
-              then a run of 2 timed steps (#1 10 and #2 5 a step, nothing
+              then a run of 1 timed step (#1 10 and #2 5, nothing
               else; ms/step, real tok/s, MFU, peak memory); one
               step at 2 × 64 (the same 6 layers) profiled
               with each layer's forward, recompute and backward marked
               (``layer_ranges``): the sLSTM and mLSTM layers' host and
               device ms, their shares of the step and their device
-              events; one card step at 2 × 128 (6 layers) counted and
+              events; one card step at 2 × 64 (6 layers) counted and
               held to the meta dry run of the same cell. All beside the
               card's name and power limit (``xlstm_train`` line).
 
@@ -274,6 +276,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
               the prefix cache cold, warm and rerun on 4 requests behind
               phase 14's shared prompt; speculative decode at K 3
               against off, streams bitwise equal (``hybrid`` line).
+19. dense   — stablelm-1.6b (``phase_dense``; 24 layers of full causal
+              attention, 32 heads of 64 on 32 K/V heads, each with its
+              SwiGLU MLP; d_model 2048, vocab 100352, untied; random
+              weights from seed 0) served and trained at full width and
+              depth. No kernel of the port's own lies on this path: every
+              launch counter reads 0 after each part. Packed against
+              per-prompt prefill on an f32 copy, 2 × 256 with 4 and 3
+              segments a row (every K/V leaf and the end logits within
+              1e-5 of max(1, max |ref|), the worst of each layer on a
+              ``parity_layers`` line first); phase 5's engine at max_len
+              2560 (a slot's row: 24 layers × K and V × 2560 × 32 × 64
+              bf16, 480 MiB) with a 2300-token prompt through the chunk
+              lane, each stream held to the request's greedy ``prefill``
+              + ``decode_step`` alone: on an f32 copy (TF32 off) bitwise,
+              in bf16 equal but where the reference's top-2 logits lie
+              within two bf16 roundings (there the stream takes its
+              second choice); the prefix cache cold, warm and
+              rerun on 4 requests behind phase 14's shared prompt (a
+              budget of 64 rows); speculative decode at K 3 against off
+              (its K+1 copies of every row, peak memory); the training
+              main path through the launcher in this process (a warm-up
+              step at 2 × 64, then 2 timed steps at 2 × 4096, bf16 on f32
+              weights: ms/step, MFU, peak memory), a step at 2 × 4096
+              profiled by sub-block (``layer_ranges``: attn, mlp),
+              one card step at 2 × 512 counted and held to the meta dry
+              run of the same cell (``dense`` line).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -373,7 +401,11 @@ XLSTM_PREFIX_REQUESTS = 4  # #1 at the suffix
 # takes 34–46 s of host time (the sLSTM's loop over time), so the
 # warm-up, the profile and the count run shorter rows of the same model
 XLSTM_TRAIN_SHAPE = (2, 4096, 1536)  # (rows, L, up-projection): #1 and #2
-XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_STEPS = 1    # the timed steps at 2 × 4096: one since phase 19,
+#                          whose time this and the parity's shorter rows
+#                          take back (a step is 17–23 s on an H100)
+XLSTM_PARITY_SEQ = 512   # the unit's training parity rows (f32, kernels
+#                          against the plain path; 25 s at 2 × 2048)
 XLSTM_TRAIN_LAYERS = 6   # the timed, traced and counted steps' depth: one
 #                          whole unit (5 mLSTM + 1 sLSTM) of the 12, so the
 #                          script stays within its 1200 s budget with
@@ -383,7 +415,8 @@ XLSTM_TRAIN_LAYERS = 6   # the timed, traced and counted steps' depth: one
 XLSTM_SHORT_SEQ = 64     # the warm-up's and the profile's rows (a trace's
 #                          post-processing grows with its ≈ 360 events a
 #                          time step)
-XLSTM_COUNT_SEQ = 128
+XLSTM_COUNT_SEQ = 64     # the counted step's rows (its meta dry run walks
+#                          the sLSTM loop op by op: 6.1 s at 128)
 HYBRID_CONV_SHAPE = (2, 4096, 2560)  # (rows, L, lru_width): recurrentgemma-2b
 #                                      training, #1 and #2
 HYBRID_TRAIN_STEPS = 2
@@ -402,6 +435,20 @@ HYBRID_PARITY_TOL = 1e-5  # max |Δ| / max(1, max |ref|), f32: the bar of the
 #   CPU tests (tests/test_torch_hybrid_serve.py, the JAX package's own)
 HYBRID_PREFIX_REQUESTS = 4
 HYBRID_SPEC_K = 3
+DENSE_ARCH = "stablelm-1.6b"
+DENSE_PARITY_LENS = (60, 90, 18, 61, 37, 120, 70)  # first fit into 2 × 256:
+#   4 segments in row 0, 3 in row 1
+DENSE_PARITY_CAP = 256
+DENSE_PARITY_TOL = 1e-5  # max |Δ| / max(1, max |ref|), f32, 24 layers: the
+#   CPU tests' bar (tests/test_torch_dense_serve.py)
+DENSE_TRAIN_SEQ = 4096
+DENSE_TRAIN_STEPS = 2
+DENSE_SHORT_SEQ = 64     # the warm-up run's rows
+DENSE_COUNT_SEQ = 512    # the counted card step's rows
+DENSE_LONG = 2300        # the chunk lane's prompt (9 slabs of 256)
+DENSE_MAX_LEN = 2560     # the engine's slots: 2560 K/V slots a layer
+DENSE_PREFIX_REQUESTS = 4
+DENSE_SPEC_K = 3
 
 
 T_START = time.perf_counter()
@@ -1553,12 +1600,14 @@ def phase_train(arch="mamba-1.4b", rows=2, steps=TIMED_STEPS, schedule=None,
     return out
 
 
-def phase_parity(model_bf16, cfg, tol=PARITY_TOL, layers=None):
+def phase_parity(model_bf16, cfg, tol=PARITY_TOL, layers=None,
+                 lens=(37, 90, 18, 61), cap=128):
     """An f32 copy's ``prefill_packed`` end logits and every state leaf of
-    4 prompts against per-prompt ``prefill`` (a cache of 128 tokens): the
-    worst max |Δ| / max(1, max |ref|) of each, within ``tol``. With
-    ``layers`` (a dict), each state leaf's worst layer by layer is put in
-    it and printed (a ``parity_layers`` line) before the check."""
+    prompts of ``lens`` tokens, packed first fit into 2 rows of ``cap``,
+    against per-prompt ``prefill`` (a cache of ``cap`` tokens): the worst
+    max |Δ| / max(1, max |ref|) of each, within ``tol``. With ``layers``
+    (a dict), each state leaf's worst layer by layer is put in it and
+    printed (a ``parity_layers`` line) before the check."""
     import numpy as np
     import torch
     from repro_torch.core import packing
@@ -1567,12 +1616,12 @@ def phase_parity(model_bf16, cfg, tol=PARITY_TOL, layers=None):
     f32.load_state_dict(model_bf16.state_dict())
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
-               for n in (37, 90, 18, 61)]
-    pb = packing.pack(prompts, 128, policy="first_fit", num_rows=2)
+               for n in lens]
+    pb = packing.pack(prompts, cap, policy="first_fit", num_rows=2)
     ends = packing.segment_ends(pb, 4)
     logits, states, seg_lens = f32.prefill_packed(
         {"tokens": pb.tokens, "positions": pb.positions,
-         "segment_ids": pb.segment_ids}, ends, 128)
+         "segment_ids": pb.segment_ids}, ends, cap)
     worst = dict.fromkeys(["logits", *states], 0.0)
     by_layer = {k: [0.0] * len(v) for k, v in states.items()}
     for r, ids in enumerate(pb.seq_ids):
@@ -1582,7 +1631,7 @@ def phase_parity(model_bf16, cfg, tol=PARITY_TOL, layers=None):
             lg, cache, _ = f32.prefill(
                 {"tokens": prompts[i][None],
                  "positions": np.arange(n, dtype=np.int32)[None],
-                 "segment_ids": np.ones((1, n), np.int32)}, 128)
+                 "segment_ids": np.ones((1, n), np.int32)}, cap)
             pairs = [("logits", logits[r, s], lg[0])] + [
                 (k, v[:, r, s], cache[k][:, 0]) for k, v in states.items()]
             for k, got, ref in pairs:
@@ -1699,7 +1748,7 @@ def _engine_run(model, cfg, n_requests, new_tokens, seed, long, max_len,
         raise AssertionError(f"{st.chunk_rounds} chunk rounds with a long "
                              f"prompt of {long}")
     forwards = st.prefills + st.chunk_rounds
-    if launches == 0 or launches != conv_layers(cfg) * forwards:
+    if forwards == 0 or launches != conv_layers(cfg) * forwards:
         raise AssertionError(f"conv1d_pack launched {launches} times for "
                              f"{forwards} forwards × {conv_layers(cfg)} "
                              f"layers")
@@ -2068,48 +2117,151 @@ def phase_checkpoint(smi, arch="mamba-1.4b", layers=CKPT_LAYERS,
             "phase_wall_s": time.perf_counter() - t_phase}
 
 
-def phase_launcher():
-    """The training launcher with checkpoints, an obs trace and a
-    ``torch.profiler`` capture, as a subprocess: it must exit 0, publish
-    steps 1–3, write a trace that passes ``obs.check`` and a profile that
-    names a ``conv1d_pack`` kernel."""
+def start_cli(module, args, tmp):
+    """``python -m module args`` as a subprocess on the card, started now,
+    its output to files in ``tmp``. Returns ``wait()``: (returncode,
+    stdout, stderr) once it has ended; a process still running after 600 s
+    is killed."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = os.path.join(tmp, f"cli{len(os.listdir(tmp))}")
+    out, err = open(base + ".out", "w+"), open(base + ".err", "w+")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=env, stdout=out, stderr=err, text=True)
+
+    def wait():
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        text = (proc.returncode, out.read(), err.read())
+        out.close()
+        err.close()
+        return text
+    wait.proc = proc
+    return wait
+
+
+def profile_kernels(prof):
+    """The kernel names in a ``--profile-dir``'s Chrome traces: (files,
+    kernels)."""
+    files = [os.path.join(prof, n) for n in os.listdir(prof)
+             if n.endswith(".pt.trace.json")]
+    kernels = []
+    for f in files:
+        with open(f) as fh:
+            kernels += [e["name"] for e in json.load(fh)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+    return files, kernels
+
+
+def phase_launchers():
+    """The launchers as subprocesses on the card, all three started at
+    once (each a ``--tiny`` model, none timed): the training launcher with
+    checkpoints, an obs trace and a ``torch.profiler`` capture must exit
+    0, publish steps 1–3, write a trace that passes ``obs.check`` and a
+    profile that names a ``conv1d_pack`` kernel (phase 11's ``launcher``
+    line); the serve launcher, sampled, buckets (16, 32) so prompts of up
+    to 39 tokens meet the chunk lane, ``--obs-trace`` and
+    ``--profile-dir``, must exit 0 with chunk rounds, its trace pass
+    ``obs.check`` with the serve spans required and its profile name a
+    ``conv1d_pack`` kernel; and again with slice 5c's flags, a shared
+    20-token prefix through the cache and greedy requests speculated 3
+    tokens a round (phase 12's ``serve_launcher`` line). Returns the two
+    lines."""
     from repro_torch.obs.check import check_trace
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, trace, prof = (os.path.join(tmp, n)
-                             for n in ("ckpt", "trace.json", "prof"))
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
-               "--steps", "3", "--rows", "2", "--seq-len", "256",
-               "--ckpt-dir", ckpt, "--ckpt-every", "1", "--obs-trace",
-               trace, "--profile-dir", prof]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"the launcher exited {out.returncode}: "
-                                 f"{out.stderr[-2000:]}")
+        ckpt, trace, prof, strace, sprof = (
+            os.path.join(tmp, n) for n in ("ckpt", "trace.json", "prof",
+                                           "serve_trace.json", "serve_prof"))
+        train_args = ["--tiny", "--steps", "3", "--rows", "2", "--seq-len",
+                      "256", "--ckpt-dir", ckpt, "--ckpt-every", "1",
+                      "--obs-trace", trace, "--profile-dir", prof]
+        serve_args = ["--tiny", "--requests", "12", "--slots", "4",
+                      "--max-len", "96", "--buckets", "16,32",
+                      "--temperature", "0.8", "--top-k", "40",
+                      "--max-inflight-prefills", "2", "--guard",
+                      "--deadline-ms", "60000", "--max-queue", "64",
+                      "--obs-trace", strace, "--profile-dir", sprof]
+        spec_args = ["--tiny", "--requests", "12", "--slots", "4",
+                     "--max-len", "128", "--buckets", "16,32", "--cache-mb",
+                     "64", "--shared-prefix", "20", "--spec-k", "3"]
+        waits = [start_cli("repro_torch.launch.train", train_args, tmp),
+                 start_cli("repro_torch.launch.serve", serve_args, tmp),
+                 start_cli("repro_torch.launch.serve", spec_args, tmp)]
+        try:
+            (rc, out, err), (src, sout, serr), (rc2, out2, err2) = \
+                [w() for w in waits]
+        finally:
+            for w in waits:
+                if w.proc.poll() is None:
+                    w.proc.kill()
+                    w.proc.wait()
+        wall = time.perf_counter() - t0
+
+        # the training launcher
+        if rc != 0:
+            raise AssertionError(f"the launcher exited {rc}: {err[-2000:]}")
         steps = sorted(os.listdir(ckpt))
         errs = check_trace(trace, require=["train.steps"],
                            require_spans=["train.step", "train.data"])
-        files = [os.path.join(prof, n) for n in os.listdir(prof)
-                 if n.endswith(".pt.trace.json")]
-        kernels = []
-        for f in files:
-            with open(f) as fh:
-                kernels += [e["name"] for e in json.load(fh)["traceEvents"]
-                            if e.get("cat") == "kernel"]
+        files, kernels = profile_kernels(prof)
         conv = [k for k in kernels if "conv1d_pack" in k]
         if steps != ["step_1", "step_2", "step_3"] or errs or not conv:
             raise AssertionError(f"the launcher published {steps}; its "
                                  f"trace: {errs}; its profile's kernels "
                                  f"naming conv1d_pack: {len(conv)} of "
                                  f"{len(kernels)} in {len(files)} file(s)")
-    return {"cmd": " ".join(cmd[1:]), "published_steps": steps,
-            "trace_ok": True, "profile_files": len(files),
-            "profile_kernels": len(kernels),
+        train_line = {
+            "cmd": "repro_torch.launch.train " + " ".join(train_args),
+            "published_steps": steps, "trace_ok": True,
+            "profile_files": len(files), "profile_kernels": len(kernels),
             "profile_conv1d_pack_kernels": len(conv),
-            "stdout_tail": out.stdout.strip().splitlines()[-3:],
-            "seconds": time.perf_counter() - t0}
+            "stdout_tail": out.strip().splitlines()[-3:],
+            "seconds": wall, "beside": "the two serve launcher runs"}
+
+        # the serve launcher
+        if src != 0:
+            raise AssertionError(f"the serve launcher exited {src}: "
+                                 f"{serr[-2000:]}")
+        last = json.loads(sout.strip().splitlines()[-1])
+        errs = check_trace(
+            strace, require=["serve.prefills", "serve.decode_steps",
+                             "serve.chunk_rounds", "serve.ttft_ms"],
+            require_spans=["serve.step", "prefill_dispatch", "prefill_land",
+                           "chunk_slab", "decode_step", "queued", "prefill",
+                           "chunk", "decode"])
+        sfiles, skernels = profile_kernels(sprof)
+        sconv = [k for k in skernels if "conv1d_pack" in k]
+        lifecycle = [last[k] for k in ("shed", "expired", "cancelled",
+                                       "quarantined", "prefill_faults")]
+        if errs or not sconv or not last["chunk_rounds"] or \
+                not last["guard"] or any(lifecycle):
+            raise AssertionError(f"the serve launcher's trace: {errs}; its "
+                                 f"profile's conv1d_pack kernels: "
+                                 f"{len(sconv)} of {len(skernels)}; {last}")
+        if rc2 != 0:
+            raise AssertionError(f"the serve launcher with the cache and "
+                                 f"spec flags exited {rc2}: {err2[-2000:]}")
+        last2 = json.loads(out2.strip().splitlines()[-1])
+        if last2["cache"]["hits"] < 11 or not last2["spec"]["rounds"] or \
+                last2["generated"] != 12 * 16 or \
+                "prefix cache: StateCache(" not in out2:
+            raise AssertionError(f"the serve launcher's cache and spec "
+                                 f"flags: {last2}")
+    serve_line = {
+        "cmd": "repro_torch.launch.serve " + " ".join(serve_args),
+        "trace_ok": True, "profile_files": len(sfiles),
+        "profile_kernels": len(skernels),
+        "profile_conv1d_pack_kernels": len(sconv), "result": last,
+        "cmd_cache_spec": "repro_torch.launch.serve " + " ".join(spec_args),
+        "result_cache_spec": last2, "seconds": wall,
+        "beside": "the training launcher and each other"}
+    return train_line, serve_line
 
 
 def serve_mix(cfg, seed=0):
@@ -3006,75 +3158,6 @@ def phase_spec_decode(model, cfg, smi):
             "phase_wall_s": time.perf_counter() - t_phase}
 
 
-def phase_serve_launcher():
-    """The serve launcher as a subprocess on the card: ``--tiny``, sampled,
-    buckets (16, 32) so prompts of up to 39 tokens meet the chunk lane,
-    ``--obs-trace`` and ``--profile-dir``. It must exit 0 with chunk rounds,
-    its trace pass ``obs.check`` with the serve spans required and its
-    profile name a ``conv1d_pack`` kernel."""
-    from repro_torch.obs.check import check_trace
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace, prof = (os.path.join(tmp, n) for n in ("trace.json", "prof"))
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
-               "--requests", "12", "--slots", "4", "--max-len", "96",
-               "--buckets", "16,32", "--temperature", "0.8", "--top-k", "40",
-               "--max-inflight-prefills", "2", "--guard", "--deadline-ms",
-               "60000", "--max-queue", "64", "--obs-trace", trace,
-               "--profile-dir", prof]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=600)
-        if out.returncode != 0:
-            raise AssertionError(f"the serve launcher exited "
-                                 f"{out.returncode}: {out.stderr[-2000:]}")
-        last = json.loads(out.stdout.strip().splitlines()[-1])
-        errs = check_trace(
-            trace, require=["serve.prefills", "serve.decode_steps",
-                            "serve.chunk_rounds", "serve.ttft_ms"],
-            require_spans=["serve.step", "prefill_dispatch", "prefill_land",
-                           "chunk_slab", "decode_step", "queued", "prefill",
-                           "chunk", "decode"])
-        files = [os.path.join(prof, n) for n in os.listdir(prof)
-                 if n.endswith(".pt.trace.json")]
-        kernels = []
-        for f in files:
-            with open(f) as fh:
-                kernels += [e["name"] for e in json.load(fh)["traceEvents"]
-                            if e.get("cat") == "kernel"]
-        conv = [k for k in kernels if "conv1d_pack" in k]
-        lifecycle = [last[k] for k in ("shed", "expired", "cancelled",
-                                       "quarantined", "prefill_faults")]
-        if errs or not conv or not last["chunk_rounds"] or \
-                not last["guard"] or any(lifecycle):
-            raise AssertionError(f"the serve launcher's trace: {errs}; its "
-                                 f"profile's conv1d_pack kernels: "
-                                 f"{len(conv)} of {len(kernels)}; {last}")
-    # slice 5c's flags: a shared 20-token prefix through the cache, greedy
-    # requests speculated 3 tokens a round
-    cmd2 = [sys.executable, "-m", "repro_torch.launch.serve", "--tiny",
-            "--requests", "12", "--slots", "4", "--max-len", "128",
-            "--buckets", "16,32", "--cache-mb", "64", "--shared-prefix",
-            "20", "--spec-k", "3"]
-    out2 = subprocess.run(cmd2, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    if out2.returncode != 0:
-        raise AssertionError(f"the serve launcher with the cache and spec "
-                             f"flags exited {out2.returncode}: "
-                             f"{out2.stderr[-2000:]}")
-    last2 = json.loads(out2.stdout.strip().splitlines()[-1])
-    if last2["cache"]["hits"] < 11 or not last2["spec"]["rounds"] or \
-            last2["generated"] != 12 * 16 or \
-            "prefix cache: StateCache(" not in out2.stdout:
-        raise AssertionError(f"the serve launcher's cache and spec flags: "
-                             f"{last2}")
-    return {"cmd": " ".join(cmd[1:]), "trace_ok": True,
-            "profile_files": len(files), "profile_kernels": len(kernels),
-            "profile_conv1d_pack_kernels": len(conv), "result": last,
-            "cmd_cache_spec": " ".join(cmd2[1:]), "result_cache_spec": last2,
-            "seconds": time.perf_counter() - t0}
-
-
 def xlstm_prefill_round(model, cfg):
     """One packed prefill round of xlstm-125m at the largest bucket (2 ×
     256, 4 prompts a row) beside its two sLSTM layers alone on the same
@@ -3253,7 +3336,8 @@ def phase_xlstm_train(smi, peaks):
     """Phase 16: xLSTM training on the card. (a) #1 and #2 at xlstm-125m's
     training shape ``XLSTM_TRAIN_SHAPE`` (bf16, packed rows) against their
     plain versions, twice bitwise, timed. (b) Training parity: one whole
-    unit (5 mLSTM + 1 sLSTM) at full width, f32, 2 × 2048: the kernel
+    unit (5 mLSTM + 1 sLSTM) at full width, f32, 2 × ``XLSTM_PARITY_SEQ``:
+    the kernel
     path against the plain path, #1 10 (``remat="unit"``: forward and
     recompute) and #2 5. (c) The training main path, xlstm-125m at full
     width, ``XLSTM_TRAIN_LAYERS`` of its 12 layers, bf16 compute, f32
@@ -3286,7 +3370,7 @@ def phase_xlstm_train(smi, peaks):
     rows = [phase_conv_slab(peaks, XLSTM_TRAIN_SHAPE, packed=True),
             conv_dx_row(XLSTM_TRAIN_SHAPE, torch.bfloat16, peaks)]
     parity = phase_train_parity("xlstm-125m", layers=len(
-        get_config("xlstm-125m").unit))
+        get_config("xlstm-125m").unit), seq_len=XLSTM_PARITY_SEQ)
     t_parity = time.perf_counter() - t_phase
 
     cfg = get_config("xlstm-125m")
@@ -3550,27 +3634,38 @@ def phase_hybrid_train(smi, peaks):
         "phase_budget_s": 150}, rows
 
 
-def greedy_reference(model, prompt, n, max_len):
-    """Greedy ``prefill`` + ``decode_step`` of one request alone (a cache
-    of one row, ``max_len`` long): its ``n`` tokens and the smallest top-2
-    margin of the logits it chose from."""
+def stream_divergences(model, prompts, outs, max_len):
+    """Each request's greedy ``prefill`` + ``decode_step`` alone against
+    its stream ``outs[r]``: for every stream that leaves its reference,
+    the first token that differs, the reference's top-2 logit margin there
+    and whether the stream took the reference's second choice. Returns
+    (the divergences, the smallest top-2 margin over every reference
+    step)."""
     import numpy as np
     import torch
-    m = len(prompt)
-    lg, cache, clen = model.prefill(
-        {"tokens": np.asarray(prompt, np.int32)[None],
-         "positions": np.arange(m, dtype=np.int32)[None],
-         "segment_ids": np.ones((1, m), np.int32)}, max_len)
-    out, margin = [], float("inf")
-    for _ in range(n):
-        top = torch.topk(lg[0], 2).values
-        margin = min(margin, (top[0] - top[1]).item())
-        out.append(int(torch.argmax(lg[0])))
-        lg, cache = model.decode_step(
-            cache, torch.tensor([[out[-1]]], dtype=torch.int32,
-                                device=model.device), cache_len=clen)
-        clen = clen + 1
-    return out, margin
+    out, low = [], float("inf")
+    for r, p in zip(sorted(outs), prompts):
+        m = len(p)
+        lg, cache, clen = model.prefill(
+            {"tokens": np.asarray(p, np.int32)[None],
+             "positions": np.arange(m, dtype=np.int32)[None],
+             "segment_ids": np.ones((1, m), np.int32)}, max_len)
+        for j, tok in enumerate(outs[r]):
+            top = torch.topk(lg[0], 2)
+            v, i = top.values.tolist(), top.indices.tolist()
+            first = int(torch.argmax(lg[0]))       # the greedy pick
+            second = i[1] if i[0] == first else i[0]
+            low = min(low, v[0] - v[1])
+            if tok != first:
+                out.append({"rid": r, "token": j, "ref_margin": v[0] - v[1],
+                            "took_second": tok == second,
+                            "logit_max_abs": lg[0].abs().max().item()})
+                break
+            lg, cache = model.decode_step(
+                cache, torch.tensor([[tok]], dtype=torch.int32,
+                                    device=model.device), cache_len=clen)
+            clen = clen + 1
+    return out, low
 
 
 def phase_hybrid(smi, peaks):
@@ -3612,16 +3707,13 @@ def phase_hybrid(smi, peaks):
     parity_s = time.perf_counter() - t0
 
     def against_reference(prompts, outs):
-        refs = [greedy_reference(model, p, len(outs[r]), HYBRID_MAX_LEN)
-                for r, p in zip(sorted(outs), prompts)]
-        differ = [r for r, (ref, _) in zip(sorted(outs), refs)
-                  if outs[r] != ref]
+        differ, low = stream_divergences(model, prompts, outs, HYBRID_MAX_LEN)
         if differ:
             raise AssertionError(f"recurrentgemma-2b: the engine's streams "
-                                 f"differ from the per-request reference "
-                                 f"for {differ}")
+                                 f"differ from the per-request reference: "
+                                 f"{differ}")
         return {"streams_equal_per_request_reference": True,
-                "reference_min_top2_margin": min(m for _, m in refs)}
+                "reference_min_top2_margin": low}
 
     t0 = time.perf_counter()
     eng = phase_engine(model, cfg, long=HYBRID_LONG, max_len=HYBRID_MAX_LEN,
@@ -3715,6 +3807,256 @@ def phase_hybrid(smi, peaks):
     gc.collect()
     torch.cuda.empty_cache()
     return out, rows
+
+
+def phase_dense(smi, peaks):
+    """Phase 19: stablelm-1.6b (24 layers of full causal attention, each
+    with its SwiGLU MLP; d_model 2048, 32 heads of 64 on 32 K/V heads, d_ff
+    5632, vocab 100352, untied) served and trained at full width and
+    depth, random weights from seed 0. No kernel of the port's own lies on
+    this path (the attention, the MLP and the decode step are plain
+    PyTorch, as the JAX package runs them in XLA): every launch counter is
+    read after each part and must be 0. (a) Packed against per-prompt
+    prefill on an f32 copy, 2 × ``DENSE_PARITY_CAP`` with 4 and 3 segments
+    a row: every K/V leaf and the end logits within ``DENSE_PARITY_TOL``
+    of max(1, max |ref|), the worst of each layer on a ``parity_layers``
+    line first. (b) The engine, 8 slots of ``DENSE_MAX_LEN``, 12 greedy
+    prompts and one of ``DENSE_LONG`` through the chunk lane, each stream
+    held to its request's greedy ``prefill`` + ``decode_step`` alone
+    (``stream_divergences``): in bf16 it may leave the reference only at a
+    near-tie (``against_reference``), and on an f32 copy it must equal it
+    bitwise; the prefix cache (cold, warm, rerun; a budget of 64 rows) on
+    ``DENSE_PREFIX_REQUESTS`` requests behind phase 14's shared prompt;
+    speculative decode at ``DENSE_SPEC_K`` against off, streams bitwise
+    equal. (c) The training main path through the launcher in this
+    process (``launch_train``): a warm-up run of one step at 2 ×
+    ``DENSE_SHORT_SEQ``, then ``DENSE_TRAIN_STEPS`` timed steps at 2 ×
+    ``DENSE_TRAIN_SEQ`` packed on the paper's lengths, bf16 compute on
+    f32 weights (ms/step, MFU, peak memory); a model of its own profiles
+    its first step at that shape, each sub-block marked (``layer_ranges``:
+    attn and mlp); then one card step at 2 ×
+    ``DENSE_COUNT_SEQ`` counted, equal to the meta dry run of the same
+    cell. Returns the phase's line."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.roofline.analysis import (active_params, mfu,
+                                               model_flops_per_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfg = get_config(DENSE_ARCH)
+    none = {k: 0 for k in read_launches()}
+
+    def no_launch(where):
+        ran = read_launches()
+        if ran != none:
+            raise AssertionError(f"{cfg.name} {where} launched {ran}")
+
+    zero_launches()
+    model = LM(cfg)
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    if conv_layers(cfg) or model.kinds != ("attn",) * cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {model.kinds}")
+    t0 = time.perf_counter()
+    by_layer = {}
+    parity = phase_parity(model, cfg, DENSE_PARITY_TOL, by_layer,
+                          lens=DENSE_PARITY_LENS, cap=DENSE_PARITY_CAP)
+    parity_s = time.perf_counter() - t0
+    no_launch("parity")
+
+    def against_reference(m, bitwise):
+        """Each stream against its request's greedy reference: equal
+        (``bitwise``), or leaving it only at a near-tie: where the
+        reference's top-2 margin is within two bf16 roundings of its top
+        logit (2^-7 of it) and the stream took the reference's second
+        choice (bf16 logits over 100352 entries tie outright: the engine's
+        other batch shapes round differently there)."""
+        def check(prompts, outs):
+            differ, low = stream_divergences(m, prompts, outs, DENSE_MAX_LEN)
+            bad = [d for d in differ if bitwise or not d["took_second"]
+                   or d["ref_margin"] > 2 ** -7 * d["logit_max_abs"]]
+            if bad:
+                raise AssertionError(f"{cfg.name} ({m.cfg.dtype}): the "
+                                     f"engine's streams leave the "
+                                     f"per-request reference: {bad}")
+            return {"streams": len(outs),
+                    "streams_equal_per_request_reference":
+                        len(outs) - len(differ),
+                    "divergences_at_near_ties": differ,
+                    "reference_min_top2_margin": low}
+        return check
+
+    # serving: the engine (its own counters checked: nothing launched),
+    # in bf16 (streams equal their references but at near-ties), then on
+    # an f32 copy (TF32 off), every stream bitwise its reference
+    t0 = time.perf_counter()
+    eng = phase_engine(model, cfg, long=DENSE_LONG, max_len=DENSE_MAX_LEN,
+                       check=against_reference(model, False))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = LM(cfg32)
+    m32.load_state_dict(model.state_dict())
+    eng32 = phase_engine(m32, cfg32, long=DENSE_LONG, max_len=DENSE_MAX_LEN,
+                         check=against_reference(m32, True))
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = model.init_cache(1, DENSE_MAX_LEN)
+    eng["cache_row_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in one.values())
+    eng["cache_row_bytes_formula"] = (cfg.n_layers * 2 * DENSE_MAX_LEN
+                                      * cfg.n_kv_heads * cfg.hd * 2)
+    del one
+    if eng["cache_row_bytes"] != eng["cache_row_bytes_formula"]:
+        raise AssertionError(f"{cfg.name}: a slot row is "
+                             f"{eng['cache_row_bytes']} bytes")
+    engine_s = time.perf_counter() - t0
+    no_launch("reference decode")
+
+    t0 = time.perf_counter()
+    pc = phase_prefix_cache(model, cfg, smi, n=DENSE_PREFIX_REQUESTS,
+                            full=False)
+    prefix_s = time.perf_counter() - t0
+
+    # speculative decode: 6 greedy prompts and 2 of a repeated block,
+    # spec_k on against off (timed_engine: nothing launched)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    sprompts = [rng.integers(1, cfg.vocab, size=int(n))
+                for n in rng.integers(16, 201, size=6)] + [
+        np.tile(rng.integers(1, cfg.vocab, size=n), 4) for n in (8, 16)]
+
+    def submit(e):
+        for p in sprompts:
+            e.submit(p, SERVE_NEW)
+
+    spec, streams = {}, {}
+    for k in (0, DENSE_SPEC_K):
+        e = ServeEngine(model, num_slots=8, max_len=DENSE_MAX_LEN,
+                        buckets=(64, 128, 256), spec_k=k)
+        streams[k], spec[k] = timed_engine(model, cfg, e, submit)
+        spec[k].update(spec_k=k, rounds=e._spec_rounds.value,
+                       proposed=e._spec_proposed.value,
+                       accepted=e._spec_accepted.value)
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    differ = [r for r in streams[0]
+              if streams[0][r] != streams[DENSE_SPEC_K][r]]
+    if differ or not spec[DENSE_SPEC_K]["rounds"]:
+        raise AssertionError(f"{cfg.name} spec decode: streams differ for "
+                             f"{differ}; {spec[DENSE_SPEC_K]}")
+    spec_s = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the launcher's warm-up and timed runs
+    B, L, steps = 2, DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS
+    args = ("--arch", cfg.name, "--rows", str(B))
+    t0 = time.perf_counter()
+    zero_launches()
+    whist, _ = launch_train(*args, "--steps", "1", "--seq-len",
+                            str(DENSE_SHORT_SEQ))
+    no_launch("the training warm-up")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    hist, last = launch_train(*args, "--steps", str(steps), "--seq-len",
+                              str(L))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    no_launch("training")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [whist[0]["loss"]] + [h["loss"] for h in hist]
+    step_ms = sum(h["step_ms"] for h in hist) / steps
+    real = sum(h["real_tokens"] for h in hist)
+    flops = model_flops_per_step(cfg, "train", B, L)
+    train_s = time.perf_counter() - t0
+    gc.collect()               # the launcher's model, back to the allocator
+
+    # the device's view: the first step of a model of its own at the timed
+    # shape (the process is warm from the timed run), traced with its
+    # sub-blocks marked; then one card step at 2 × DENSE_COUNT_SEQ counted
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    trainer = Trainer(model, AdamW(cosine_schedule(3e-4, 1, 4)),
+                      train_loader(cfg, "pack", L, B), TrainerConfig(steps=1))
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    pbatch = trainer.loader.batch(0)
+
+    def one_step():
+        nonlocal state
+        state, metrics = trainer.step_fn(state, pbatch)
+        float(metrics["loss"])
+
+    with layer_ranges():
+        _, prof = profile_call(one_step, none)
+    n_kind = {"attn": cfg.n_layers, "mlp": cfg.n_layers}
+    if sorted(prof.get("by_layer_kind", {})) != sorted(n_kind):
+        raise AssertionError(f"the profiled step marked "
+                             f"{sorted(prof.get('by_layer_kind', {}))}, "
+                             f"where the model has {n_kind}")
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cbatch = train_loader(cfg, "pack", DENSE_COUNT_SEQ, B).batch(0)
+    work = count_card_step(trainer.step_fn, state, cbatch)
+    dry = count_step(cfg, "train", B, DENSE_COUNT_SEQ, peaks)
+    card = {k: work[k] for k in ("flops_by_unit", "bytes", "kernels")}
+    meta = {"flops_by_unit": dry["flops_by_unit"],
+            "bytes": dry["bytes_per_device"], "kernels": dry["kernels"]}
+    if card != meta or work["kernels"] or work["launches"]:
+        raise AssertionError(f"{cfg.name} at {B} × {DENSE_COUNT_SEQ}: the "
+                             f"card step counted {card} with launches "
+                             f"{work['launches']}, the meta dry run {meta}")
+    count_s = time.perf_counter() - t0
+    del state, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "mlp": cfg.act, "tie_embeddings": cfg.tie_embeddings,
+        "params": active_params(cfg), "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "remat": cfg.remat, "card": smi,
+        "launch_counters_zero": True,
+        "parity": {"dtype": "float32", "tf32": "off",
+                   "rows": [2, DENSE_PARITY_CAP],
+                   "prompt_lens": list(DENSE_PARITY_LENS),
+                   "tolerance": DENSE_PARITY_TOL, "max_rel_err": parity,
+                   "worst_by_layer": by_layer, "seconds": parity_s},
+        "engine": eng, "engine_f32": eng32, "engine_s": engine_s,
+        "prefix_cache": pc, "prefix_cache_s": prefix_s,
+        "spec_decode": {"spec_k": DENSE_SPEC_K, "off": spec[0],
+                        "on": spec[DENSE_SPEC_K],
+                        "streams_bitwise_equal": True, "seconds": spec_s},
+        "train": {
+            "launcher": "repro_torch.launch.train " + " ".join(args),
+            "rows": B, "seq_len": L, "mode": "pack",
+            "warmup": {"seq_len": DENSE_SHORT_SEQ, "loss": whist[0]["loss"],
+                       "step_ms": whist[0]["step_ms"]},
+            "timed_steps": steps, "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": [h["step_ms"] for h in hist], "ms_per_step": step_ms,
+            "real_tok_per_s": real / (step_ms * steps) * 1e3,
+            "real_fraction": real / sum(h["buffer_tokens"] for h in hist),
+            "timed_wall_s": wall, "launcher_seconds": last["seconds"],
+            "model_flops": flops, "mfu": mfu(flops, step_ms / 1e3, peaks),
+            "max_memory_allocated_gib": peak, "seconds": train_s},
+        "profile": prof, "profile_s": profile_s,
+        "count": {"seq_len": DENSE_COUNT_SEQ, "card": card,
+                  "card_seconds": work["seconds"],
+                  "dry_run_s": dry["build_s"] + dry["count_s"],
+                  "flops": dry["flops_per_device"],
+                  "model_flops": dry["roofline"]["model_flops"],
+                  "phase_s": count_s},
+        "phase_wall_s": time.perf_counter() - t_phase}
 
 
 def main():
@@ -3848,7 +4190,6 @@ def main():
     # kill and resume: SIGTERM, the emergency save, the restore; then the
     # launcher's checkpoint, trace and profile flags
     emit("checkpoint", **phase_checkpoint(smi))
-    emit("launcher", **phase_launcher())
 
     # the serving engine's scheduler v2: #1 at the chunk slab, chunked
     # prefill against whole prefill on both models, the engine (overlap,
@@ -3886,7 +4227,10 @@ def main():
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    emit("serve_launcher", **phase_serve_launcher())
+    # the training and serve launchers' flags, three subprocesses at once
+    launcher, serve_launcher = phase_launchers()
+    emit("launcher", **launcher)
+    emit("serve_launcher", **serve_launcher)
 
     # xlstm-125m served by the engine: #1 at its shapes, parity, the
     # engine with the chunk lane, a prefill round, the prefix cache
@@ -3916,6 +4260,11 @@ def main():
     for row in hs_rows:
         emit("kernels", **row)
     emit("hybrid", **hs)
+
+    # stablelm-1.6b served and trained: no kernel of the port's own on its
+    # path; parity, the engine with the chunk lane, the prefix cache,
+    # speculation, the training main path, its profile and its count
+    emit("dense", **phase_dense(smi, peaks))
 
     def main_row(rows, shape):
         return next(r for r in rows if r["shape"] == list(shape)

@@ -1,5 +1,6 @@
-"""ArchConfig for the port: the Mamba-1, Mamba-2, xLSTM and hybrid
-(RecurrentGemma) fields of ``repro.configs.base``.
+"""ArchConfig for the port: the Mamba-1, Mamba-2, xLSTM, hybrid
+(RecurrentGemma) and dense (llama-style decoder) fields of
+``repro.configs.base``.
 
 A copy, not an import: the port runs where JAX is not installed. Only what
 the serving and training slices read is kept. There is no ``use_pallas``:
@@ -14,7 +15,9 @@ A heterogeneous stack is a repeating pattern unit (``pattern``, e.g.
 xLSTM's five ``mlstm`` layers and one ``slstm``, RecurrentGemma's ``rec,
 rec, attn``): layer ``i`` is of kind ``unit[i % len(unit)]``, so layers
 past the last whole unit reuse the unit's prefix, as in the JAX package.
-With ``d_ff > 0`` a hybrid layer runs its block, then a gated MLP.
+A dense config has no pattern: its unit is ``("attn",)``, every layer a
+full causal attention block. With ``d_ff > 0`` a hybrid or dense layer
+runs its block, then a gated MLP.
 """
 from __future__ import annotations
 
@@ -29,18 +32,20 @@ class ArchConfig:
     name: str
     family: str                       # "mamba" (Mamba-1 and Mamba-2) |
     #                                   "xlstm" (mLSTM and sLSTM) | "hybrid"
-    #                                   (RG-LRU and local attention)
+    #                                   (RG-LRU and local attention) |
+    #                                   "dense" (full causal attention)
     n_layers: int
     d_model: int
     vocab: int
-    n_heads: int = 1                  # xlstm: mLSTM / sLSTM heads; hybrid:
-    #                                   attention query heads (unused by
-    #                                   the Mamba blocks)
-    n_kv_heads: int = 1               # hybrid: attention K/V heads (JAX
-    #                                   requires it; 1 = MQA)
-    d_ff: int = 0                     # MLP width (hybrid: each layer's
-    #                                   gated MLP); > 0 on an xLSTM unit
-    #                                   raises (no MLP wired there yet)
+    n_heads: int = 1                  # xlstm: mLSTM / sLSTM heads; hybrid,
+    #                                   dense: attention query heads
+    #                                   (unused by the Mamba blocks)
+    n_kv_heads: int = 1               # hybrid, dense: attention K/V heads
+    #                                   (JAX requires it; 1 = MQA)
+    d_ff: int = 0                     # MLP width (hybrid, dense: each
+    #                                   layer's gated MLP); > 0 on an
+    #                                   xLSTM unit raises (no MLP wired
+    #                                   there yet)
     head_dim: Optional[int] = None    # default d_model // n_heads
     act: str = "swiglu"               # MLP gate: swiglu | geglu (tanh GeLU)
     attn_window: Optional[int] = None  # sliding-window size (None = full)
@@ -136,21 +141,24 @@ class ArchConfig:
 
     @property
     def unit(self) -> Tuple[str, ...]:
-        """The repeating layer-pattern unit: ``pattern`` when set, else the
-        Mamba kind of ``ssm_variant`` (the JAX rule; a family the port
-        lacks gets the JAX default, ``("attn",)``, which the blocks
-        refuse)."""
+        """The repeating layer-pattern unit, the JAX rule: ``pattern`` when
+        set, else the Mamba kind of ``ssm_variant``, ``("moe_attn",)`` for
+        the MoE family (which the blocks refuse: the port has no experts
+        yet) and ``("attn",)`` otherwise (a dense stack)."""
         if self.pattern:
             return self.pattern
         if self.family == "mamba":
             return ("mamba2",) if self.ssm_variant == "mamba2" else ("mamba",)
+        if self.family == "moe":
+            return ("moe_attn",)
         return ("attn",)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the JAX package's
         ``reduced()`` restricted to the fields kept here). Two whole units
-        deep: 2 layers for Mamba, 12 for xLSTM's six-layer unit, 6 for the
-        hybrid's three-layer unit."""
+        deep: 2 layers for Mamba and dense, 12 for xLSTM's six-layer unit,
+        6 for the hybrid's three-layer unit. An attention family keeps at
+        most 2 K/V heads (a dense MHA config becomes GQA, 4 on 2) of 16."""
         k = {}
         if self.ssm_variant == "mamba2":
             k["ssm_head_dim"] = 16             # 8 heads at d_inner = 128
@@ -158,10 +166,12 @@ class ArchConfig:
         if self.family != "mamba":
             k["n_heads"] = 4
             k["d_ff"] = 128 if self.d_ff else 0
-        if self.family == "hybrid":
+        if self.family in ("hybrid", "dense"):
             k.update(n_kv_heads=max(1, min(self.n_kv_heads, 2)), head_dim=16,
-                     lru_width=64 if self.lru_width else None,
-                     lru_gate_blocks=4, attn_chunk=None)
+                     attn_chunk=None)
+        if self.family == "hybrid":
+            k.update(lru_width=64 if self.lru_width else None,
+                     lru_gate_blocks=4)
         return dataclasses.replace(
             self, name=self.name + "-smoke",
             n_layers=max(len(self.unit) * 2, 2), d_model=64, vocab=128,

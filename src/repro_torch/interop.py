@@ -15,10 +15,12 @@ when ``n_layers`` is no multiple of the unit) holding the layers past the
 last whole unit, which reuse the unit's prefix. The port keeps one
 ``ParameterDict`` per layer: layer ``u·len(unit) + j`` is entry ``u`` of
 ``units["<j>_<kind>"]``, and tail layer ``n_units·len(unit) + t`` is
-``tail["<t>_<kind>"]``, each as ``layers.<i>.<leaf>``; a hybrid layer's
-MLP, the JAX sub-block ``"<j>_ffn"`` beside ``"<j>_rec"`` or
-``"<j>_attn"``, is ``ffns.<i>.<leaf>``. A tied embedding has no ``head``
-on either side. Leaf layouts are unchanged: both packages store dense
+``tail["<t>_<kind>"]``, each as ``layers.<i>.<leaf>``; a hybrid or dense
+layer's MLP, the JAX sub-block ``"<j>_ffn"`` beside ``"<j>_rec"`` or
+``"<j>_attn"``, is ``ffns.<i>.<leaf>``. A dense stack's unit is one
+layer (``units["0_attn"]`` and ``units["0_ffn"]`` stacked over
+``n_layers``, no ``tail``). A tied embedding has no ``head`` on either
+side. Leaf layouts are unchanged: both packages store dense
 weights (din, dout) and apply them as ``x @ W``.
 """
 from __future__ import annotations

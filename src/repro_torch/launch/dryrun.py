@@ -24,15 +24,21 @@ parameters, AdamW's m and v, and the batch for a train step; the
 parameters and the inputs otherwise); ``temp_size_in_bytes`` is the peak of
 the live bytes the step creates, as the counter tracks them.
 
-The JAX ``ASSIGNED`` configs the port lacks wait for slice 7 (ROADMAP
-queue 1 item 5): their cells get a ``skip`` record, not an error. The
-ones it has, xlstm-125m and recurrentgemma-2b, are counted like the Mamba
-configs, each of the four shapes (``shapes.cell_supported``: a windowed
-attention is sub-quadratic, so recurrentgemma-2b's ``long_500k`` runs, its
-decode step on a K/V ring of 2048 slots). xlstm-125m's sLSTM is a
-Python loop over time, and the meta device runs each of its ops through
-Python, so its train and prefill cells take minutes of host time, where
-a Mamba cell takes seconds. Unlike the JAX module, this one sets no
+The JAX ``ASSIGNED`` configs the port lacks (MoE, audio, VLM) wait for
+ROADMAP queue 1 item 5: their cells get a ``skip`` record, not an error.
+The ones it has are counted like the Mamba configs
+(``shapes.cell_supported``): xlstm-125m and recurrentgemma-2b each of the
+four shapes (a windowed attention is sub-quadratic, so
+recurrentgemma-2b's ``long_500k`` runs, its decode step on a K/V ring of
+2048 slots), and the dense configs (stablelm-1.6b, gemma-7b,
+deepseek-coder-33b, deepseek-67b) three: their full attention is
+quadratic, so ``long_500k`` is a skip with the JAX reason, and a
+``decode_32k`` cell's cache is the whole 32768-token context, counted on
+the meta device without being allocated (deepseek-67b's does not fit
+the card: ``fits`` NO in the report). xlstm-125m's sLSTM is a Python loop
+over time, and the meta device runs each of its ops through Python, so
+its train and prefill cells take minutes of host time, where a Mamba or
+dense cell takes seconds. Unlike the JAX module, this one sets no
 ``XLA_FLAGS`` and imports nothing of JAX.
 """
 from __future__ import annotations
@@ -58,8 +64,8 @@ ASSIGNED = [
     "qwen2-vl-2b", "xlstm-125m",
 ]
 PAPER = ["mamba-110m", "mamba-1.4b", "mamba-2.8b", "mamba2-370m"]
-NOT_PORTED = ("not in the port: the non-Mamba block kinds and their configs "
-              "wait for slice 7 (ROADMAP queue 1 item 5)")
+NOT_PORTED = ("not in the port: the MoE, audio and VLM families and their "
+              "configs wait for ROADMAP queue 1 item 5")
 
 
 def skip_reason(arch: str) -> Optional[str]:

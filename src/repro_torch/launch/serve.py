@@ -4,8 +4,9 @@ prefill, chunked prefill of long prompts, and per-request batched sampling.
 Port of ``repro.launch.serve.ServeEngine``'s scheduler. Queued prompts are
 packed back to back into a (prefill_rows, bucket) buffer
 (``core/packing.py``); ONE forward (``LM.prefill_packed``) harvests every
-segment's final decode state at its segment end (the conv/SSM state, and a
-hybrid's K/V ring), the states land in per-request decode slots
+segment's final decode state at its segment end (the conv/SSM state, and
+the K/V ring of a hybrid's or a dense model's attention), the states land
+in per-request decode slots
 (``LM.scatter_into_cache``), and decode runs one step over all slots per
 token, each slot at its own ``cache_len``. A slot that emits its EOS or spends its
 budget is released and refilled mid-flight.
@@ -116,10 +117,17 @@ Every part of the JAX engine is ported.
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --max-len 2560
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --tiny \
       --device cpu --buckets 16,32 --max-len 96
+  python -m repro_torch.launch.serve --arch stablelm-1.6b --max-len 2560 \
+      --cache-mb 2048 --shared-prefix 1024
+  python -m repro_torch.launch.serve --arch stablelm-1.6b --tiny \
+      --device cpu --buckets 16,32 --max-len 96
 
-A hybrid's slot also holds its attention's K/V ring, min(max_len,
-attn_window) slots a layer; a ``chunk_size`` longer than the ring is
-refused at construction.
+A slot of a model with attention layers also holds their K/V ring: a
+hybrid's min(max_len, attn_window) slots a layer, a dense model's max_len
+(stablelm-1.6b's row is 480 MiB at max_len 2560, so its prefix cache
+needs ``--cache-mb`` of several rows: an entry larger than the budget is
+never stored). A ``chunk_size`` longer than the ring is refused at
+construction.
 """
 from __future__ import annotations
 

@@ -10,17 +10,20 @@ Shapes (per assignment):
 
 Skip rules (the JAX ``cell_supported``): encoder-only archs have no
 decode; long_500k runs only for sub-quadratic archs, whose decode state
-is O(1) in the context or bounded by an attention window. Every config
-the port has is a decoder of that kind (Mamba and xLSTM recurrent,
-recurrentgemma-2b's attention windowed at 2048), so each of the four
-shapes runs on each of them.
+is O(1) in the context or bounded by an attention window. The Mamba and
+xLSTM configs are recurrent and recurrentgemma-2b's attention is windowed
+at 2048, so each of the four shapes runs on each of them; the dense
+configs' full attention is quadratic, so their long_500k is skipped and
+the other three shapes run.
 
 The cells run through the port's own entry points: train through
 ``train.trainer.make_train_step`` and ``AdamW``, prefill through
 ``LM.prefill_logits``, decode through ``LM.decode_step`` on
 ``LM.init_cache(batch, seq)`` with a ``cache_len`` (B,) of zeros, as the
-JAX ``serve_step`` (a hybrid's K/V ring is min(seq, attn_window) slots;
-the other kinds' states do not depend on ``seq``).
+JAX ``serve_step`` (a hybrid's K/V ring is min(seq, attn_window) slots,
+a dense model's ``seq``: deepseek-67b's decode_32k cache is 128 rows × 95
+layers × k and v × 32768 × 8 × 128 bf16, 1.9 TiB, never allocated on the
+meta device; the other kinds' states do not depend on ``seq``).
 Gradient accumulation is not counted: ``make_train_step``'s ``accum`` > 1
 splits the batch through numpy, which a meta tensor cannot enter, so a
 train cell's step takes ``accum`` = 1, the JAX ``run_cell``'s default.

@@ -7,7 +7,13 @@ fixed-size state a layer (the conv tail and the recurrent state), whatever
 ``P`` is; a hybrid's attention layers add their K/V ring, min(max_len,
 attn_window) slots a layer, bounded by the window, not by ``P``: at
 recurrentgemma-2b's width and ``max_len`` ≥ 2048 the ring alone is 16 MiB
-a row (8 layers × k and v × 2048 × 256 × bf16). So a prefix cache needs no paged region: ONE decode-cache row
+a row (8 layers × k and v × 2048 × 256 × bf16). A dense model's attention
+keeps the whole context, a ring of ``max_len`` slots a layer: at
+stablelm-1.6b's width a row is 24 layers × k and v × max_len × 2048 ×
+bf16, 480 MiB at ``max_len`` 2560, more than the default budget below
+(64 MiB), which refuses any entry larger than itself: a dense prefix cache
+needs a ``max_bytes`` of several rows. Either way a prefix cache needs no
+paged region: ONE decode-cache row
 (every layer's state, in the ``LM.init_cache`` layout that ``snapshot()``
 persists) and the end-of-prefix logits are the whole artifact, and
 ``nbytes`` counts every leaf. A later request whose prompt starts with the
@@ -31,10 +37,11 @@ evictions (counters), bytes and entries (gauges).
 
 Layout of one stored row (``LM.init_cache`` with one slot):
 ``{"conv": (n_layers, 1, W-1, d_inner), "ssm": (n_layers, 1, d_inner, N)}``
-(Mamba-1) or ``"ssm": (n_layers, 1, H, P, N)`` (Mamba-2); a pattern
-config's groups, e.g. xlstm-125m's ``"0_mlstm.C"`` (2, 1, H, dh, dh) or
-recurrentgemma-2b's ``"2_attn.k"`` (8, 1, S, Hkv, hd), the same way (layer
-axis first, the row second).
+(Mamba-1) or ``"ssm": (n_layers, 1, H, P, N)`` (Mamba-2); the other
+families' groups, e.g. xlstm-125m's ``"0_mlstm.C"`` (2, 1, H, dh, dh),
+recurrentgemma-2b's ``"2_attn.k"`` (8, 1, S, Hkv, hd) or stablelm-1.6b's
+``"0_attn.k"`` (24, 1, max_len, Hkv, hd), the same way (layer axis first,
+the row second).
 """
 from __future__ import annotations
 

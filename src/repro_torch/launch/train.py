@@ -1,29 +1,36 @@
 """Training launcher of the port (``repro.launch.train`` on one card):
 packed training of a Mamba-1 or Mamba-2 model with the scan and conv
 kernels, of xlstm-125m (the conv kernels in its mLSTM layers; its mLSTM
-and sLSTM recurrences are plain PyTorch), or of recurrentgemma-2b (the
+and sLSTM recurrences are plain PyTorch), of recurrentgemma-2b (the
 conv kernels in its RG-LRU layers; the RG-LRU scan, the local attention
-and the MLPs are plain PyTorch).
+and the MLPs are plain PyTorch), or of a dense model such as
+stablelm-1.6b (full causal attention and a gated MLP every layer, all
+plain PyTorch: no kernel of the port's own runs).
 
   python -m repro_torch.launch.train --arch mamba-1.4b --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --arch mamba2-370m --rows 8 --seq-len 4096
   python -m repro_torch.launch.train --arch xlstm-125m --rows 2 --seq-len 4096
   python -m repro_torch.launch.train --arch recurrentgemma-2b --rows 2 --seq-len 4096
+  python -m repro_torch.launch.train --arch stablelm-1.6b --rows 2 --seq-len 4096
+  python -m repro_torch.launch.train --arch stablelm-1.6b --tiny --device cpu \\
+      --steps 3 --rows 2 --seq-len 128
   python -m repro_torch.launch.train --tiny --device cpu --steps 3 \\
       --rows 2 --seq-len 256 --ckpt-dir /tmp/ckpt --ckpt-every 1 \\
       --obs-trace /tmp/train_trace.json
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--tiny`` is the JAX
 launcher's: 4 layers of d_model 128, so for xlstm-125m 4 tail mLSTM
-layers (fewer than its 6-layer unit) and no sLSTM, and for
+layers (fewer than its 6-layer unit) and no sLSTM, for
 recurrentgemma-2b one unit and a tail rec layer (its head, MLP and
-recurrent widths stand). ``--scan-tune auto``
+recurrent widths stand), and for a dense model 4 attention layers whose
+head count, MLP width and head_dim stand (stablelm-1.6b: 32 heads of 4).
+``--scan-tune auto``
 (the process-default ``TUNE_CACHE_torch.json``) or ``--scan-tune <path>``
 sweeps the scan's schedules forward + backward at the run's (rows,
 seq-len) before the first step, unless the cache holds that key, and the
 model then runs the measured winner; a config with no selective scan
-(xLSTM, the hybrid) has nothing to sweep, and the flag does nothing, as
-in the JAX launcher.
+(xLSTM, the hybrid, a dense model) has nothing to sweep, and the flag
+does nothing, as in the JAX launcher.
 
 ``--ckpt-dir`` saves every ``--ckpt-every`` steps (default 50) and, on
 SIGTERM or SIGINT, once more before stopping; a launch whose directory

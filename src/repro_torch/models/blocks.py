@@ -1,15 +1,17 @@
-"""The Mamba-1, Mamba-2, mLSTM, sLSTM, RG-LRU and local-attention blocks
-and the gated MLP (port of the ``mamba``, ``mamba2``, ``mlstm``,
-``slstm``, ``rec``, ``attn`` and ``mlp`` parts of
-``repro.models.blocks``).
+"""The Mamba-1, Mamba-2, mLSTM, sLSTM, RG-LRU and attention blocks (local
+in the hybrid, full causal in the dense family) and the gated MLP (port of
+the ``mamba``, ``mamba2``, ``mlstm``, ``slstm``, ``rec``, ``attn`` and
+``mlp`` parts of ``repro.models.blocks``).
 
 ``init_<kind>`` makes a block's parameters, ``apply_<kind>`` runs it over
 a packed (B, L) buffer and ``step_<kind>`` over one decode token
 (``KINDS`` holds them by kind, ``layer_kinds`` gives each layer's,
 ``unit_layout`` the JAX sub-block names of one pattern unit). Every
-decode state is O(1) in the context but the local attention's: a K/V ring
-of S = min(max_len, attn_window) slots (``init_attn_cache``), slot
-``t % S`` holding token t, written at ``Ctx.cache_len``.
+decode state is O(1) in the context but the attention's: a K/V ring of S
+slots (``init_attn_cache``, ``ring_size``), slot ``t % S`` holding token
+t, written at ``Ctx.cache_len``; S = min(max_len, attn_window) for a
+local attention and max_len without a window, where the ring never wraps
+and is the JAX package's linear cache.
 Parameter names and layouts are the JAX package's: dense weights are (din,
 dout) and applied as ``x @ W`` (the transpose of ``nn.Linear.weight``),
 and every weight is cast to the activation dtype at use.
@@ -739,13 +741,15 @@ def chunk_slstm(p, x, cache, ctx: Ctx, cfg: ArchConfig):
 
 
 # ===========================================================================
-# hybrid (RecurrentGemma) blocks: RG-LRU, local attention, gated MLP
+# hybrid (RecurrentGemma) and dense blocks: RG-LRU, attention (local or
+# full causal), gated MLP
 # ===========================================================================
 # The RG-LRU block's conv is ``conv1d_pack`` (kernels #1 and #2 on the
 # card) in training, a packed prefill and a chunk slab; its decode step's
 # conv is ``conv1d_pack_update`` (plain, as in the JAX package). Its scan,
 # the attention and the MLP are plain PyTorch, as the JAX package runs
-# them in XLA with no Pallas kernel.
+# them in XLA with no Pallas kernel: a dense layer launches no kernel of
+# the port's own.
 
 
 def _gelu(x):
@@ -952,18 +956,22 @@ def _attn_qkv(p, x, ctx: Ctx, cfg: ArchConfig):
 
 
 def ring_size(cfg: ArchConfig, max_len: int) -> int:
-    """The K/V ring's slots: the window bounds the decode state."""
+    """The K/V ring's slots: the window bounds the decode state; without
+    one it is ``max_len``, the whole context (a dense layer)."""
     return max_len if cfg.attn_window is None else \
         min(max_len, cfg.attn_window)
 
 
 def apply_attn(p, x, ctx: Ctx, cfg: ArchConfig, collect: int = 0,
                collect_ends=None):
-    """x (B, L, d) → x + block(x) [, state]: causal local attention under
-    the segment mask, RoPE on intra-sequence positions. ``collect`` is
-    the cache's ``max_len``: the post-RoPE K/V are laid into a ring of
+    """x (B, L, d) → x + block(x) [, state]: causal attention under the
+    segment mask, within ``attn_window`` keys when the config has one
+    (the hybrid's local attention) and over the whole segment without (a
+    dense layer), RoPE on intra-sequence positions. ``collect`` is the
+    cache's ``max_len``: the post-RoPE K/V are laid into a ring of
     ``ring_size`` slots per row (``_ring_fill``) or, with
-    ``collect_ends``, per segment (``_ring_fill_ends``)."""
+    ``collect_ends``, per segment (``_ring_fill_ends``); without a window
+    S = max_len, so slot t holds token t."""
     Bz, L, _ = x.shape
     q, k, v = _attn_qkv(p, x, ctx, cfg)
     chunk = cfg.attn_chunk
@@ -1123,8 +1131,8 @@ CHUNK = {"mamba": chunk_mamba, "mamba2": chunk_mamba2, "mlstm": chunk_mlstm,
 
 
 # Per layer kind: (init, parameter shapes, apply, decode cache, decode
-# step); the attention's decode cache also takes ``max_len``
-# (``init_attn_cache``)
+# step); the attention's decode cache (local or full) also takes
+# ``max_len`` (``init_attn_cache``)
 KINDS = {
     "mamba": (init_mamba, mamba_param_shapes, apply_mamba, init_mamba_cache,
               step_mamba),
@@ -1138,12 +1146,12 @@ KINDS = {
     "attn": (init_attn, attn_param_shapes, apply_attn, init_attn_cache,
              step_attn),
 }
-# the MLP sub-block that follows each hybrid layer's block when d_ff > 0:
-# (init, parameter shapes, apply)
+# the MLP sub-block that follows each hybrid or dense layer's block when
+# d_ff > 0: (init, parameter shapes, apply)
 MLP = (init_mlp, mlp_param_shapes, apply_mlp)
 # the layer kinds of each family the port has
 FAMILY_KINDS = {"mamba": {"mamba", "mamba2"}, "xlstm": {"mlstm", "slstm"},
-                "hybrid": {"rec", "attn"}}
+                "hybrid": {"rec", "attn"}, "dense": {"attn"}}
 
 
 def layer_kinds(cfg: ArchConfig):
@@ -1155,7 +1163,8 @@ def layer_kinds(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}, unit {unit}; the port has "
             f"the Mamba-1 and Mamba-2 blocks, the xLSTM (mLSTM, sLSTM) "
-            f"blocks and the hybrid (RG-LRU, local attention) blocks only")
+            f"blocks, the hybrid (RG-LRU, local attention) blocks and the "
+            f"dense (full attention) block only: no MoE, audio or VLM")
     if cfg.family == "xlstm" and cfg.d_ff:
         raise NotImplementedError(
             f"{cfg.name}: d_ff = {cfg.d_ff} on an xLSTM unit; the port has "
@@ -1164,8 +1173,10 @@ def layer_kinds(cfg: ArchConfig):
 
 
 def has_mlp(cfg: ArchConfig) -> bool:
-    """True when every layer ends in the gated MLP (a hybrid with d_ff)."""
-    return cfg.family == "hybrid" and cfg.d_ff > 0
+    """True when every layer ends in the gated MLP: a hybrid or dense
+    config with d_ff (the JAX rule for its ``rec`` and ``attn`` layers; an
+    xLSTM unit with d_ff is refused by ``layer_kinds``)."""
+    return cfg.family in ("hybrid", "dense") and cfg.d_ff > 0
 
 
 def unit_layout(cfg: ArchConfig):

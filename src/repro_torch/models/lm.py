@@ -1,19 +1,21 @@
 """The language model (port of ``repro.models.lm`` for the families
-``mamba``, ``xlstm`` and ``hybrid``): embedding → ``n_layers`` blocks →
-RMSNorm → head. Layer ``i`` is of kind ``cfg.unit[i % len(cfg.unit)]``
-(``blocks.layer_kinds``): every layer a Mamba-1 or a Mamba-2 block,
-xLSTM's pattern unit of five mLSTM layers and one sLSTM, or
-RecurrentGemma's (rec, rec, attn) unit, each hybrid layer its block and
+``mamba``, ``xlstm``, ``hybrid`` and ``dense``): embedding → ``n_layers``
+blocks → RMSNorm → head. Layer ``i`` is of kind ``cfg.unit[i %
+len(cfg.unit)]`` (``blocks.layer_kinds``): every layer a Mamba-1 or a
+Mamba-2 block, xLSTM's pattern unit of five mLSTM layers and one sLSTM,
+RecurrentGemma's (rec, rec, attn) unit, or a dense stack's unit of one
+full causal ``attn`` layer; each hybrid or dense layer is its block and
 then a gated MLP, as in the JAX package (whole units, then tail layers
 that reuse the unit's prefix).
 
 ``LM`` is an ``nn.Module`` that holds its parameters under the JAX
-package's names (``embed``, ``layers.<i>.<block leaf>``, a hybrid layer's
-MLP as ``ffns.<i>.<leaf>``, ``final_norm``, and ``head`` unless the
-embedding is tied: then the head is ``embed.T`` and the embedding is
-scaled by √d_model); ``interop.params_from_jax`` maps a JAX tree onto
-them. Every family trains and serves; on each serving path a hybrid
-layer runs its block and then its MLP (``_mlp``), as in training.
+package's names (``embed``, ``layers.<i>.<block leaf>``, a hybrid or
+dense layer's MLP as ``ffns.<i>.<leaf>``, ``final_norm``, and ``head``
+unless the embedding is tied: then the head is ``embed.T`` and the
+embedding is scaled by √d_model); ``interop.params_from_jax`` maps a JAX
+tree onto them. Every family trains and serves; on each serving path a
+hybrid or dense layer runs its block and then its MLP (``_mlp``), as in
+training.
 
 Training: ``loss`` is the packed next-token cross-entropy; the parameters
 track gradients, ``remat="unit"`` recomputes each layer in the backward
@@ -32,7 +34,7 @@ Caches and harvested states are one flat dict whose every leaf has the
 layer axis first and the row axis second: a Mamba decode cache is
 ``{"conv": (n_layers, slots, W-1, di), "ssm": (n_layers, slots, di, N)}``
 (Mamba-1) or ``"ssm": (n_layers, slots, H, P, N)`` (Mamba-2), and a packed
-prefill's states carry ``(n_layers, B, S, …)``. A pattern config keeps
+prefill's states carry ``(n_layers, B, S, …)``. Every other family keeps
 one group per unit position ``j``: ``"<j>_<kind>.<leaf>"`` holds layers
 j, j + len(unit), … (tail layers included), e.g. xlstm-125m's
 ``"0_mlstm.C"`` (2, slots, H, dh, dh) and ``"5_slstm.h"`` (2, slots, H,
@@ -41,7 +43,12 @@ and ``"0_rec.h"`` (9, slots, lru_width) f32, ``"1_rec.conv"`` and
 ``"1_rec.h"`` (9, …), and ``"2_attn.k"``, ``"2_attn.v"`` (8, slots, S,
 Hkv, hd): the local attention's K/V ring of S = min(max_len, attn_window)
 slots, the one decode state that grows with the context (up to the
-window). Leaves named ``m`` are log-domain stabilisers, empty at −1e30.
+window). A dense stack's cache is ``"0_attn.k"`` and ``"0_attn.v"``
+(n_layers, slots, max_len, Hkv, hd): a ring of S = max_len slots that
+never wraps (slot t holds token t, the JAX linear cache), so a slot's row
+grows with the whole context: stablelm-1.6b's is 24 × 2 × max_len × 32 ×
+64 bf16 values, 480 MiB at max_len 2560. Leaves named ``m`` are
+log-domain stabilisers, empty at −1e30.
 
 The ring needs the cache's ``max_len`` (``init_cache``, ``prefill``,
 ``prefill_packed``) and each row's ``cache_len``, the tokens it has
@@ -88,9 +95,11 @@ class LM(nn.Module):
                                             device=self.device))
 
         # the cache groups: one per unit position j, holding layers j,
-        # j + U, …; keys unprefixed for a homogeneous (Mamba) stack
+        # j + U, …; keys unprefixed for a Mamba stack, the JAX sub-block
+        # name ("<j>_<kind>.") for every other family
         U = len(cfg.unit)
-        self._groups = [(f"{j}_{kind}." if cfg.pattern else "", kind)
+        named = cfg.family != "mamba"
+        self._groups = [(f"{j}_{kind}." if named else "", kind)
                         for j, kind in enumerate(cfg.unit[:cfg.n_layers])]
         self._where = [(self._groups[i % U][0], i // U)
                        for i in range(cfg.n_layers)]

@@ -128,10 +128,11 @@ def active_params(cfg) -> float:
     """Parameter count from each layer's sub-blocks' shapes
     (``models/blocks.py`` ``layer_kinds``, ``KINDS``, and ``MLP`` where
     the layer has one) plus the embedding, the final norm and the head (a
-    tied embedding counted once): no device, no allocation. The JAX
-    version scales expert weights to the top-k active set; the port has no
-    experts until slice 7 (ROADMAP queue 1), and that scaling belongs here
-    when they come."""
+    tied embedding counted once): no device, no allocation. A hybrid or
+    dense layer counts its block and its MLP (``blocks.has_mlp``). The
+    JAX version also scales expert weights to the top-k active set; the
+    port has no experts until the MoE slice (ROADMAP queue 1 item 5d-ii),
+    and that scaling belongs here when they come."""
     from repro_torch.models import blocks
 
     def count(shapes):

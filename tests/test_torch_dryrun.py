@@ -345,13 +345,20 @@ def test_cli_lists_and_names_no_mesh(capsys):
     assert len(lines) == 2 * 14
     # the four paper configs and xlstm-125m run both, and so does
     # recurrentgemma-2b (its windowed attention makes long_500k
-    # sub-quadratic); the other eight are skips
-    assert sum("RUN" in ln for ln in lines) == 2 * 5 + 2
+    # sub-quadratic); the four dense configs run train_4k only (full
+    # attention: long_500k is quadratic); the other four are skips
+    assert sum("RUN" in ln for ln in lines) == 2 * 5 + 2 + 4
     assert sum(ln.startswith("xlstm-125m") and "RUN" in ln
                for ln in lines) == 2
     rg = [ln for ln in lines if ln.startswith("recurrentgemma-2b")]
     assert "train_4k" in rg[0] and "RUN" in rg[0]
     assert "long_500k" in rg[1] and "RUN" in rg[1]
+    for arch in ("stablelm-1.6b", "gemma-7b", "deepseek-coder-33b",
+                 "deepseek-67b"):
+        dense = [ln for ln in lines if ln.startswith(arch + " ")]
+        assert "train_4k" in dense[0] and "RUN" in dense[0]
+        assert "long_500k" in dense[1] and "RUN" not in dense[1]
+        assert "quadratic" in dense[1]
     with pytest.raises(SystemExit):
         dryrun.main(["--help"])
     assert "--mesh has no counterpart" in " ".join(

@@ -1739,3 +1739,127 @@ def test_hybrid_engine_wraps_the_ring(cuda):
                                     device=cuda), cache_len=clen)
             clen = clen + 1
         assert outs[rid] == ref, rid
+
+
+# ---------------------------------------------------------------------------
+# the dense family (full causal attention on a max_len K/V cache, a gated
+# MLP every layer: plain PyTorch, no kernel of the port's own)
+# ---------------------------------------------------------------------------
+
+def _dense_pair(cuda):
+    """stablelm-1.6b.reduced() (2 layers, GQA 4 on 2, f32) with the same
+    weights on the card and on the CPU."""
+    cfg = get_config("stablelm-1.6b").reduced()
+    cpu = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cfg, card, cpu
+
+
+def _dense_close(got, ref):
+    got, ref = got.detach().cpu().double(), ref.detach().double()
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= \
+        1e-4 * max(1.0, ref.abs().max().item())
+
+
+def test_dense_lm_on_the_card_equals_the_cpu(cuda):
+    """A reduced dense LM's packed prefill, per-row prefill, 12 decode
+    steps and 3 chunk slabs on the card against the same model on the
+    CPU, f32: logits and every K/V leaf within 1e-4 of max(1, max |ref|);
+    no launch counter moves."""
+    cfg, card, cpu = _dense_pair(cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (11, 20, 5, 9, 14, 3)]
+    pb = tpk.pack(prompts, 32, policy="first_fit", num_rows=2)
+    ends = tpk.segment_ends(pb, 4)
+    batch = {"tokens": pb.tokens, "positions": pb.positions,
+             "segment_ids": pb.segment_ids}
+    tops.zero_launches()
+    outs = [m.prefill_packed(batch, ends, 64) for m in (card, cpu)]
+    _dense_close(outs[0][0], outs[1][0])
+    for k in outs[1][1]:
+        _dense_close(outs[0][1][k], outs[1][1][k])
+    rows = {"tokens": np.zeros((2, 20), np.int32),
+            "positions": np.tile(np.arange(20, dtype=np.int32), (2, 1)),
+            "segment_ids": np.zeros((2, 20), np.int32)}
+    for r, p in enumerate(prompts[:2]):
+        rows["tokens"][r, :len(p)] = p
+        rows["segment_ids"][r, :len(p)] = 1
+    (lg, cache, clen), (rlg, rcache, rclen) = (m.prefill(rows, 64)
+                                               for m in (card, cpu))
+    _dense_close(lg, rlg)
+    for step in range(12):
+        tok = torch.argmax(rlg, -1).to(torch.int32)[:, None]
+        lg, cache = card.decode_step(cache, tok.to(cuda),
+                                     cache_len=clen)
+        rlg, rcache = cpu.decode_step(rcache, tok, cache_len=rclen)
+        _dense_close(lg, rlg)
+        clen, rclen = clen + 1, rclen + 1
+    for k in rcache:
+        _dense_close(cache[k], rcache[k])
+    caches = [m.init_cache(2, 64) for m in (card, cpu)]
+    clens = [torch.zeros(2, dtype=torch.int32, device=d)
+             for d in (cuda, "cpu")]
+    for off in (0, 6, 12):
+        entries = {i: (p, off, max(0, min(6, len(p) - off)))
+                   for i, p in enumerate(prompts[:2])}
+        slab = tpk.suffix_slab(entries, 2, 6)
+        got = [m.prefill_chunk(c, slab, n)
+               for m, c, n in zip((card, cpu), caches, clens)]
+        _dense_close(got[0][0], got[1][0])
+        clens = [got[0][2], got[1][2]]
+    for k in caches[1]:
+        _dense_close(caches[0][k], caches[1][k])
+    torch.cuda.synchronize()
+    assert not any(tops.read_launches().values())
+
+
+def test_dense_engine_streams_on_the_card(cuda):
+    """The engine on the card (4 slots of 96, a 37-token prompt through
+    the chunk lane in slabs of 8): each greedy stream equals the request's
+    own ``prefill`` + ``decode_step`` on the card, bitwise, and no launch
+    counter moves."""
+    cfg, card, _ = _dense_pair(cuda)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 12, 30, 9, 37, 17)]
+    eng = ServeEngine(card, num_slots=4, max_len=96, prefill_rows=2,
+                      buckets=(16, 32), max_segments=2, chunk_size=8)
+    for p in prompts:
+        eng.submit(p, 6)
+    tops.zero_launches()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    assert not any(tops.read_launches().values())
+    assert eng.stats.chunk_rounds == 5
+    for rid, p in enumerate(prompts):
+        lg, cache, clen = card.prefill(
+            {"tokens": p[None], "positions": np.arange(
+                len(p), dtype=np.int32)[None],
+             "segment_ids": np.ones((1, len(p)), np.int32)}, 96)
+        ref = []
+        for _ in range(6):
+            ref.append(int(torch.argmax(lg[0])))
+            lg, cache = card.decode_step(
+                cache, torch.tensor([[ref[-1]]], dtype=torch.int32,
+                                    device=cuda), cache_len=clen)
+            clen = clen + 1
+        assert outs[rid] == ref, rid
+
+
+def test_dense_stablelm_row_bytes_on_the_card(cuda):
+    """stablelm-1.6b at full width and depth, bf16: one slot's cache at
+    max_len 2560 on the card is every layer's K and V, 24 × 2 × 2560 × 32
+    × 64 × 2 bytes = 480 MiB."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              param_dtype="bfloat16")
+    model = LM(cfg, cuda)
+    row = model.init_cache(1, 2560)
+    assert sorted(row) == ["0_attn.k", "0_attn.v"]
+    assert all(t.device.type == "cuda" and t.dtype == torch.bfloat16
+               for t in row.values())
+    nbytes = sum(t.numel() * t.element_size() for t in row.values())
+    assert nbytes == cfg.n_layers * 2 * 2560 * cfg.n_kv_heads * cfg.hd * 2
+    assert nbytes == 480 * 2 ** 20

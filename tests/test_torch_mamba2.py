@@ -126,8 +126,10 @@ def test_config_matches_jax():
         (jr.n_ssm_heads, jr.ssm_hd, jr.d_inner) == (8, 16, 128)
     with pytest.raises(ValueError, match="d_inner"):
         dataclasses.replace(cfg, ssm_heads=5).ssm_hd
-    with pytest.raises(NotImplementedError, match="Mamba-1 and Mamba-2"):
-        LM(dataclasses.replace(cfg, family="dense"), "cpu")
+    # a family the port lacks (the MoE's ("moe_attn",) unit) is refused
+    with pytest.raises(NotImplementedError,
+                       match="Mamba-1 and Mamba-2.*no MoE"):
+        LM(dataclasses.replace(cfg, family="moe"), "cpu")
 
 
 # ------------------------------------------------------------------- block

@@ -98,8 +98,9 @@ def test_bounds_have_no_default_card():
         2 * km.work_bound_ms(w, H100)[0], rel=1e-15)
 
 
-@pytest.mark.parametrize("arch", PAPER + ["xlstm-125m",
-                                          "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", PAPER + [
+    "xlstm-125m", "recurrentgemma-2b", "stablelm-1.6b", "gemma-7b",
+    "deepseek-coder-33b", "deepseek-67b"])
 def test_active_params_and_model_flops_match_jax(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert an.active_params(cfg) == jan.active_params(jcfg)
